@@ -1,0 +1,72 @@
+"""Framework configuration for the PyTorch port (the knobs its code reads).
+
+One `settings` object.  Each field is seeded from its BPTPU_* environment
+variable at import; code paths read `settings.<field>` at call time, so
+tests and embedders can also flip them directly before first use.
+
+| field                  | env var                   | consumer |
+|------------------------|---------------------------|----------|
+| no_native              | BPTPU_NO_NATIVE           | core/_native.py (force pure-Python) |
+| fused_verify_chunk     | BPTPU_FUSED_VERIFY_CHUNK  | parallel/batch_verify sub-batch size (0 = default) |
+| require_consttime      | BPTPU_REQUIRE_CONSTTIME   | vartime_witness_fallback (hard gate) |
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+@dataclass
+class Settings:
+    # force the pure-Python curve/scalar oracle (tests cross-check backends)
+    no_native: bool = field(
+        default_factory=lambda: bool(os.environ.get("BPTPU_NO_NATIVE")))
+
+    # fused-path sub-batch size (proofs per device dispatch); 0 = the
+    # BatchVerifier default (2048)
+    fused_verify_chunk: int = field(
+        default_factory=lambda: _env_int("BPTPU_FUSED_VERIFY_CHUNK", 0))
+
+    # witness-carrying proving REQUIRES the constant-time native backend:
+    # raise instead of falling back to the variable-time pure-Python oracle.
+    # Default off: the fallback warns once and proceeds (test oracle use).
+    require_consttime: bool = field(
+        default_factory=lambda: bool(os.environ.get("BPTPU_REQUIRE_CONSTTIME")))
+
+
+settings = Settings()
+
+
+class VartimeFallbackWarning(RuntimeWarning):
+    """A witness-carrying operation ran on the variable-time pure-Python
+    path because the constant-time native backend is unavailable."""
+
+
+_vartime_warned: set = set()
+
+
+def vartime_witness_fallback(what: str) -> None:
+    """Gate for witness-carrying operations about to run variable-time:
+    raise under settings.require_consttime, warn once per call site
+    otherwise (the pure-Python oracle makes no timing guarantees)."""
+    if settings.require_consttime:
+        raise RuntimeError(
+            f"{what}: constant-time native backend unavailable and "
+            "BPTPU_REQUIRE_CONSTTIME is set; refusing to run "
+            "witness-carrying code on the variable-time pure-Python path")
+    if what not in _vartime_warned:
+        _vartime_warned.add(what)
+        import warnings
+        warnings.warn(
+            f"{what}: running witness-carrying code on the VARIABLE-TIME "
+            "pure-Python fallback (native backend unavailable); timing "
+            "side-channels are not mitigated on this path",
+            VartimeFallbackWarning, stacklevel=3)

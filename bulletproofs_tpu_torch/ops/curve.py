@@ -1,0 +1,183 @@
+"""Batched ristretto255 / edwards25519 point operations on limb tensors,
+and kernel K1: batch point decompression.
+
+Points are (4, 10, N) int32 tensors: extended twisted Edwards coordinates
+(X : Y : Z : T) on axis 0, field limbs (ops/limbs.py) on axis 1, the batch
+on the last axis -- the JAX package's ops/vec_curve.py layout with the
+port's limb radix.  Formulas are add-2008-hwcd-3 / madd-2008-hwcd-3 /
+dbl-2008-hwcd for a = -1 as in the JAX package's ops/pallas_math.py, and
+csrc/fe25519.cuh repeats them operation for operation, so a kernel's
+output equals its plain version's limb for limb.
+
+The coordinate functions (`add`, `madd`, `double`) work on 4-tuples of
+int64 (..., 10, N) tensors; `decompress` and the lane conversions are the
+public entry points.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import field as host_field
+from . import _cuda
+from . import field as F
+from .limbs import FE_LIMBS, canonical_mask, fe_from_bytes, fe_ints_to_limbs, \
+    fe_limbs_to_ints
+
+L = FE_LIMBS
+
+Coords = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+# -- point formulas on coordinate tuples (int64 limbs) ------------------------
+
+def add(p: Coords, q: Coords) -> Coords:
+    """Complete unified addition add-2008-hwcd-3 (pallas_math.ed_add)."""
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2 = q
+    A = F.mul(F.sub(Y1, X1), F.sub(Y2, X2))
+    B = F.mul(F.add(Y1, X1), F.add(Y2, X2))
+    C = F.mul(F.mul(T1, F.const("d2", T1.device)), T2)
+    D = F.mul_small(F.mul(Z1, Z2), 2)
+    E, Fv, G, H = F.sub(B, A), F.sub(D, C), F.add(D, C), F.add(B, A)
+    return F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)
+
+
+def madd(p: Coords, niels: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+         ) -> Coords:
+    """Mixed addition of a Z = 1 point in Niels form (Y+X, Y-X, 2dT):
+    7 multiplications (msm_pallas._accum_kernel_niels)."""
+    X1, Y1, Z1, T1 = p
+    ypx, ymx, t2d = niels
+    A = F.mul(F.sub(Y1, X1), ymx)
+    B = F.mul(F.add(Y1, X1), ypx)
+    C = F.mul(T1, t2d)
+    D = F.mul_small(Z1, 2)
+    E, Fv, G, H = F.sub(B, A), F.sub(D, C), F.add(D, C), F.add(B, A)
+    return F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)
+
+
+def double(p: Coords) -> Coords:
+    """dbl-2008-hwcd for a = -1: 4M + 4S (pallas_math.ed_double)."""
+    X1, Y1, Z1, _ = p
+    A = F.square(X1)
+    B = F.square(Y1)
+    C = F.mul_small(F.square(Z1), 2)
+    H = F.add(A, B)
+    E = F.sub(H, F.square(F.add(X1, Y1)))
+    G = F.sub(A, B)
+    Fv = F.add(C, G)
+    return F.mul(E, Fv), F.mul(G, H), F.mul(Fv, G), F.mul(E, H)
+
+
+def is_identity(p: Coords) -> torch.Tensor:
+    """Ristretto equality with the identity (0 : 1 : 1 : 0): X == 0 or
+    Y == 0 (pallas_math.is_identity).  Decoded representatives may carry
+    4-torsion, so this is NOT the Edwards identity test."""
+    return F.eq_zero(p[0]) | F.eq_zero(p[1])
+
+
+def identity(n: int, device) -> torch.Tensor:
+    """(4, 10, n) int32 identity points."""
+    pt = torch.zeros((4, L, n), dtype=torch.int32, device=device)
+    pt[1, 0] = 1
+    pt[2, 0] = 1
+    return pt
+
+
+def to_coords(pts: torch.Tensor) -> Coords:
+    p = pts.to(torch.int64)
+    return p[0], p[1], p[2], p[3]
+
+
+def from_coords(c: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(list(c)).to(torch.int32)
+
+
+# -- K1: decompression ---------------------------------------------------------
+
+def decode(s: torch.Tensor):
+    """RFC 9496 DECODE of (10, N) int64 limbs -> (valid (N,) bool, coords);
+    canonicity of the bytes is checked separately (pallas_math.decompress)."""
+    ss = F.square(s)
+    one = F.const("one", s.device).expand_as(ss)
+    u1 = F.sub(one, ss)
+    u2 = F.add(one, ss)
+    u2_sqr = F.square(u2)
+    v = F.sub(F.neg(F.mul(F.const("d", s.device), F.square(u1))), u2_sqr)
+    was_square, invsqrt = F.sqrt_ratio_m1(one, F.mul(v, u2_sqr))
+    den_x = F.mul(invsqrt, u2)
+    den_y = F.mul(F.mul(invsqrt, den_x), v)
+    x = F.ct_abs(F.mul(F.mul_small(s, 2), den_x))
+    y = F.mul(u1, den_y)
+    t = F.mul(x, y)
+    valid = was_square & (F.is_negative(t) == 0) & ~F.eq_zero(y)
+    return valid, (x, y, one, t)
+
+
+def decompress_plain(raw: torch.Tensor):
+    """(N, 32) uint8 encodings -> (valid (N,) bool, points (4, 10, N)
+    int32).  Valid means canonical bytes AND a successful decode
+    (vec_curve.decompress_device)."""
+    valid, pt = decode(fe_from_bytes(raw))
+    return valid & canonical_mask(raw), from_coords(pt)
+
+
+def decompress(raw: torch.Tensor):
+    """Kernel K1 (csrc/decompress.cu) on a CUDA tensor, the plain version
+    on a CPU tensor: (N, 32) uint8 -> (valid (N,) bool, points
+    (4, 10, N) int32)."""
+    if raw.dim() != 2 or raw.shape[1] != 32 or raw.dtype != torch.uint8:
+        raise ValueError("decompress takes an (N, 32) uint8 tensor")
+    if raw.device.type == "cpu":
+        return decompress_plain(raw)
+    raw = _cuda.check(raw, torch.uint8)
+    n = raw.shape[0]
+    valid = torch.empty(n, dtype=torch.uint8, device=raw.device)
+    pts = torch.empty((4, L, n), dtype=torch.int32, device=raw.device)
+    if n:
+        _cuda.launch("decompress", "decompress", "bp_decompress", raw, valid,
+                     pts, n)
+    return valid.bool(), pts
+
+
+def to_niels(pts: torch.Tensor) -> torch.Tensor:
+    """(4, 10, N) Z = 1 points -> (3, 10, N) int32 Niels form
+    (Y+X, Y-X, 2dT) (msm_pallas.to_niels_lanes).  Plain torch on either
+    device: it is XLA glue in the JAX package, not a Pallas kernel."""
+    X, Y, _, T = to_coords(pts)
+    return torch.stack([F.add(Y, X), F.sub(Y, X),
+                        F.mul(T, F.const("d2", T.device))]).to(torch.int32)
+
+
+# -- host conversions ------------------------------------------------------------
+
+def points_to_lanes(points) -> np.ndarray:
+    """Host RistrettoPoints -> (4, 10, N) int32 canonical limbs."""
+    vals = [c for p in points for c in (p.X, p.Y, p.Z, p.T)]
+    arr = fe_ints_to_limbs(vals).reshape(L, len(points), 4)
+    return np.ascontiguousarray(arr.transpose(2, 0, 1)).astype(np.int32)
+
+
+def lanes_to_points(arr) -> List:
+    """(4, 10, N) limbs -> host RistrettoPoints."""
+    from ..core.ristretto import RistrettoPoint
+    arr = np.asarray(arr, np.int64)
+    n = arr.shape[-1]
+    coords = [fe_limbs_to_ints(arr[c]) for c in range(4)]
+    return [RistrettoPoint(coords[0][i], coords[1][i], coords[2][i],
+                           coords[3][i]) for i in range(n)]
+
+
+def normalized(points) -> List:
+    """The same host points with Z = 1 (a change of representation)."""
+    P = host_field.P
+    out = []
+    for p in points:
+        zi = pow(p.Z, P - 2, P)
+        x, y = p.X * zi % P, p.Y * zi % P
+        out.append(type(p)(x, y, 1, x * y % P))
+    return out

@@ -1,0 +1,169 @@
+"""Pippenger multi-scalar multiplication for Z = 1 points in Niels form:
+kernels K3 (bucket accumulation) and K4 (bucket reduction, then the Horner
+window combine with the ristretto is-identity flag), csrc/msm.cu.
+
+The JAX package's ops/msm_pallas.py `_msm_pallas_niels` in the port's
+layout: signed base-16 digits in [-8, 8] over 64 windows (ops/scalar.
+signed_digits makes them), 8 buckets per window, `lanes` independent
+accumulators per window (`pick_lanes` of the point count).  Point k goes
+to lane k % lanes; a lane adds its
+points in order of k.  Each kernel has its plain PyTorch version here,
+which a wrapper runs for CPU tensors; the two agree limb for limb.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _cuda
+from . import curve as C
+from .limbs import FE_LIMBS
+
+L = FE_LIMBS
+NUM_WINDOWS = 64
+NUM_BUCKETS = 8
+MAX_LANES = 512
+
+
+def pick_lanes(n: int) -> int:
+    """Accumulators per window: a power of two from 32 to 512, about n / 64
+    points per lane (the JAX package used 512 at its verifier's sizes)."""
+    lanes = 32
+    while lanes < MAX_LANES and lanes * 64 < n:
+        lanes *= 2
+    return lanes
+
+
+def _niels_identity(n: int, device) -> torch.Tensor:
+    ident = torch.zeros((3, L, n), dtype=torch.int32, device=device)
+    ident[0, 0] = 1
+    ident[1, 0] = 1
+    return ident
+
+
+# -- K3: bucket accumulation -----------------------------------------------------
+
+def accumulate_plain(niels: torch.Tensor,
+                     digits: torch.Tensor) -> torch.Tensor:
+    """niels (3, 10, N) int32, digits (64, N) int8 -> slab
+    (64, 8, 4, 10, pick_lanes(N)) int32 of bucket sums (bucket b holds
+    digit magnitude b + 1)."""
+    n = niels.shape[-1]
+    lanes = pick_lanes(n)
+    steps = -(-n // lanes)
+    pad = steps * lanes - n
+    dev = niels.device
+    if pad:
+        niels = torch.cat([niels, _niels_identity(pad, dev)], dim=-1)
+        digits = torch.cat([digits, torch.zeros((NUM_WINDOWS, pad),
+                                                dtype=digits.dtype,
+                                                device=dev)], dim=-1)
+    pre = niels.to(torch.int64).reshape(3, L, steps, lanes)
+    digs = digits.to(torch.int64).reshape(NUM_WINDOWS, steps, lanes)
+    # slot 0 is a sink for digit 0; slots 1..8 are the buckets
+    slab = C.identity(1, dev).to(torch.int64).reshape(1, 1, 4, L, 1).expand(
+        NUM_WINDOWS, NUM_BUCKETS + 1, 4, L, lanes).contiguous()
+    for s in range(steps):
+        d = digs[:, s]                                       # (64, lanes)
+        neg = (d < 0)[:, None, :]
+        ypx, ymx, t2d = (pre[c, :, s][None].expand(NUM_WINDOWS, L, lanes)
+                         for c in range(3))
+        q = (torch.where(neg, ymx, ypx), torch.where(neg, ypx, ymx),
+             torch.where(neg, -t2d, t2d))
+        idx = d.abs()[:, None, None, None, :].expand(NUM_WINDOWS, 1, 4, L,
+                                                      lanes)
+        cur = slab.gather(1, idx)[:, 0]                      # (64, 4, L, lanes)
+        new = torch.stack(C.madd((cur[:, 0], cur[:, 1], cur[:, 2], cur[:, 3]),
+                                 q), dim=1)
+        slab.scatter_(1, idx, new[:, None])
+    return slab[:, 1:].to(torch.int32).contiguous()
+
+
+def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Kernel K3 on CUDA tensors, the plain version on CPU tensors."""
+    n = niels.shape[-1]
+    if niels.shape[:2] != (3, L) or digits.shape != (NUM_WINDOWS, n):
+        raise ValueError("accumulate takes niels (3, 10, N), digits (64, N)")
+    if niels.device.type == "cpu":
+        return accumulate_plain(niels, digits)
+    lanes = pick_lanes(n)
+    _cuda.check(niels, torch.int32)
+    _cuda.check(digits, torch.int8)
+    slab = torch.empty((NUM_WINDOWS, NUM_BUCKETS, 4, L, lanes),
+                       dtype=torch.int32, device=niels.device)
+    _cuda.launch("msm_accumulate", "msm", "bp_msm_accumulate", niels, digits,
+                 slab, n, lanes)
+    return slab
+
+
+# -- K4: bucket reduction and Horner combine --------------------------------------
+
+def reduce_plain(slab: torch.Tensor) -> torch.Tensor:
+    """(64, 8, 4, 10, lanes) -> (64, 8, 4, 10): each bucket's lanes summed
+    by a halving tree (lane j + lane j + half at every level)."""
+    v = slab.to(torch.int64)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        a, b = v[..., :h], v[..., h:]
+        v = torch.stack(C.add((a[:, :, 0], a[:, :, 1], a[:, :, 2], a[:, :, 3]),
+                              (b[:, :, 0], b[:, :, 1], b[:, :, 2], b[:, :, 3])),
+                        dim=2)
+    return v[..., 0].to(torch.int32).contiguous()
+
+
+def reduce(slab: torch.Tensor) -> torch.Tensor:
+    """Kernel K4a (msm_reduce) on CUDA tensors, the plain version on CPU."""
+    lanes = slab.shape[-1]
+    if slab.shape[:4] != (NUM_WINDOWS, NUM_BUCKETS, 4, L) or lanes < 2 \
+            or lanes & (lanes - 1) or lanes > MAX_LANES:
+        raise ValueError("reduce takes a (64, 8, 4, 10, lanes) slab")
+    if slab.device.type == "cpu":
+        return reduce_plain(slab)
+    _cuda.check(slab, torch.int32)
+    sums = torch.empty((NUM_WINDOWS, NUM_BUCKETS, 4, L), dtype=torch.int32,
+                       device=slab.device)
+    _cuda.launch("msm_reduce", "msm", "bp_msm_reduce", slab, sums, lanes)
+    return sums
+
+
+def horner_plain(sums: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(64, 8, 4, 10) bucket sums -> (point (4, 10) int32, flag (1,) bool):
+    S_w = sum_b (b + 1) B_b by the double running sum, then
+    sum_w 16^w S_w by Horner; the flag is ristretto equality with the
+    identity."""
+    v = sums.to(torch.int64).permute(1, 2, 3, 0)           # (8, 4, 10, 64)
+    running = tuple(v[NUM_BUCKETS - 1])                     # (10, 64) each
+    total = running
+    for b in range(NUM_BUCKETS - 2, -1, -1):
+        running = C.add(running, tuple(v[b]))
+        total = C.add(total, running)
+    acc = tuple(c[:, 63:64] for c in total)                 # (10, 1) each
+    for i in range(62, -1, -1):
+        for _ in range(4):
+            acc = C.double(acc)
+        acc = C.add(acc, tuple(c[:, i: i + 1] for c in total))
+    flag = C.is_identity(acc)
+    return torch.stack([c[:, 0] for c in acc]).to(torch.int32), flag
+
+
+def horner(sums: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K4b (msm_horner) on CUDA tensors, the plain version on CPU."""
+    if sums.shape != (NUM_WINDOWS, NUM_BUCKETS, 4, L):
+        raise ValueError("horner takes (64, 8, 4, 10) bucket sums")
+    if sums.device.type == "cpu":
+        return horner_plain(sums)
+    _cuda.check(sums, torch.int32)
+    out = torch.empty((4, L), dtype=torch.int32, device=sums.device)
+    flag = torch.empty(1, dtype=torch.int32, device=sums.device)
+    _cuda.launch("msm_horner", "msm", "bp_msm_horner", sums, out, flag)
+    return out, flag.bool()
+
+
+def msm_niels(niels: torch.Tensor,
+              digits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sum_k digits[:, k] . P_k for Niels points (3, 10, N) and signed
+    digits (64, N) int8 -> (point (4, 10) int32, is-identity flag (1,)
+    bool), on the device of the inputs."""
+    return horner(reduce(accumulate(niels, digits)))

@@ -1,0 +1,181 @@
+"""Batch-verification scalar emit (kernel K2, csrc/emit.cu) and the fused
+device tail of one sub-batch: emit -> static scalars -> mega-MSM -> accept.
+
+The JAX package's ops/verify_pallas.py (`emit_digits`, `_lane_tree_sum`,
+`fused_tail`).  Its challenge-block layout (written by the host replay,
+native/verify_prep.cpp rangeproof_verify_replay_batch_c), per proof:
+  [0..lg) u | lg+0 r | +1 x | +2 rc | +3 z | +4 y^-1 | +5 -a | +6 -b
+  | +7 prod(u)^-1
+All scalars stay canonical; the arithmetic runs in the Montgomery domain
+(ops/scalar.py).  The emit writes the dynamic coefficients' digits in
+proof-major order (column p * n_dyn + slot), the order of the dynamic
+points, and per-tile partial sums of the static g/h coefficients.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from ..core.scalar import L as ELL
+from . import _cuda
+from . import curve as C
+from . import msm as M
+from . import scalar as S
+from .limbs import SC_LIMBS, sc_ints_to_limbs
+
+EMIT_TILE = 8          # proofs per emit block (per partial g/h sum)
+_LG_MAX, _M_MAX = 10, 16
+
+
+def shape(n: int, m: int):
+    """(lg, challenge-block scalars per proof, dynamic points per proof)."""
+    lg = (n * m).bit_length() - 1
+    return lg, lg + 8, 4 + 2 * lg + m
+
+
+@lru_cache(maxsize=None)
+def _pow2_mont(n: int):
+    """(n, 9) int32 limbs of 2^i R mod l, i < n."""
+    return torch.as_tensor(sc_ints_to_limbs(
+        [(pow(2, i, ELL) * S.ONE_M) % ELL for i in range(n)]).T.copy(),
+        dtype=torch.int32)
+
+
+# -- K2: emit ------------------------------------------------------------------
+
+def _bits_product(seed, factors, lg):
+    """rows[i] = seed * prod_{bit j of i} factors[lg-1-j] (Montgomery), by
+    lg doublings of the row axis (verify_stages._doubling_powers_from_usq)."""
+    rows = seed[None]
+    for j in range(lg):
+        rows = torch.cat([rows, S.mont_mul(rows, factors[lg - 1 - j])], dim=0)
+    return rows
+
+
+def emit_plain(n: int, m: int, blk: torch.Tensor):
+    """blk (P, lg + 8, 32) uint8 -> (digits (64, P * n_dyn) int8,
+    partial (ceil(P / EMIT_TILE), 2, nm, 9) int32 canonical)."""
+    nm = n * m
+    lg, nblk, n_dyn = shape(n, m)
+    P = blk.shape[0]
+    T = -(-P // EMIT_TILE)
+    dev = blk.device
+    raw = torch.zeros((T * EMIT_TILE, nblk, 32), dtype=torch.uint8, device=dev)
+    raw[:P] = blk
+    v = S.to_mont(S.from_bytes32(raw.reshape(-1, 32))).reshape(
+        SC_LIMBS, T * EMIT_TILE, nblk)
+    u = [v[:, :, k] for k in range(lg)]
+    r, x, rc, z, y_inv, neg_a, neg_b, allinv = (v[:, :, lg + j]
+                                                for j in range(8))
+    one = S.const(S.ONE_M, dev).expand_as(r)
+    mm = S.mont_mul
+
+    pres = [one]
+    for k in range(1, lg):
+        pres.append(mm(pres[-1], u[k - 1]))
+    sufs = [None] * lg + [one]
+    for k in range(lg - 1, -1, -1):
+        sufs[k] = mm(sufs[k + 1], u[k])
+    u_sq = [mm(uk, uk) for uk in u]
+    u_inv_sq = []
+    for k in range(lg):
+        uinv = mm(mm(allinv, pres[k]), sufs[k + 1])
+        u_inv_sq.append(mm(uinv, uinv))
+    ypow2 = [y_inv]
+    for _ in range(1, lg):
+        ypow2.append(mm(ypow2[-1], ypow2[-1]))
+    t0, t0r = mm(r, allinv), mm(r, sufs[0])
+    rx, rcx = mm(r, x), mm(rc, x)
+    rcxx = mm(rcx, x)
+    rz = mm(r, z)
+    rzz = mm(rz, z)
+    rczz = mm(mm(rc, z), z)
+
+    # dynamic coefficients, slot order [r, rx, rcx, rcxx, r u^2.., r u^-2.., V..]
+    slots = [r, rx, rcx, rcxx] + [mm(r, s) for s in u_sq] \
+        + [mm(r, s) for s in u_inv_sq]
+    rzz_zj, zp = [], one
+    for _ in range(m):
+        slots.append(mm(rczz, zp))
+        rzz_zj.append(mm(rzz, zp))
+        zp = mm(zp, z)
+    dyn = torch.stack(slots, dim=-1)[:, :P]                 # (9, P, n_dyn)
+    digits = S.signed_digits(S.from_mont(dyn.reshape(SC_LIMBS, P * n_dyn)))
+
+    # static coefficients per (i, proof): (nm, 9, P') rows
+    t = _bits_product(t0, u_sq, lg)
+    t_rev = _bits_product(t0r, u_inv_sq, lg)
+    yp = _bits_product(one, ypow2[::-1], lg)
+    g = S.sadd(S.sneg(rz), mm(neg_a, t))
+    pw = _pow2_mont(n).to(dev, torch.int64)[:, :, None]     # (n, 9, 1)
+    term1 = torch.cat([mm(zj[None], pw) for zj in rzz_zj])  # (nm, 9, P')
+    h = S.sadd(rz, mm(yp, S.sadd(term1, mm(neg_b, t_rev))))
+
+    def tile_sums(rows):
+        rows = rows.reshape(nm, SC_LIMBS, T, EMIT_TILE)
+        acc = rows[..., 0]
+        for q in range(1, EMIT_TILE):
+            acc = S.sadd(acc, rows[..., q])
+        return S.from_mont(acc).permute(2, 0, 1)            # (T, nm, 9)
+
+    partial = torch.stack([tile_sums(g), tile_sums(h)], dim=1)
+    return digits, partial.to(torch.int32).contiguous()
+
+
+def emit(n: int, m: int, blk: torch.Tensor):
+    """Kernel K2 on a CUDA tensor, the plain version on a CPU tensor."""
+    lg, nblk, _ = shape(n, m)
+    if blk.dim() != 3 or blk.shape[1:] != (nblk, 32) or blk.dtype != torch.uint8:
+        raise ValueError(f"emit takes a (P, {nblk}, 32) uint8 tensor")
+    if n * m != 1 << lg or lg > _LG_MAX or m > _M_MAX:
+        raise ValueError("emit supports power-of-two n*m <= 1024, m <= 16")
+    if blk.device.type == "cpu":
+        return emit_plain(n, m, blk)
+    _cuda.check(blk, torch.uint8)
+    P = blk.shape[0]
+    _, _, n_dyn = shape(n, m)
+    digits = torch.empty((64, P * n_dyn), dtype=torch.int8, device=blk.device)
+    partial = torch.empty((-(-P // EMIT_TILE), 2, n * m, SC_LIMBS),
+                          dtype=torch.int32, device=blk.device)
+    if P:
+        pow2 = _pow2_mont(n).to(blk.device)
+        _cuda.launch("emit", "emit", "bp_emit", blk, pow2, digits, partial,
+                     P, n, m, EMIT_TILE)
+    return digits, partial
+
+
+def tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """(T, ..., 9) canonical scalars -> (..., 9) their sum mod l, by a
+    halving tree over the leading axis (verify_pallas._lane_tree_sum)."""
+    v = v.to(torch.int64).movedim(-1, -2)                   # limbs at -2
+    while v.shape[0] > 1:
+        h = v.shape[0] // 2
+        lo = S.sadd(v[:h], v[h: 2 * h])
+        v = torch.cat([lo, v[2 * h:]], dim=0) if v.shape[0] % 2 else lo
+    return v[0].movedim(-2, -1)
+
+
+# -- the fused tail of one sub-batch ----------------------------------------------
+
+def fused_tail(n: int, m: int, blk: torch.Tensor, pair: torch.Tensor,
+               static_niels: torch.Tensor, dyn_pts: torch.Tensor,
+               dyn_valid: torch.Tensor) -> torch.Tensor:
+    """Emit -> static g/h sums -> signed digits -> mega-MSM over the static
+    generators and the dynamic points -> (1,) bool accept flag: the MSM is
+    the identity AND every dynamic point decoded (verify_pallas.fused_tail).
+
+    blk (P, lg + 8, 32) uint8 challenge blocks, pair (2, 32) uint8 host
+    sums of the B_blinding / B scalars, static_niels (3, 10, 2 + 2nm),
+    dyn_pts (4, 10, P * n_dyn) and dyn_valid (P * n_dyn,) from `decompress`
+    of the proof-major dynamic point stream.  Runs on the inputs' device
+    without synchronising."""
+    dyn_digits, partial = emit(n, m, blk)
+    gh = tree_sum(partial)                                   # (2, nm, 9)
+    pair_sc = S.sreduce(S.from_bytes32(pair))                # (9, 2)
+    static_sc = torch.cat([pair_sc, gh[0].T, gh[1].T], dim=-1)
+    digits = torch.cat([S.signed_digits(static_sc), dyn_digits], dim=-1)
+    niels = torch.cat([static_niels, C.to_niels(dyn_pts)], dim=-1)
+    _, flag = M.msm_niels(niels.contiguous(), digits.contiguous())
+    return flag & dyn_valid.all()

@@ -1,0 +1,397 @@
+"""Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--distinct 2048] [--total 8192] [--runs 5]
+
+Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
+  1. holds every kernel against its plain PyTorch version on the card, at
+     the shapes of the main path (one 2048-proof sub-batch of 64-bit range
+     proofs), and the MSM against the host curve library on a small input;
+  2. drives the main path: host-proves `--distinct` n=64 range proofs with
+     the port's host prover, tiles them to `--total` proofs and runs
+     BatchVerifier.verify_batch on the card (must accept), then with one
+     flipped byte and with two swapped commitments (must reject), then
+     times a warm-up and the best of `--runs` runs;
+  3. prints the kernels' launch counts on the main path, their times
+     beside the plain versions' and their bounds as one JSON line, the
+     card's name and power limit, and last the device line.
+Exits non-zero on any failure, and at once when there is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import subprocess
+import sys
+import time
+
+import torch
+
+DEVICE = "cuda"
+# HBM3 rate of one H100 SXM (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12
+# 32-bit integer multiply-adds per clock per SM at compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table);
+# times the card's SMs and maximum SM clock, read in main(), that is the
+# peak integer rate.  The kernels' unit of work, a 32 x 32 -> 64-bit limb
+# product, takes two of them (low and high word).
+IMAD_PER_CLOCK_SM = 64
+IMADS_PER_PRODUCT = 2
+FMUL_PRODUCTS = 100     # one field multiplication: 10 x 10 limb products
+MONT_PRODUCTS = 171     # one Montgomery multiplication: 9 x (9 + 1 + 9)
+
+
+class Rng:
+    """Seeded byte source with the interface the prover and verifier use."""
+
+    def __init__(self, seed: int):
+        self.r = random.Random(seed)
+
+    def randbytes(self, n: int) -> bytes:
+        return self.r.randbytes(n)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` launches, after one warm-up,
+    by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a, b) -> float:
+    if isinstance(a, (tuple, list)):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def peak_imads() -> float:
+    """32-bit integer multiply-adds per second of card 0 at its maximum SM
+    clock."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * IMAD_PER_CLOCK_SM * float(mhz.split()[0]) * 1e6
+
+
+def bound(nbytes: float, products: float, imads_per_s: float):
+    """Least milliseconds for moving `nbytes` and making `products` limb
+    products, and which of the two bounds it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = products * IMADS_PER_PRODUCT / imads_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def count_fmuls(fn):
+    """Field multiplications the plain version makes in fn() (the CUDA
+    kernels repeat its arithmetic step for step)."""
+    from bulletproofs_tpu_torch.ops import field as F
+    real, calls = F.mul, [0]
+
+    def counting(a, b):
+        calls[0] += 1
+        return real(a, b)
+
+    F.mul = counting
+    try:
+        fn()
+    finally:
+        F.mul = real
+    return calls[0]
+
+
+def emit_mont_muls(n: int, m: int, P: int, tile: int) -> int:
+    """Montgomery multiplications csrc/emit.cu makes for P proofs."""
+    lg = (n * m).bit_length() - 1
+    n_dyn = 4 + 2 * lg + m
+    per_proof = (lg + 8) + (lg - 1) + lg + 5 * lg + 2 + 3 + 1 + 1 + 2 \
+        + n_dyn + 2 * lg + 3 * m
+    per_pair = sum(3 * bin(i).count("1") + 4 for i in range(n * m))
+    tiles = -(-P // tile)
+    return P * per_proof + P * per_pair + tiles * n * m * 2
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--distinct", type=int, default=2048)
+    ap.add_argument("--total", type=int, default=8192)
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+
+    from bulletproofs_tpu_torch import (BatchVerifier, BulletproofGens,
+                                        PedersenGens, ProofError, RangeProof,
+                                        Scalar, Transcript)
+    from bulletproofs_tpu_torch.core.ristretto import multiscalar_mul
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import msm as M
+    from bulletproofs_tpu_torch.ops import scalar as S
+    from bulletproofs_tpu_torch.ops import verify as V
+    from bulletproofs_tpu_torch.ops.limbs import sc_ints_to_limbs
+    from bulletproofs_tpu_torch.core.scalar import L as ELL
+
+    dev = torch.device(DEVICE)
+    smi = card_line()
+    imads = peak_imads()
+    log("torch", torch.__version__, "cuda", torch.version.cuda, "|", smi,
+        f"| peak {imads:.4g} int32 multiply-adds/s")
+
+    # -- 1. build --------------------------------------------------------------
+    t0 = time.time()
+    logs = _cuda.build_all()
+    log(f"build: {time.time() - t0:.1f} s")
+    for lib, out in logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  [{lib}] {line.strip()}")
+
+    n, m = 64, 1
+    lg, nblk, n_dyn = V.shape(n, m)
+    bp, pc = BulletproofGens(n, m), PedersenGens()
+
+    # -- 2. host-prove the main path's proofs ------------------------------------
+    t0 = time.time()
+    rng = Rng(args.seed)
+    distinct, vcs, labels = [], [], []
+    for i in range(args.distinct):
+        label = b"chip smoke %d" % i
+        proof, v = RangeProof.prove_single(
+            bp, pc, Transcript(label), rng.r.randrange(1 << 64),
+            Scalar.random(rng), n, rng=rng)
+        distinct.append(proof)
+        vcs.append([v])
+        labels.append(label)
+    log(f"host-proved {args.distinct} proofs in {time.time() - t0:.1f} s")
+    reps = -(-args.total // args.distinct)
+    proofs = (distinct * reps)[: args.total]
+    vcss = (vcs * reps)[: args.total]
+    lbls = (labels * reps)[: args.total]
+
+    bv = BatchVerifier(bp, pc, n=n, m=m, device=DEVICE)
+    sub = min(bv.sub_batch, len(proofs))
+
+    # main-path inputs of the first sub-batch
+    blob, vblob, dyn_raw = bv._serialize(proofs[:sub], vcss[:sub], lg, n_dyn,
+                                         32 * (9 + 2 * lg))
+    blk_np, pair_np = bv.replay(blob, vblob, [Transcript(l) for l in lbls[:sub]],
+                                Rng(args.seed + 1))
+    raw = torch.from_numpy(dyn_raw.copy())
+    # invalid encodings among them: non-canonical (p + 1), negative (odd),
+    # random bytes (about half of them off the curve)
+    bad = raw.clone()
+    p_plus_1 = ((1 << 255) - 18).to_bytes(32, "little")
+    bad[0] = torch.tensor(list(p_plus_1), dtype=torch.uint8)
+    bad[1, 0] |= 1
+    g = torch.Generator().manual_seed(args.seed)
+    bad[2:66] = torch.randint(0, 256, (64, 32), generator=g, dtype=torch.uint8)
+    bad[2:66, 31] &= 127
+    kernels = []
+    failures = []
+
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, products):
+        b_ms, b_by = bound(nbytes, products, imads)
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": None,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        status = "ok" if err == 0 else "MISMATCH"
+        log(f"  {name}: max_abs_err {err} ({status}); {ms:.4f} ms kernel, "
+            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
+        if err != 0:
+            failures.append(name)
+
+    # -- 3. each kernel against its plain version (exact: integer arithmetic
+    #       repeated step for step, so the tolerance is 0) ------------------------
+    log(f"kernel phases (sub-batch of {sub} proofs):")
+    raw_dev = bad.to(dev)
+    N = raw_dev.shape[0]
+    got = C.decompress(raw_dev)
+    want = C.decompress_plain(raw_dev)
+    torch.cuda.synchronize()
+    if bool(got[0][0]) or bool(got[0][1]) or not bool(got[0][66:].all()):
+        failures.append("decompress validity")
+    fm = count_fmuls(lambda: C.decode(torch.zeros((10, 1), dtype=torch.int64)))
+    record("decompress", "bulletproofs_tpu_torch/csrc/decompress.cu",
+           "bulletproofs_tpu/ops/msm_pallas.py:242",
+           max_abs_err((got[0], got[1]), (want[0], want[1])),
+           time_cuda(lambda: C.decompress(raw_dev), 20),
+           time_cuda(lambda: C.decompress_plain(raw_dev), 1),
+           N * (32 + 1 + 160), N * fm * FMUL_PRODUCTS)
+
+    blk = torch.from_numpy(blk_np.copy()).to(dev)
+    got = V.emit(n, m, blk)
+    want = V.emit_plain(n, m, blk)
+    record("emit", "bulletproofs_tpu_torch/csrc/emit.cu",
+           "bulletproofs_tpu/ops/verify_pallas.py:190",
+           max_abs_err(got, want), time_cuda(lambda: V.emit(n, m, blk), 20),
+           time_cuda(lambda: V.emit_plain(n, m, blk), 1),
+           blk.numel() + n * 36 + got[0].numel() + got[1].numel() * 4,
+           emit_mont_muls(n, m, sub, V.EMIT_TILE) * MONT_PRODUCTS)
+
+    valid, pts = C.decompress(raw.to(dev))
+    gh = V.tree_sum(got[1])
+    pair_sc = S.sreduce(S.from_bytes32(torch.from_numpy(pair_np.copy()).to(dev)))
+    static_sc = torch.cat([pair_sc, gh[0].T, gh[1].T], dim=-1)
+    digits = torch.cat([S.signed_digits(static_sc), got[0]], dim=-1).contiguous()
+    niels = torch.cat([bv.static_niels, C.to_niels(pts)], dim=-1).contiguous()
+    NP = niels.shape[-1]
+    lanes = M.pick_lanes(NP)
+    nonzero = int((digits != 0).sum())
+    slab = M.accumulate(niels, digits)
+    record("msm_accumulate", "bulletproofs_tpu_torch/csrc/msm.cu",
+           "bulletproofs_tpu/ops/msm_pallas.py:58",
+           max_abs_err(slab, M.accumulate_plain(niels, digits)),
+           time_cuda(lambda: M.accumulate(niels, digits), 5),
+           time_cuda(lambda: M.accumulate_plain(niels, digits), 1),
+           NP * 120 + digits.numel() + slab.numel() * 4,
+           nonzero * 7 * FMUL_PRODUCTS)
+    sums = M.reduce(slab)
+    record("msm_reduce", "bulletproofs_tpu_torch/csrc/msm.cu",
+           "bulletproofs_tpu/ops/msm_pallas.py:178",
+           max_abs_err(sums, M.reduce_plain(slab)),
+           time_cuda(lambda: M.reduce(slab), 20),
+           time_cuda(lambda: M.reduce_plain(slab), 1),
+           slab.numel() * 4 + sums.numel() * 4,
+           64 * 8 * (lanes - 1) * 9 * FMUL_PRODUCTS)
+    out = M.horner(sums)
+    record("msm_horner", "bulletproofs_tpu_torch/csrc/msm.cu",
+           "bulletproofs_tpu/ops/msm_pallas.py:214",
+           max_abs_err(out, M.horner_plain(sums)),
+           time_cuda(lambda: M.horner(sums), 20),
+           time_cuda(lambda: M.horner_plain(sums), 1),
+           sums.numel() * 4 + 160 + 4,
+           (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_PRODUCTS)
+    if not bool(out[1].all()) or not bool(valid.all()):
+        failures.append("sub-batch MSM is not the identity")
+
+    # the MSM against the host curve library on a small input
+    k = 300
+    rsc = [rng.r.randrange(ELL) for _ in range(k)]
+    sc_dig = S.signed_digits(torch.as_tensor(sc_ints_to_limbs(rsc)).to(dev))
+    pt_dev, _ = M.msm_niels(niels[:, :, :k].contiguous(), sc_dig.contiguous())
+    host_pts = ([pc.B_blinding, pc.B] + bp.G(n, m) + bp.H(n, m)
+                + C.lanes_to_points(pts[:, :, : k - 130].cpu().numpy()))
+    ref = multiscalar_mul([Scalar(v) for v in rsc], host_pts)
+    got_pt = C.lanes_to_points(pt_dev.cpu().numpy()[:, :, None])[0]
+    ref_ok = got_pt.compress() == ref.compress()
+    log(f"MSM of {k} points vs host multiscalar_mul: "
+        f"{'equal' if ref_ok else 'DIFFERENT'}")
+    if not ref_ok:
+        failures.append("msm vs host")
+
+    # -- 4. the main path ----------------------------------------------------------
+    def run(ps, vs, ls, seed):
+        bv.verify_batch(ps, vs, [Transcript(l) for l in ls], rng=Rng(seed))
+        torch.cuda.synchronize()
+
+    _cuda.reset_counts()
+    t0 = time.time()
+    run(proofs, vcss, lbls, 11)
+    first_s = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    log(f"verify_batch({len(proofs)} proofs, n={n}): accepted "
+        f"(first run {first_s:.3f} s); launches {launches}")
+    for kern in kernels:
+        kern["launches"] = launches[kern["name"]]
+        if kern["launches"] == 0:
+            failures.append(f"{kern['name']} not launched on the main path")
+
+    last = len(proofs) - 1
+    flipped = RangeProof.from_bytes(proofs[last].to_bytes())
+    b = bytearray(flipped.to_bytes())
+    b[128] ^= 1                                       # low byte of t_x
+    flipped = RangeProof.from_bytes(bytes(b))
+    for name, ps, vs in (
+            ("flipped byte", proofs[:last] + [flipped], vcss),
+            ("swapped commitments", proofs,
+             vcss[:last - 1] + [vcss[last], vcss[last - 1]])):
+        try:
+            run(ps, vs, lbls, 12)
+        except ProofError:
+            log(f"{name}: rejected")
+        else:
+            failures.append(f"{name} accepted")
+            log(f"{name}: ACCEPTED")
+
+    # the golden n=64, m=1 proof from the Rust crate
+    import os
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden_vectors.json")
+    with open(gold) as fh:
+        data = json.load(fh)
+    gproof = RangeProof.from_bytes(bytes.fromhex(data["proofs"][3][0]))
+    gbv = BatchVerifier(BulletproofGens(64, 8), pc, n=64, m=1, device=DEVICE)
+    gbv.verify_batch([gproof], [[bytes.fromhex(data["value_commitments"][0])]],
+                     [Transcript(data["transcript_label"].encode())],
+                     rng=Rng(13))
+    log("golden vector n=64, m=1: accepted")
+
+    times = []
+    run(proofs, vcss, lbls, 14)                                   # warm-up
+    for r in range(args.runs):
+        t0 = time.time()
+        run(proofs, vcss, lbls, 15 + r)
+        times.append(time.time() - t0)
+    best = min(times)
+    log(f"verify_batch {len(proofs)} proofs: best {best * 1e3:.1f} ms of "
+        f"{args.runs} -> {len(proofs) / best:.0f} proofs/s "
+        f"(runs {[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+
+    # where the time goes: the host stages alone, beside the kernels' time
+    plen = 32 * (9 + 2 * lg)
+    t0 = time.time()
+    blob, vblob, _ = bv._serialize(proofs, vcss, lg, n_dyn, plen)
+    ser_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    for lo in range(0, len(proofs), bv.sub_batch):
+        hi = min(lo + bv.sub_batch, len(proofs))
+        bv.replay(blob[lo * plen: hi * plen], vblob[lo * 32: hi * 32],
+                  [Transcript(l) for l in lbls[lo:hi]], Rng(16))
+    replay_ms = (time.time() - t0) * 1e3
+    kern_ms = sum(k["ms"] * k["launches"] for k in kernels)
+    log(f"breakdown per verify_batch: serialize {ser_ms:.1f} ms, C++ replay "
+        f"{replay_ms:.1f} ms (host); kernels {kern_ms:.2f} ms (device, sum "
+        f"of kernel time x launches); the rest is PyTorch glue and copies")
+
+    if failures:
+        log("FAILED:", failures)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,193 @@
+"""The PyTorch port's batched range-proof verification as a whole
+(BatchVerifier(device="cpu"): plain PyTorch versions of every kernel)
+against the JAX package's all-C++ route, BatchVerifier(prefer_host=True),
+on the same proofs, transcripts and weights.
+
+Compared exactly: accept / reject, and the transcript bytes after the
+replay (both verifiers advance the caller's transcripts)."""
+
+import json
+import os
+import random
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import bulletproofs_tpu as J
+from bulletproofs_tpu.parallel import BatchVerifier as JBatchVerifier
+
+import bulletproofs_tpu_torch as T
+from bulletproofs_tpu_torch.ops.limbs import from_jax_lanes
+from bulletproofs_tpu_torch.parallel.batch_verify import BatchVerifier
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+T_BP, T_PC = T.BulletproofGens(64, 8), T.PedersenGens()
+J_BP, J_PC = J.BulletproofGens(64, 8), J.PedersenGens()
+
+
+class Rng:
+    def __init__(self, seed):
+        self.r = random.Random(seed)
+
+    def randbytes(self, n):
+        return self.r.randbytes(n)
+
+
+def _make(k, n, m, seed):
+    """k proofs made by the port's host prover -> (wire bytes, commitments,
+    labels)."""
+    rng = Rng(seed)
+    wires, vcss, labels = [], [], []
+    for i in range(k):
+        label = b"torch batch %d" % i
+        proof, vcs = T.RangeProof.prove_multiple(
+            T_BP, T_PC, T.Transcript(label),
+            [rng.r.randrange(1 << n) for _ in range(m)],
+            [T.Scalar.random(rng) for _ in range(m)], n, rng=rng)
+        wires.append(proof.to_bytes())
+        vcss.append(list(vcs))
+        labels.append(label)
+    return wires, vcss, labels
+
+
+def _both(n, m, wires, vcss, labels, seed=7):
+    """Run both verifiers; -> (port accepted, jax accepted, port transcript
+    bytes, jax transcript bytes)."""
+    out = []
+    for pkg, bv in ((T, BatchVerifier(T_BP, T_PC, n=n, m=m, device="cpu")),
+                    (J, JBatchVerifier(J_BP, J_PC, n=n, m=m,
+                                       prefer_host=True))):
+        ts = [pkg.Transcript(l) for l in labels]
+        proofs = [pkg.RangeProof.from_bytes(w) for w in wires]
+        try:
+            bv.verify_batch(proofs, vcss, ts, rng=Rng(seed))
+            ok = True
+        except pkg.ProofError:
+            ok = False
+        out.append((ok, [t.challenge_bytes(b"after", 32) for t in ts]))
+    (tok, tts), (jok, jts) = out
+    return tok, jok, tts, jts
+
+
+@pytest.fixture(scope="module")
+def proofs64():
+    return _make(3, 64, 1, 51)
+
+
+def test_valid_batch_accepted_and_transcripts_match(proofs64):
+    tok, jok, tts, jts = _both(64, 1, *proofs64)
+    assert tok and jok
+    assert tts == jts
+
+
+def test_tampered_t_x_rejected(proofs64):
+    wires, vcss, labels = proofs64
+    bad = T.RangeProof.from_bytes(wires[1])
+    bad.t_x = bad.t_x + T.Scalar.one()
+    tok, jok, tts, jts = _both(64, 1, [wires[0], bad.to_bytes(), wires[2]],
+                               vcss, labels)
+    assert not tok and not jok
+    assert tts == jts
+
+
+def test_wrong_transcript_label_rejected(proofs64):
+    wires, vcss, labels = proofs64
+    tok, jok, tts, jts = _both(64, 1, wires, vcss,
+                               [labels[0], b"not the label", labels[2]])
+    assert not tok and not jok
+    assert tts == jts
+
+
+def test_empty_batch_raises():
+    bv = BatchVerifier(T_BP, T_PC, n=8, m=1, device="cpu")
+    with pytest.raises(ValueError):
+        bv.verify_batch([], [], [])
+
+
+def test_aggregated_m2_n8():
+    wires, vcss, labels = _make(2, 8, 2, 52)
+    tok, jok, tts, jts = _both(8, 2, wires, vcss, labels)
+    assert tok and jok
+    assert tts == jts
+    # a commitment swapped between the two parties is rejected by both
+    swapped = [vcss[0][::-1], vcss[1]]
+    tok, jok, _, _ = _both(8, 2, wires, swapped, labels)
+    assert not tok and not jok
+
+
+def test_sub_batches_and_golden_vector(monkeypatch):
+    """The Rust crate's golden n=64, m=1 proof, alongside the port's own
+    proofs, split into sub-batches of two (three sub-batches)."""
+    from bulletproofs_tpu_torch.config import settings
+    monkeypatch.setattr(settings, "fused_verify_chunk", 2)
+    with open(os.path.join(HERE, "golden_vectors.json")) as fh:
+        data = json.load(fh)
+    wires, vcss, labels = _make(4, 64, 1, 53)
+    wires.append(bytes.fromhex(data["proofs"][3][0]))
+    vcss.append([bytes.fromhex(data["value_commitments"][0])])
+    labels.append(data["transcript_label"].encode())
+    bv = BatchVerifier(T_BP, T_PC, n=64, m=1, device="cpu")
+    assert bv.sub_batch == 2
+    ts = [T.Transcript(l) for l in labels]
+    bv.verify_batch([T.RangeProof.from_bytes(w) for w in wires], vcss, ts,
+                    rng=Rng(9))
+    jts = [J.Transcript(l) for l in labels]
+    JBatchVerifier(J_BP, J_PC, n=64, m=1, prefer_host=True).verify_batch(
+        [J.RangeProof.from_bytes(w) for w in wires], vcss, jts, rng=Rng(9))
+    assert [t.challenge_bytes(b"x", 32) for t in ts] == \
+        [t.challenge_bytes(b"x", 32) for t in jts]
+
+
+def test_static_generators_match_jax_weights():
+    """The JAX verifier's generator tensor, converted by from_jax_lanes,
+    equals the port's own static table limb for limb."""
+    jbv = JBatchVerifier(J_BP, J_PC, n=64, m=1, prefer_host=True)
+    tbv = BatchVerifier(T_BP, T_PC, n=64, m=1, device="cpu")
+    assert np.array_equal(from_jax_lanes(np.asarray(jbv._static_dev)),
+                          tbv.static_lanes)
+    assert tbv.static_lanes.shape == (4, 10, 130)
+
+
+def test_default_device_is_cuda():
+    """With no card, the default device raises instead of falling back."""
+    if torch.cuda.is_available():
+        bv = BatchVerifier(T_BP, T_PC, n=8, m=1)
+        assert bv.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            BatchVerifier(T_BP, T_PC, n=8, m=1)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter: import the port, make 3 proofs and verify
+    them on the CPU; neither jax nor bulletproofs_tpu gets imported."""
+    code = """
+import random, sys
+import bulletproofs_tpu_torch as T
+from bulletproofs_tpu_torch.parallel.batch_verify import BatchVerifier
+class R:
+    def __init__(s, seed): s.r = random.Random(seed)
+    def randbytes(s, n): return s.r.randbytes(n)
+rng = R(5)
+bp, pc = T.BulletproofGens(8, 1), T.PedersenGens()
+ps, vs, ts = [], [], []
+for i in range(3):
+    p, v = T.RangeProof.prove_single(bp, pc, T.Transcript(b"iso"), i,
+                                     T.Scalar.random(rng), 8, rng=rng)
+    ps.append(p); vs.append([v]); ts.append(T.Transcript(b"iso"))
+BatchVerifier(bp, pc, n=8, m=1, device="cpu").verify_batch(ps, vs, ts, rng=rng)
+bad = [k for k in sys.modules
+       if k == "jax" or k.startswith("jax.") or k == "bulletproofs_tpu"
+       or k.startswith("bulletproofs_tpu.")]
+assert not bad, bad
+print("isolated")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout

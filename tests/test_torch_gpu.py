@@ -1,0 +1,119 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version on the same CUDA tensors (exact: integer arithmetic, tolerance 0),
+and the batch verifier on the card.  Marked `gpu`; each test skips when no
+CUDA device is present.  Run on a machine with an NVIDIA GPU:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from bulletproofs_tpu_torch import (BulletproofGens, PedersenGens, ProofError,
+                                    RangeProof, Scalar, Transcript)
+from bulletproofs_tpu_torch.core.ristretto import RISTRETTO_BASEPOINT
+from bulletproofs_tpu_torch.core.scalar import L as ELL
+from bulletproofs_tpu_torch.ops import _cuda
+from bulletproofs_tpu_torch.ops import curve as C
+from bulletproofs_tpu_torch.ops import msm as M
+from bulletproofs_tpu_torch.ops import scalar as S
+from bulletproofs_tpu_torch.ops import verify as V
+from bulletproofs_tpu_torch.ops.limbs import sc_ints_to_limbs
+from bulletproofs_tpu_torch.parallel.batch_verify import BatchVerifier
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+class Rng:
+    def __init__(self, seed):
+        self.r = random.Random(seed)
+
+    def randbytes(self, n):
+        return self.r.randbytes(n)
+
+
+def _encodings(k, seed):
+    r = random.Random(seed)
+    enc = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+           .compress() for _ in range(k // 2)]
+    enc += [r.randbytes(32) for _ in range(k - len(enc))]
+    return torch.as_tensor(np.frombuffer(b"".join(enc), np.uint8)
+                           .reshape(k, 32).copy())
+
+
+def test_decompress_kernel_matches_plain(cuda):
+    raw = _encodings(1000, 61).to(cuda)
+    before = _cuda.LAUNCHES["decompress"]
+    valid, pts = C.decompress(raw)
+    pvalid, ppts = C.decompress_plain(raw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decompress"] == before + 1
+    assert torch.equal(valid, pvalid) and torch.equal(pts, ppts)
+    assert bool(valid[:500].all())
+
+
+def test_emit_kernel_matches_plain(cuda):
+    n, m, P = 64, 1, 37
+    _, nblk, _ = V.shape(n, m)
+    r = random.Random(62)
+    blk = torch.as_tensor(np.frombuffer(
+        b"".join(r.randrange(ELL).to_bytes(32, "little")
+                 for _ in range(P * nblk)), np.uint8
+    ).reshape(P, nblk, 32).copy()).to(cuda)
+    got = V.emit(n, m, blk)
+    want = V.emit_plain(n, m, blk)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_msm_kernels_match_plain(cuda):
+    k = 700
+    raw = _encodings(2 * k, 63)[:k].to(cuda)
+    _, pts = C.decompress(raw)
+    r = random.Random(64)
+    digits = S.signed_digits(torch.as_tensor(
+        sc_ints_to_limbs([r.randrange(ELL) for _ in range(k)])).to(cuda))
+    niels = C.to_niels(pts).contiguous()
+    slab = M.accumulate(niels, digits)
+    assert torch.equal(slab, M.accumulate_plain(niels, digits))
+    sums = M.reduce(slab)
+    assert torch.equal(sums, M.reduce_plain(slab))
+    out, flag = M.horner(sums)
+    pout, pflag = M.horner_plain(sums)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(flag, pflag)
+
+
+def test_wrappers_refuse_wrong_dtypes_on_cuda(cuda):
+    with pytest.raises(TypeError):
+        M.accumulate(torch.zeros((3, 10, 64), dtype=torch.int64, device=cuda),
+                     torch.zeros((64, 64), dtype=torch.int8, device=cuda))
+
+
+def test_verify_batch_on_card(cuda, monkeypatch):
+    from bulletproofs_tpu_torch.config import settings
+    monkeypatch.setattr(settings, "fused_verify_chunk", 2)
+    bp, pc = BulletproofGens(8, 1), PedersenGens()
+    rng = Rng(65)
+    proofs, vcs = [], []
+    for i in range(5):
+        p, v = RangeProof.prove_single(bp, pc, Transcript(b"gpu"), i,
+                                       Scalar.random(rng), 8, rng=rng)
+        proofs.append(p)
+        vcs.append([v])
+    bv = BatchVerifier(bp, pc, n=8, m=1, device=cuda)
+    bv.verify_batch(proofs, vcs, [Transcript(b"gpu") for _ in proofs],
+                    rng=rng)
+    with pytest.raises(ProofError):
+        bv.verify_batch(proofs, vcs[::-1], [Transcript(b"gpu")
+                                            for _ in proofs], rng=rng)
