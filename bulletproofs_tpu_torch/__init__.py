@@ -2,10 +2,10 @@
 
 Same protocol layer as `bulletproofs_tpu` (its own copy of the host tier:
 transcript, generators, host curve core, range-proof codec and prover),
-with the batched range-proof verifier running on an NVIDIA H100 through
-hand-written CUDA kernels (`ops/`, sources in `csrc/`).  Entry points take
-`device=` ("cuda" by default; tests pass "cpu", which runs each kernel's
-plain PyTorch version).
+with the batched range-proof verifier and the m=1 batch prover running on
+an NVIDIA H100 through hand-written CUDA kernels (`ops/`, sources in
+`csrc/`).  Entry points take `device=` ("cuda" by default; tests pass
+"cpu", which runs each kernel's plain PyTorch version).
 
 Names are exported lazily: `import bulletproofs_tpu_torch` builds nothing;
 the first use of the host tier builds the native host library
@@ -26,6 +26,7 @@ _EXPORTS = {
     "InnerProductProof": ".proofs.ipp",
     "RangeProof": ".proofs.rangeproof",
     "BatchVerifier": ".parallel.batch_verify",
+    "BatchProver": ".proofs.batch_prover",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -30,6 +30,9 @@ __device__ __constant__ int32_t FE_D2[10] = {
 __device__ __constant__ int32_t FE_SQRT_M1[10] = {
     34513072, 25610706, 9377949, 3500415, 12389472,
     33281959, 41962654, 31548777, 326685, 11406482};
+__device__ __constant__ int32_t FE_INVSQRT_A_MINUS_D[10] = {
+    6111466, 4156064, 39310137, 12243467, 41204824,
+    120896, 20826367, 26493656, 6093567, 31568420};
 
 __device__ __forceinline__ fe fe_const(const int32_t* c) {
   fe r;

@@ -1,5 +1,5 @@
 """Batched ristretto255 / edwards25519 point operations on limb tensors,
-and kernel K1: batch point decompression.
+kernel K1 (batch point decompression) and kernel K5 (batch compression).
 
 Points are (4, 10, N) int32 tensors: extended twisted Edwards coordinates
 (X : Y : Z : T) on axis 0, field limbs (ops/limbs.py) on axis 1, the batch
@@ -25,7 +25,7 @@ from ..core import field as host_field
 from . import _cuda
 from . import field as F
 from .limbs import FE_LIMBS, canonical_mask, fe_from_bytes, fe_ints_to_limbs, \
-    fe_limbs_to_ints
+    fe_limbs_to_ints, fe_to_bytes
 
 L = FE_LIMBS
 
@@ -142,6 +142,51 @@ def decompress(raw: torch.Tensor):
         _cuda.launch("decompress", "decompress", "bp_decompress", raw, valid,
                      pts, n)
     return valid.bool(), pts
+
+
+# -- K5: compression ----------------------------------------------------------------
+
+def encode(p: Coords) -> torch.Tensor:
+    """RFC 9496 ENCODE of int64 coordinates -> (10, N) canonical limbs of s
+    (vec_curve.compress, pallas_math.compress)."""
+    X, Y, Z, T = p
+    dev = X.device
+    u1 = F.mul(F.add(Z, Y), F.sub(Z, Y))
+    u2 = F.mul(X, Y)
+    one = F.const("one", dev).expand_as(u1)
+    _, invsqrt = F.sqrt_ratio_m1(one, F.mul(u1, F.square(u2)))
+    den1 = F.mul(invsqrt, u1)
+    den2 = F.mul(invsqrt, u2)
+    z_inv = F.mul(F.mul(den1, den2), T)
+    ix0 = F.mul(X, F.const("sqrt_m1", dev))
+    iy0 = F.mul(Y, F.const("sqrt_m1", dev))
+    enchanted = F.mul(den1, F.const("invsqrt_a_minus_d", dev))
+    rotate = F.is_negative(F.mul(T, z_inv)) != 0
+    x = F.select(rotate, iy0, X)
+    y = F.select(rotate, ix0, Y)
+    den_inv = F.select(rotate, enchanted, den2)
+    y = F.cond_neg(y, F.is_negative(F.mul(x, z_inv)) != 0)
+    return F.canonicalize(F.ct_abs(F.mul(den_inv, F.sub(Z, y))))
+
+
+def compress_plain(pts: torch.Tensor) -> torch.Tensor:
+    """(4, 10, N) int32 points -> (N, 32) uint8 canonical encodings."""
+    return fe_to_bytes(encode(to_coords(pts)))
+
+
+def compress(pts: torch.Tensor) -> torch.Tensor:
+    """Kernel K5 (csrc/compress.cu) on a CUDA tensor, the plain version on
+    a CPU tensor: (4, 10, N) int32 points -> (N, 32) uint8 encodings."""
+    if pts.dim() != 3 or pts.shape[:2] != (4, L) or pts.dtype != torch.int32:
+        raise ValueError("compress takes a (4, 10, N) int32 tensor")
+    if pts.device.type == "cpu":
+        return compress_plain(pts)
+    pts = _cuda.check(pts, torch.int32)
+    n = pts.shape[-1]
+    out = torch.empty((n, 32), dtype=torch.uint8, device=pts.device)
+    if n:
+        _cuda.launch("compress", "compress", "bp_compress", pts, out, n)
+    return out
 
 
 def to_niels(pts: torch.Tensor) -> torch.Tensor:

@@ -119,6 +119,11 @@ def pow_p58(a):
     return mul(square(square(t12)), a)
 
 
+def invert(a):
+    """a^(p - 2) = (a^((p - 5) / 8))^8 a^3 (0 maps to 0)."""
+    return mul(pow2k(pow_p58(a), 3), mul(square(a), a))
+
+
 def canonicalize(h: torch.Tensor) -> torch.Tensor:
     """Exact limbs (0 <= limb < 2^width) of the value mod p (ref10
     fe_tobytes: q = floor(h / p) from the top limb down, h -= q p)."""

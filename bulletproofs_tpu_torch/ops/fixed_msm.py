@@ -1,0 +1,235 @@
+"""Batched fixed-base MSM, the prover's point engine: kernels K6 (bucket
+accumulation) and K7 (bucket reduction), csrc/fixed_msm.cu.
+
+The JAX package's ops/fixed_msm.py.  out[q] = sum_j coef[j, q] Base_j for
+Q output lanes over NB shared bases:
+
+* tables T[j, w] = 2^(4w) Base_j, built once per base set in plain torch on
+  the device (64 windows of 4 doublings, one batched inversion to Z = 1),
+  stored as a canonical Niels stream (3, 10, NB * 64) in the order
+  s = j * 64 + w, so window weights live in the tables and no doubling
+  tail remains;
+* digits: a signed base-16 digit in [-7, 8] per (stream row, lane), (S, Q)
+  int8 (`ops/scalar.signed_digits` of the canonical coefficients);
+* K6 `accumulate`: every lane streams its S (table point, digit) rows in
+  order and adds +-point into bucket |digit|, 8 buckets per lane.  The
+  rows of one lane are split into `pick_splits(S, Q)` contiguous chunks,
+  each with its own buckets, so Q * splits threads fill the card (the TPU
+  kernel ran one serial stream per lane);
+* K7 `reduce`: per lane, merge the chunks' buckets with complete additions
+  and form sum_b b B_b by the running double sum.
+
+The V/A/S and T rows carry the witness (values, bits, blindings, the
+t-polynomial), so K6 reads and writes ALL buckets at every row and picks
+with a one-hot mask (fixed_msm._fixed_accum_kernel's select): the memory
+pattern does not depend on a digit.  A zero digit selects no bucket; its
+sum is computed and dropped (the TPU kernel's ninth bucket was the sink).
+The plain versions here repeat each kernel's arithmetic step for step, so
+a kernel's output equals its plain version's limb for limb.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import _cuda
+from . import curve as C
+from . import field as F
+from .limbs import FE_LIMBS, from_jax_lanes
+
+L = FE_LIMBS
+WINDOW_BITS = 4
+NUM_WINDOWS = 64
+NUM_BUCKETS = 8                 # digit magnitudes 1..8
+# K6 keeps its buckets in shared memory, 5 blocks of 32 lanes per SM on an
+# H100 (40 KB each): 132 * 5 * 32 threads fill the card in one wave
+TARGET_THREADS = 21120
+MIN_ROWS_PER_SPLIT = 32
+MAX_SPLITS = 16
+
+
+# -- tables ------------------------------------------------------------------------
+
+def make_tables(points: torch.Tensor) -> torch.Tensor:
+    """(4, 10, NB) int32 bases -> (3, 10, NB * 64) int32 canonical Niels
+    stream (Y+X, Y-X, 2dT) of 2^(4w) Base_j at s = j * 64 + w
+    (fixed_msm._make_tables)."""
+    p = C.to_coords(points)
+    rows = [torch.stack(p)]
+    for _ in range(NUM_WINDOWS - 1):
+        for _ in range(WINDOW_BITS):
+            p = C.double(p)
+        rows.append(torch.stack(p))
+    pts = torch.stack(rows, dim=-1)                   # (4, 10, NB, 64)
+    X, Y, Z, T = pts.reshape(4, L, -1).unbind(0)
+    zinv = F.invert(Z)
+    x, y = F.mul(X, zinv), F.mul(Y, zinv)
+    t2d = F.mul(F.mul(x, y), F.const("d2", X.device))
+    return torch.stack([F.canonicalize(F.add(y, x)),
+                        F.canonicalize(F.sub(y, x)),
+                        F.canonicalize(t2d)]).to(torch.int32)
+
+
+def tables_from_jax(niels_np) -> torch.Tensor:
+    """The JAX package's `_make_tables` output, (3, 20, S, 1) 13-bit limbs
+    (numpy), -> the port's (3, 10, S) int32 canonical Niels stream."""
+    return torch.as_tensor(from_jax_lanes(np.asarray(niels_np)[..., 0]))
+
+
+class FixedBaseTables:
+    """Window tables of a fixed base list, resident on `device`."""
+
+    def __init__(self, points_host: Sequence, device):
+        self.niels = make_tables(torch.as_tensor(
+            C.points_to_lanes(points_host)).to(device))
+
+
+class StreamSubsetTables:
+    """Arbitrary stream rows (sel[i] = j * 64 + w) of a FixedBaseTables,
+    e.g. the range prover's A commitment, whose {0, +-1} coefficients on
+    G_i / H_i touch only window 0 of those tables."""
+
+    def __init__(self, full: FixedBaseTables, sel):
+        self._sel = np.asarray(sel, np.int64)
+        self.niels = full.niels[:, :, torch.as_tensor(
+            self._sel, device=full.niels.device)].contiguous()
+
+
+class SubsetTables(StreamSubsetTables):
+    """All 64 windows of a base subset of a FixedBaseTables (the IPP
+    round's active generators)."""
+
+    def __init__(self, full: FixedBaseTables, base_idx):
+        base_idx = np.asarray(base_idx, np.int64)
+        super().__init__(full, (base_idx[:, None] * NUM_WINDOWS
+                                + np.arange(NUM_WINDOWS)[None, :]).reshape(-1))
+
+
+# -- K6: bucket accumulation --------------------------------------------------------
+
+def pick_splits(rows: int, lanes: int) -> int:
+    """Chunks per lane's stream: about TARGET_THREADS / lanes, each chunk
+    at least MIN_ROWS_PER_SPLIT rows, at most MAX_SPLITS."""
+    cap = max(1, min(MAX_SPLITS, rows // MIN_ROWS_PER_SPLIT))
+    return max(1, min(cap, TARGET_THREADS // max(lanes, 1)))
+
+
+def _split(niels, digits):
+    """-> (niels, digits, splits): pick_splits for the stream, which is
+    padded with Niels identities (1, 1, 0) and zero digits to a multiple of
+    the split (fixed_msm.py:489-493)."""
+    if niels.dim() != 3 or niels.shape[:2] != (3, L) \
+            or digits.dim() != 2 or digits.shape[0] != niels.shape[-1]:
+        raise ValueError("accumulate takes niels (3, 10, S), digits (S, Q)")
+    S, Q = digits.shape
+    splits = pick_splits(S, Q)
+    pad = (-S) % splits
+    if pad:
+        ident = torch.zeros((3, L, pad), dtype=niels.dtype, device=niels.device)
+        ident[0, 0] = 1
+        ident[1, 0] = 1
+        niels = torch.cat([niels, ident], dim=-1)
+        digits = torch.cat([digits, torch.zeros((pad, Q), dtype=digits.dtype,
+                                                device=digits.device)])
+    return niels.contiguous(), digits.contiguous(), splits
+
+
+def _accumulate_plain(niels: torch.Tensor, digits: torch.Tensor,
+                      splits: int) -> torch.Tensor:
+    """accumulate_plain with the stream's split given (S % splits == 0)."""
+    S, Q = digits.shape
+    R = S // splits
+    dev = niels.device
+    pre = niels.to(torch.int64).reshape(3, L, splits, R).permute(3, 0, 2, 1)
+    d = digits.to(torch.int64).reshape(splits, R, Q)
+    ident = C.identity(1, dev).to(torch.int64)          # (4, 10, 1)
+    buckets = ident[None, :, None].expand(NUM_BUCKETS, 4, splits, L, Q) \
+        .contiguous()                                   # (8, 4, K, 10, Q)
+    for r in range(R):
+        dr = d[:, r]                                    # (K, Q)
+        neg = (dr < 0)[:, None, :]
+        mag = dr.abs()
+        ypx, ymx, t2d = (pre[r, c][..., None] for c in range(3))   # (K, 10, 1)
+        q = (torch.where(neg, ymx, ypx), torch.where(neg, ypx, ymx),
+             torch.where(neg, F.neg(t2d), t2d))
+        masks = [(mag == b + 1)[None, :, None, :] for b in range(NUM_BUCKETS)]
+        cur = sum(torch.where(masks[b], buckets[b], 0)
+                  for b in range(NUM_BUCKETS))
+        new = torch.stack(C.madd(tuple(cur), q))
+        for b in range(NUM_BUCKETS):
+            buckets[b] = torch.where(masks[b], new, buckets[b])
+    return buckets.permute(2, 0, 1, 3, 4).to(torch.int32).contiguous()
+
+
+def accumulate_plain(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """niels (3, 10, S) int32, digits (S, Q) int8 in [-7, 8] -> slab
+    (splits, 8, 4, 10, Q) int32, splits = pick_splits(S, Q): bucket b of
+    chunk c holds the sum of digit * point over the chunk's rows with
+    |digit| = b + 1."""
+    return _accumulate_plain(*_split(niels, digits))
+
+
+def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Kernel K6 on CUDA tensors, the plain version on CPU tensors."""
+    if niels.device.type == "cpu":
+        return accumulate_plain(niels, digits)
+    niels, digits, splits = _split(niels, digits)
+    _cuda.check(niels, torch.int32)
+    _cuda.check(digits, torch.int8)
+    S, Q = digits.shape
+    slab = torch.empty((splits, NUM_BUCKETS, 4, L, Q), dtype=torch.int32,
+                       device=niels.device)
+    if Q:
+        _cuda.launch("fixed_accumulate", "fixed_msm", "bp_fixed_accumulate",
+                     niels, digits, slab, S, Q, splits)
+    return slab
+
+
+# -- K7: bucket reduction -------------------------------------------------------------
+
+def _check_slab(slab):
+    if slab.dim() != 5 or slab.shape[1:4] != (NUM_BUCKETS, 4, L):
+        raise ValueError("reduce takes a (splits, 8, 4, 10, Q) slab")
+
+
+def reduce_plain(slab: torch.Tensor) -> torch.Tensor:
+    """(splits, 8, 4, 10, Q) -> (4, 10, Q) int32: per lane and bucket the
+    chunks summed in order, then sum_b (b + 1) B_b by the running double
+    sum from the top bucket down."""
+    _check_slab(slab)
+    v = slab.to(torch.int64)
+    merged = tuple(v[0, :, c] for c in range(4))        # (8, 10, Q) each
+    for k in range(1, v.shape[0]):
+        merged = C.add(merged, tuple(v[k, :, c] for c in range(4)))
+    running = tuple(c[NUM_BUCKETS - 1] for c in merged)
+    total = running
+    for b in range(NUM_BUCKETS - 2, -1, -1):
+        running = C.add(running, tuple(c[b] for c in merged))
+        total = C.add(total, running)
+    return torch.stack(total).to(torch.int32)
+
+
+def reduce(slab: torch.Tensor) -> torch.Tensor:
+    """Kernel K7 on a CUDA tensor, the plain version on a CPU tensor."""
+    _check_slab(slab)
+    if slab.device.type == "cpu":
+        return reduce_plain(slab)
+    _cuda.check(slab, torch.int32)
+    K, Q = slab.shape[0], slab.shape[-1]
+    out = torch.empty((4, L, Q), dtype=torch.int32, device=slab.device)
+    if Q:
+        _cuda.launch("fixed_reduce", "fixed_msm", "bp_fixed_reduce", slab,
+                     out, Q, K)
+    return out
+
+
+# -- the MSM -------------------------------------------------------------------------
+
+def msm_digits_niels(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Niels stream (3, 10, S) int32 (a FixedBaseTables' or a subset's
+    `.niels`) and signed digits (S, Q) int8 -> (4, 10, Q) int32 points, on
+    the inputs' device."""
+    return reduce(accumulate(niels, digits))

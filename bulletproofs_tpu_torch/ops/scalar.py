@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from ..core.scalar import L as ELL
-from .limbs import SC_BITS, SC_LIMBS, SC_MASK, sc_from_bytes, sc_ints_to_limbs
+from .limbs import SC_BITS, SC_LIMBS, SC_MASK, sc_from_bytes, \
+    sc_ints_to_limbs
 
 L = SC_LIMBS
 R_BITS = SC_BITS * SC_LIMBS
@@ -101,6 +102,37 @@ def sreduce(x: torch.Tensor) -> torch.Tensor:
 def from_bytes32(raw: torch.Tensor) -> torch.Tensor:
     """(N, 32) uint8 little-endian -> (9, N) exact limbs (value < 2^256)."""
     return sc_from_bytes(raw)
+
+
+def from_wide_bytes(raw: torch.Tensor) -> torch.Tensor:
+    """(N, 64) uint8 -> (9, N) canonical (lo + 2^256 hi) mod l
+    (vec_scalar.from_wide_bytes; the host's rp_reduce_wide)."""
+    lo = from_bytes32(raw[:, :32].contiguous())
+    hi = from_bytes32(raw[:, 32:].contiguous())
+    return sadd(smul(hi, const(pow(2, 256, ELL), raw.device)), sreduce(lo))
+
+
+def power_sequence(y: torch.Tensor, n: int) -> torch.Tensor:
+    """y (9, P) canonical -> (n, 9, P): [1, y, .., y^(n-1)]
+    (vec_scalar.power_sequence).  Built by doubling the prefix (log2 n
+    vector multiplications instead of n - 1 serial ones); the values are
+    canonical, so the order of multiplication does not show."""
+    seq = const(1, y.device).expand_as(y)[None]
+    step = y
+    while seq.shape[0] < n:
+        seq = torch.cat([seq, smul(seq, step)])
+        step = smul(step, step)
+    return seq[:n].contiguous()
+
+
+def tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """(n, 9, P) canonical -> (9, P) their sum mod l, by halving over the
+    leading axis (vec_scalar.tree_sum)."""
+    while v.shape[0] > 1:
+        h = v.shape[0] // 2
+        lo = sadd(v[:h], v[h: 2 * h])
+        v = torch.cat([lo, v[2 * h:]]) if v.shape[0] % 2 else lo
+    return v[0]
 
 
 # 64 nibbles: nibble w covers bits [4w, 4w + 4), inside one limb or across

@@ -24,7 +24,6 @@ read in one synchronisation at the end.
 from __future__ import annotations
 
 import ctypes
-import secrets
 from typing import List, Sequence
 
 import numpy as np
@@ -32,21 +31,13 @@ import torch
 
 from ..config import settings
 from ..core._native import LIB as _NATIVE
+from ..device import resolve_device
 from ..errors import ProofError
 from ..generators import BulletproofGens, PedersenGens
 from ..ops import curve as C
 from ..ops import verify as V
+from ..proofs.rangeproof import SystemRandom
 from ..transcript import Transcript
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: "cuda" (the default) must have a
-    card; the CPU runs only when asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain PyTorch versions on the CPU")
-    return dev
 
 
 class BatchVerifier:
@@ -86,7 +77,7 @@ class BatchVerifier:
         if not proofs:
             raise ValueError("verify_batch requires at least one proof "
                              "(an empty batch would vacuously accept)")
-        rng = rng or _SystemRandom()
+        rng = rng or SystemRandom()
         lg, _, n_dyn = V.shape(self.n, self.m)
         plen = 32 * (9 + 2 * lg)
         proofs_blob, vcs_blob, dyn_raw = self._serialize(
@@ -164,8 +155,3 @@ class BatchVerifier:
         return (np.frombuffer(blocks.raw, np.uint8).reshape(count, nblk, 32),
                 np.frombuffer(pair.raw, np.uint8).reshape(2, 32))
 
-
-class _SystemRandom:
-    @staticmethod
-    def randbytes(n: int) -> bytes:
-        return secrets.token_bytes(n)

@@ -1,19 +1,25 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--distinct 2048] [--total 8192] [--runs 5]
+    python3 chip_smoke.py [--total 8192] [--prove-runs 3] [--runs 5]
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
-  1. holds every kernel against its plain PyTorch version on the card, at
-     the shapes of the main path (one 2048-proof sub-batch of 64-bit range
-     proofs), and the MSM against the host curve library on a small input;
-  2. drives the main path: host-proves `--distinct` n=64 range proofs with
-     the port's host prover, tiles them to `--total` proofs and runs
-     BatchVerifier.verify_batch on the card (must accept), then with one
-     flipped byte and with two swapped commitments (must reject), then
-     times a warm-up and the best of `--runs` runs;
-  3. prints the kernels' launch counts on the main path, their times
-     beside the plain versions' and their bounds as one JSON line, the
-     card's name and power limit, and last the device line.
+  1. drives the prover's main path: BatchProver.prove_batch of `--total`
+     n=64 range proofs on the card (one warm-up, then the best of
+     `--prove-runs`), with the launch counts of one run and a breakdown
+     (device time per kernel, host C++ transcript time);
+  2. checks the proofs: the card's BatchVerifier accepts all of them (the
+     verifier's main path, with its launch counts), 64 sampled ones pass
+     the host RangeProof.verify_single, a flipped byte and two swapped
+     commitments are rejected, the Rust crate's golden proof is accepted,
+     and 4 proofs at n=8 from the card equal the device="cpu" route's
+     byte for byte;
+  3. holds every kernel against its plain PyTorch version on the card, on
+     main-path inputs (one 2048-proof verifier sub-batch; one IPP round's
+     L stream and one 8192-point compression of the prover), and the
+     verifier MSM against the host curve library on a small input;
+  4. times the verifier's main path (best of `--runs` after a warm-up);
+  5. prints the kernels' launches, times, plain times and bounds as one
+     JSON line, the card's name and power limit, and last the device line.
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
 
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import subprocess
 import sys
@@ -134,10 +141,90 @@ def emit_mont_muls(n: int, m: int, P: int, tile: int) -> int:
     return P * per_proof + P * per_pair + tiles * n * m * 2
 
 
+class Capture:
+    """Keeps the first main-path input of a wrapper that matches `want`,
+    while the wrapper goes on working."""
+
+    def __init__(self, module, name, want):
+        self.module, self.name, self.want = module, name, want
+        self.real = getattr(module, name)
+        self.args = None
+        setattr(module, name, self)
+
+    def __call__(self, *args):
+        if self.args is None and self.want(*args):
+            self.args = tuple(a.clone() for a in args)
+        return self.real(*args)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+def instrumented(fn):
+    """Run fn() once with a CUDA-event pair around every kernel launch and
+    a host clock around every native call of the prover -> (wall ms,
+    {kernel: device ms}, host C++ transcript ms)."""
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.proofs import batch_prover as BPm
+    real_launch, real_native = _cuda.launch, BPm._NATIVE
+    events, host = [], [0.0]
+
+    def launch(kernel, *args):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        real_launch(kernel, *args)
+        e.record()
+        events.append((kernel, s, e))
+
+    class Native:
+        def __getattr__(self, name):
+            f = getattr(real_native, name)
+
+            def call(*args):
+                t0 = time.perf_counter()
+                try:
+                    return f(*args)
+                finally:
+                    host[0] += (time.perf_counter() - t0) * 1e3
+            return call
+
+    _cuda.launch, BPm._NATIVE = launch, Native()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        _cuda.launch, BPm._NATIVE = real_launch, real_native
+    per = {}
+    for k, s, e in events:
+        per[k] = per.get(k, 0.0) + s.elapsed_time(e)
+    return wall, per, host[0]
+
+
+def profiled(fn):
+    """Device kernels of one fn() by torch.profiler (CUDA activity only) ->
+    [(device ms, calls, kernel name)], largest first; empty when the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--distinct", type=int, default=2048)
     ap.add_argument("--total", type=int, default=8192)
+    ap.add_argument("--prove-runs", type=int, default=3)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
@@ -146,13 +233,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
-    from bulletproofs_tpu_torch import (BatchVerifier, BulletproofGens,
-                                        PedersenGens, ProofError, RangeProof,
-                                        Scalar, Transcript)
+    from bulletproofs_tpu_torch import (BatchProver, BatchVerifier,
+                                        BulletproofGens, PedersenGens,
+                                        ProofError, RangeProof, Scalar,
+                                        Transcript)
     from bulletproofs_tpu_torch.core.ristretto import multiscalar_mul
     from bulletproofs_tpu_torch.ops import _cuda
     from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
     from bulletproofs_tpu_torch.ops import msm as M
+    from bulletproofs_tpu_torch.ops import prover_stages as PS
     from bulletproofs_tpu_torch.ops import scalar as S
     from bulletproofs_tpu_torch.ops import verify as V
     from bulletproofs_tpu_torch.ops.limbs import sc_ints_to_limbs
@@ -176,32 +266,163 @@ def main() -> int:
     n, m = 64, 1
     lg, nblk, n_dyn = V.shape(n, m)
     bp, pc = BulletproofGens(n, m), PedersenGens()
+    failures = []
+    kernels = []
 
-    # -- 2. host-prove the main path's proofs ------------------------------------
+    # -- 2. the prover's main path -------------------------------------------------
     t0 = time.time()
+    prover = BatchProver(bp, pc, n, m, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"BatchProver(n={n}) tables: {time.time() - t0:.2f} s")
     rng = Rng(args.seed)
-    distinct, vcs, labels = [], [], []
-    for i in range(args.distinct):
-        label = b"chip smoke %d" % i
-        proof, v = RangeProof.prove_single(
-            bp, pc, Transcript(label), rng.r.randrange(1 << 64),
-            Scalar.random(rng), n, rng=rng)
-        distinct.append(proof)
-        vcs.append([v])
-        labels.append(label)
-    log(f"host-proved {args.distinct} proofs in {time.time() - t0:.1f} s")
-    reps = -(-args.total // args.distinct)
-    proofs = (distinct * reps)[: args.total]
-    vcss = (vcs * reps)[: args.total]
-    lbls = (labels * reps)[: args.total]
+    values = [rng.r.randrange(1 << n) for _ in range(args.total)]
+    values[:2] = [0, (1 << n) - 1]
+    blinds = [Scalar.random(rng) for _ in values]
+    labels = [b"chip smoke %d" % i for i in range(args.total)]
+    half = args.total // 2 if args.total >= prover.HALVES_FROM else args.total
 
+    def prove(seed):
+        out = prover.prove_batch(values, blinds,
+                                 [Transcript(l) for l in labels],
+                                 rng=Rng(seed))
+        torch.cuda.synchronize()
+        return out
+
+    # the warm-up keeps one IPP round's L stream and one 8192-point
+    # compression: the main-path inputs of the prover's kernel checks
+    round_rows = (n + 1) * FM.NUM_WINDOWS
+    cap_msm = Capture(PS.FM, "msm_digits_niels",
+                      lambda niels, digits: niels.shape[-1] == round_rows
+                      and digits.shape[1] == half)
+    cap_cmp = Capture(PS.C, "compress",
+                      lambda pts: pts.shape[-1] == min(2 * half, 8192))
+    t0 = time.time()
+    try:
+        prove(100)
+    finally:
+        cap_msm.restore()
+        cap_cmp.restore()
+    log(f"prove_batch warm-up ({args.total} proofs): {time.time() - t0:.2f} s")
+
+    _cuda.reset_counts()
+    t0 = time.time()
+    proofs, vcs = prove(101)
+    times = [time.time() - t0]
+    prove_launches = dict(_cuda.LAUNCHES)
+    log(f"prove_batch launches: {prove_launches}")
+    for r in range(args.prove_runs - 1):
+        t0 = time.time()
+        prove(102 + r)
+        times.append(time.time() - t0)
+    best = min(times)
+    log(f"prove_batch {args.total} proofs of n={n}: best {best * 1e3:.1f} ms "
+        f"of {len(times)} -> {args.total / best:.0f} proofs/s "
+        f"(runs {[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+    wall, per, host_ms = instrumented(lambda: prove(110))
+    dev_ms = sum(per.values())
+    log(f"prove breakdown (one instrumented run): wall {wall:.1f} ms; "
+        f"kernels {dev_ms:.2f} ms device ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per.items()))
+        + f"); host C++ transcripts {host_ms:.1f} ms; the rest "
+        f"{wall - host_ms - dev_ms:.1f} ms (PyTorch mod-l vector code, "
+        f"copies, Python) if nothing overlapped")
+
+    rows = profiled(lambda: prove(111))
+    if rows:
+        busy = sum(r[0] for r in rows)
+        log(f"prove device time (torch.profiler, one run): {busy:.1f} ms in "
+            f"{sum(r[1] for r in rows)} kernel launches, busy "
+            f"{busy / (best * 1e3):.1%} of the best call; largest: "
+            + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}" for ms, c, k in rows[:6]))
+    else:
+        log("torch.profiler saw no device time: the prove's device busy "
+            "share is not measured")
+
+    # -- 3. the proofs are right -------------------------------------------------------
     bv = BatchVerifier(bp, pc, n=n, m=m, device=DEVICE)
-    sub = min(bv.sub_batch, len(proofs))
+    vcss = [[v] for v in vcs]
 
-    # main-path inputs of the first sub-batch
+    def verify(ps, vs, seed):
+        bv.verify_batch(ps, vs, [Transcript(l) for l in labels], rng=Rng(seed))
+        torch.cuda.synchronize()
+
+    _cuda.reset_counts()
+    t0 = time.time()
+    verify(proofs, vcss, 11)
+    verify_launches = dict(_cuda.LAUNCHES)
+    log(f"verify_batch({len(proofs)} card-proved proofs, n={n}): accepted "
+        f"(first run {time.time() - t0:.3f} s); launches {verify_launches}")
+
+    sample = random.Random(args.seed).sample(range(args.total),
+                                             min(64, args.total))
+    for i in sample:
+        proofs[i].verify_single(bp, pc, Transcript(labels[i]), vcs[i], n)
+    log(f"host verify_single: {len(sample)} sampled proofs accepted")
+
+    last = len(proofs) - 1
+    b = bytearray(proofs[last].to_bytes())
+    b[128] ^= 1                                       # low byte of t_x
+    flipped = RangeProof.from_bytes(bytes(b))
+    for name, ps, vs in (
+            ("flipped byte", proofs[:last] + [flipped], vcss),
+            ("swapped commitments", proofs,
+             vcss[:last - 1] + [vcss[last], vcss[last - 1]])):
+        try:
+            verify(ps, vs, 12)
+        except ProofError:
+            log(f"{name}: rejected")
+        else:
+            failures.append(f"{name} accepted")
+            log(f"{name}: ACCEPTED")
+
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden_vectors.json")
+    with open(gold) as fh:
+        data = json.load(fh)
+    gproof = RangeProof.from_bytes(bytes.fromhex(data["proofs"][3][0]))
+    gbv = BatchVerifier(BulletproofGens(64, 8), pc, n=64, m=1, device=DEVICE)
+    gbv.verify_batch([gproof], [[bytes.fromhex(data["value_commitments"][0])]],
+                     [Transcript(data["transcript_label"].encode())],
+                     rng=Rng(13))
+    log("golden vector n=64, m=1: accepted")
+
+    small = []
+    for device in (DEVICE, "cpu"):
+        ts = [Transcript(b"small %d" % i) for i in range(4)]
+        ps, vs = BatchProver(bp, pc, 8, device=device).prove_batch(
+            [0, 1, 200, 255], blinds[:4], ts, rng=Rng(14))
+        small.append(([p.to_bytes() for p in ps], vs,
+                      [t.strobe.buf.raw for t in ts]))
+    same = small[0] == small[1]
+    log(f"4 proofs at n=8, card vs device='cpu': "
+        f"{'byte-identical' if same else 'DIFFERENT'}")
+    if not same:
+        failures.append("card and cpu proofs differ")
+
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, products,
+               launches):
+        b_ms, b_by = bound(nbytes, products, imads)
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        status = "ok" if err == 0 else "MISMATCH"
+        log(f"  {name}: max_abs_err {err} ({status}); {ms:.4f} ms kernel, "
+            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}); "
+            f"{launches[name]} launches on the main path")
+        if err != 0:
+            failures.append(name)
+        if launches[name] == 0:
+            failures.append(f"{name} not launched on the main path")
+
+    # -- 4. verifier kernels against their plain versions (exact: integer
+    #       arithmetic repeated step for step, so the tolerance is 0) ----------------
+    sub = min(bv.sub_batch, len(proofs))
+    log(f"verifier kernel phases (sub-batch of {sub} proofs):")
     blob, vblob, dyn_raw = bv._serialize(proofs[:sub], vcss[:sub], lg, n_dyn,
                                          32 * (9 + 2 * lg))
-    blk_np, pair_np = bv.replay(blob, vblob, [Transcript(l) for l in lbls[:sub]],
+    blk_np, pair_np = bv.replay(blob, vblob, [Transcript(l) for l in labels[:sub]],
                                 Rng(args.seed + 1))
     raw = torch.from_numpy(dyn_raw.copy())
     # invalid encodings among them: non-canonical (p + 1), negative (odd),
@@ -213,25 +434,6 @@ def main() -> int:
     g = torch.Generator().manual_seed(args.seed)
     bad[2:66] = torch.randint(0, 256, (64, 32), generator=g, dtype=torch.uint8)
     bad[2:66, 31] &= 127
-    kernels = []
-    failures = []
-
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, products):
-        b_ms, b_by = bound(nbytes, products, imads)
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": None,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
-        status = "ok" if err == 0 else "MISMATCH"
-        log(f"  {name}: max_abs_err {err} ({status}); {ms:.4f} ms kernel, "
-            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
-        if err != 0:
-            failures.append(name)
-
-    # -- 3. each kernel against its plain version (exact: integer arithmetic
-    #       repeated step for step, so the tolerance is 0) ------------------------
-    log(f"kernel phases (sub-batch of {sub} proofs):")
     raw_dev = bad.to(dev)
     N = raw_dev.shape[0]
     got = C.decompress(raw_dev)
@@ -245,7 +447,7 @@ def main() -> int:
            max_abs_err((got[0], got[1]), (want[0], want[1])),
            time_cuda(lambda: C.decompress(raw_dev), 20),
            time_cuda(lambda: C.decompress_plain(raw_dev), 1),
-           N * (32 + 1 + 160), N * fm * FMUL_PRODUCTS)
+           N * (32 + 1 + 160), N * fm * FMUL_PRODUCTS, verify_launches)
 
     blk = torch.from_numpy(blk_np.copy()).to(dev)
     got = V.emit(n, m, blk)
@@ -255,7 +457,8 @@ def main() -> int:
            max_abs_err(got, want), time_cuda(lambda: V.emit(n, m, blk), 20),
            time_cuda(lambda: V.emit_plain(n, m, blk), 1),
            blk.numel() + n * 36 + got[0].numel() + got[1].numel() * 4,
-           emit_mont_muls(n, m, sub, V.EMIT_TILE) * MONT_PRODUCTS)
+           emit_mont_muls(n, m, sub, V.EMIT_TILE) * MONT_PRODUCTS,
+           verify_launches)
 
     valid, pts = C.decompress(raw.to(dev))
     gh = V.tree_sum(got[1])
@@ -273,7 +476,7 @@ def main() -> int:
            time_cuda(lambda: M.accumulate(niels, digits), 5),
            time_cuda(lambda: M.accumulate_plain(niels, digits), 1),
            NP * 120 + digits.numel() + slab.numel() * 4,
-           nonzero * 7 * FMUL_PRODUCTS)
+           nonzero * 7 * FMUL_PRODUCTS, verify_launches)
     sums = M.reduce(slab)
     record("msm_reduce", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:178",
@@ -281,7 +484,7 @@ def main() -> int:
            time_cuda(lambda: M.reduce(slab), 20),
            time_cuda(lambda: M.reduce_plain(slab), 1),
            slab.numel() * 4 + sums.numel() * 4,
-           64 * 8 * (lanes - 1) * 9 * FMUL_PRODUCTS)
+           64 * 8 * (lanes - 1) * 9 * FMUL_PRODUCTS, verify_launches)
     out = M.horner(sums)
     record("msm_horner", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:214",
@@ -289,7 +492,7 @@ def main() -> int:
            time_cuda(lambda: M.horner(sums), 20),
            time_cuda(lambda: M.horner_plain(sums), 1),
            sums.numel() * 4 + 160 + 4,
-           (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_PRODUCTS)
+           (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_PRODUCTS, verify_launches)
     if not bool(out[1].all()) or not bool(valid.all()):
         failures.append("sub-batch MSM is not the identity")
 
@@ -308,65 +511,62 @@ def main() -> int:
     if not ref_ok:
         failures.append("msm vs host")
 
-    # -- 4. the main path ----------------------------------------------------------
-    def run(ps, vs, ls, seed):
-        bv.verify_batch(ps, vs, [Transcript(l) for l in ls], rng=Rng(seed))
-        torch.cuda.synchronize()
+    # -- 5. prover kernels against their plain versions, on main-path inputs ---------
+    if cap_cmp.args is None or cap_msm.args is None:
+        failures.append("prover kernel inputs not captured")
+    else:
+        (cpts,) = cap_cmp.args
+        rniels, rdig = cap_msm.args
+        log(f"prover kernel phases (compress of {cpts.shape[-1]} points; IPP "
+            f"L stream of {rdig.shape[0]} rows x {rdig.shape[1]} lanes):")
+        got = C.compress(cpts)
+        fm = count_fmuls(lambda: C.encode(C.to_coords(C.identity(1, "cpu"))))
+        record("compress", "bulletproofs_tpu_torch/csrc/compress.cu",
+               "bulletproofs_tpu/ops/msm_pallas.py:251",
+               max_abs_err(got, C.compress_plain(cpts)),
+               time_cuda(lambda: C.compress(cpts), 20),
+               time_cuda(lambda: C.compress_plain(cpts), 1),
+               cpts.numel() * 4 + got.numel(),
+               cpts.shape[-1] * fm * FMUL_PRODUCTS, prove_launches)
+        rows, q = rdig.shape
+        fslab = FM.accumulate(rniels, rdig)
+        splits = fslab.shape[0]
+        madd = count_fmuls(lambda: C.madd(
+            C.to_coords(C.identity(1, "cpu")),
+            tuple(torch.zeros((10, 1), dtype=torch.int64) for _ in range(3))))
+        record("fixed_accumulate", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
+               "bulletproofs_tpu/ops/fixed_msm.py:274",
+               max_abs_err(fslab, FM.accumulate_plain(rniels, rdig)),
+               time_cuda(lambda: FM.accumulate(rniels, rdig), 5),
+               time_cuda(lambda: FM.accumulate_plain(rniels, rdig), 1),
+               rniels.numel() * 4 + rdig.numel() + fslab.numel() * 4,
+               rows * q * madd * FMUL_PRODUCTS, prove_launches)
+        add = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
+        fout = FM.reduce(fslab)
+        record("fixed_reduce", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
+               "bulletproofs_tpu/ops/fixed_msm.py:346",
+               max_abs_err(fout, FM.reduce_plain(fslab)),
+               time_cuda(lambda: FM.reduce(fslab), 20),
+               time_cuda(lambda: FM.reduce_plain(fslab), 1),
+               fslab.numel() * 4 + fout.numel() * 4,
+               q * ((splits - 1) * FM.NUM_BUCKETS + 2 * (FM.NUM_BUCKETS - 1))
+               * add * FMUL_PRODUCTS, prove_launches)
+        log(f"  (fixed-base split {splits}; {madd} multiplications per mixed "
+            f"addition, {add} per addition)")
 
-    _cuda.reset_counts()
-    t0 = time.time()
-    run(proofs, vcss, lbls, 11)
-    first_s = time.time() - t0
-    launches = dict(_cuda.LAUNCHES)
-    log(f"verify_batch({len(proofs)} proofs, n={n}): accepted "
-        f"(first run {first_s:.3f} s); launches {launches}")
-    for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
-        if kern["launches"] == 0:
-            failures.append(f"{kern['name']} not launched on the main path")
-
-    last = len(proofs) - 1
-    flipped = RangeProof.from_bytes(proofs[last].to_bytes())
-    b = bytearray(flipped.to_bytes())
-    b[128] ^= 1                                       # low byte of t_x
-    flipped = RangeProof.from_bytes(bytes(b))
-    for name, ps, vs in (
-            ("flipped byte", proofs[:last] + [flipped], vcss),
-            ("swapped commitments", proofs,
-             vcss[:last - 1] + [vcss[last], vcss[last - 1]])):
-        try:
-            run(ps, vs, lbls, 12)
-        except ProofError:
-            log(f"{name}: rejected")
-        else:
-            failures.append(f"{name} accepted")
-            log(f"{name}: ACCEPTED")
-
-    # the golden n=64, m=1 proof from the Rust crate
-    import os
-    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "golden_vectors.json")
-    with open(gold) as fh:
-        data = json.load(fh)
-    gproof = RangeProof.from_bytes(bytes.fromhex(data["proofs"][3][0]))
-    gbv = BatchVerifier(BulletproofGens(64, 8), pc, n=64, m=1, device=DEVICE)
-    gbv.verify_batch([gproof], [[bytes.fromhex(data["value_commitments"][0])]],
-                     [Transcript(data["transcript_label"].encode())],
-                     rng=Rng(13))
-    log("golden vector n=64, m=1: accepted")
-
+    # -- 6. the verifier's timing ------------------------------------------------------
     times = []
-    run(proofs, vcss, lbls, 14)                                   # warm-up
+    verify(proofs, vcss, 14)                                      # warm-up
     for r in range(args.runs):
         t0 = time.time()
-        run(proofs, vcss, lbls, 15 + r)
+        verify(proofs, vcss, 15 + r)
         times.append(time.time() - t0)
     best = min(times)
     log(f"verify_batch {len(proofs)} proofs: best {best * 1e3:.1f} ms of "
         f"{args.runs} -> {len(proofs) / best:.0f} proofs/s "
         f"(runs {[round(t * 1e3, 1) for t in times]} ms) on {smi}")
 
-    # where the time goes: the host stages alone, beside the kernels' time
+    # where the verifier's time goes: the host stages alone, beside the kernels
     plen = 32 * (9 + 2 * lg)
     t0 = time.time()
     blob, vblob, _ = bv._serialize(proofs, vcss, lg, n_dyn, plen)
@@ -375,9 +575,9 @@ def main() -> int:
     for lo in range(0, len(proofs), bv.sub_batch):
         hi = min(lo + bv.sub_batch, len(proofs))
         bv.replay(blob[lo * plen: hi * plen], vblob[lo * 32: hi * 32],
-                  [Transcript(l) for l in lbls[lo:hi]], Rng(16))
+                  [Transcript(l) for l in labels[lo:hi]], Rng(16))
     replay_ms = (time.time() - t0) * 1e3
-    kern_ms = sum(k["ms"] * k["launches"] for k in kernels)
+    kern_ms = sum(k["ms"] * k["launches"] for k in kernels[:5])
     log(f"breakdown per verify_batch: serialize {ser_ms:.1f} ms, C++ replay "
         f"{replay_ms:.1f} ms (host); kernels {kern_ms:.2f} ms (device, sum "
         f"of kernel time x launches); the rest is PyTorch glue and copies")

@@ -117,3 +117,51 @@ def test_verify_batch_on_card(cuda, monkeypatch):
     with pytest.raises(ProofError):
         bv.verify_batch(proofs, vcs[::-1], [Transcript(b"gpu")
                                             for _ in proofs], rng=rng)
+
+
+def test_compress_kernel_matches_plain(cuda):
+    r = random.Random(66)
+    pts = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(ELL)))
+           for _ in range(300)]
+    lanes = torch.as_tensor(C.points_to_lanes(pts)).to(cuda)
+    # other projective representatives, as the MSMs leave them
+    lanes = torch.cat([lanes, C.from_coords(C.double(C.to_coords(lanes)))], -1)
+    before = _cuda.LAUNCHES["compress"]
+    got = C.compress(lanes)
+    want = C.compress_plain(lanes)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["compress"] == before + 1
+    assert torch.equal(got, want)
+    assert [bytes(b) for b in got[:300].cpu().numpy()] == [p.compress()
+                                                            for p in pts]
+
+
+def test_fixed_msm_kernels_match_plain(cuda):
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    r = random.Random(67)
+    bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+             for _ in range(5)]
+    tables = FM.FixedBaseTables(bases, cuda)
+    g = np.random.default_rng(68)
+    digits = torch.as_tensor(g.integers(-7, 9, (5 * 64, 300)).astype(np.int8)
+                             ).to(cuda)
+    assert FM.pick_splits(5 * 64, 300) > 1
+    slab = FM.accumulate(tables.niels, digits)
+    assert torch.equal(slab, FM.accumulate_plain(tables.niels, digits))
+    out = FM.reduce(slab)
+    torch.cuda.synchronize()
+    assert torch.equal(out, FM.reduce_plain(slab))
+
+
+def test_prove_batch_on_card(cuda):
+    from bulletproofs_tpu_torch import BatchProver
+    bp, pc = BulletproofGens(64, 1), PedersenGens()
+    rng = Rng(69)
+    labels = [b"gpu prove %d" % i for i in range(16)]
+    values = [rng.r.randrange(1 << 64) for _ in labels]
+    proofs, vcs = BatchProver(bp, pc, 64, device=cuda).prove_batch(
+        values, [Scalar.random(rng) for _ in labels],
+        [Transcript(l) for l in labels], rng=rng)
+    BatchVerifier(bp, pc, n=64, m=1, device=cuda).verify_batch(
+        proofs, [[v] for v in vcs], [Transcript(l) for l in labels], rng=rng)
+    proofs[3].verify_single(bp, pc, Transcript(labels[3]), vcs[3], 64)

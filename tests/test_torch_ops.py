@@ -14,7 +14,8 @@ import torch
 
 from bulletproofs_tpu.ops import vec_curve as JC
 
-from bulletproofs_tpu_torch.core.field import (D, EDWARDS_D2, P, SQRT_M1)
+from bulletproofs_tpu_torch.core.field import (D, EDWARDS_D2,
+                                               INVSQRT_A_MINUS_D, P, SQRT_M1)
 from bulletproofs_tpu_torch.core.scalar import L as ELL
 from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops import limbs as LB
@@ -129,7 +130,8 @@ def _header_array(name: str, header: str):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("FE_D", D), ("FE_D2", EDWARDS_D2), ("FE_SQRT_M1", SQRT_M1)])
+    ("FE_D", D), ("FE_D2", EDWARDS_D2), ("FE_SQRT_M1", SQRT_M1),
+    ("FE_INVSQRT_A_MINUS_D", INVSQRT_A_MINUS_D)])
 def test_cuda_field_constants(name, value):
     """The limb constants compiled into csrc/fe25519.cuh."""
     assert _header_array(name, "fe25519.cuh") == \
