@@ -8,6 +8,8 @@ tests and embedders can also flip them directly before first use.
 |------------------------|---------------------------|----------|
 | no_native              | BPTPU_NO_NATIVE           | core/_native.py (force pure-Python) |
 | fused_verify_chunk     | BPTPU_FUSED_VERIFY_CHUNK  | parallel/batch_verify sub-batch size (0 = default) |
+| verify_chunk_pts       | BPTPU_VERIFY_CHUNK_PTS    | parallel/batch_verify chunked route: dynamic points per chunk |
+| fused_verify_max_nm    | BPTPU_FUSED_VERIFY_MAX_NM | parallel/batch_verify: largest nm on the fused route |
 | require_consttime      | BPTPU_REQUIRE_CONSTTIME   | vartime_witness_fallback (hard gate) |
 """
 
@@ -34,6 +36,17 @@ class Settings:
     # BatchVerifier default (2048)
     fused_verify_chunk: int = field(
         default_factory=lambda: _env_int("BPTPU_FUSED_VERIFY_CHUNK", 0))
+
+    # chunked verification route: dynamic-point budget per chunk (one
+    # C++ prep call and one partial MSM each)
+    verify_chunk_pts: int = field(
+        default_factory=lambda: _env_int("BPTPU_VERIFY_CHUNK_PTS", 8192))
+
+    # largest aggregation size nm verified on the fused route; larger
+    # aggregations take the chunked route (the JAX package's default and
+    # rule, config.py:111-124)
+    fused_verify_max_nm: int = field(
+        default_factory=lambda: _env_int("BPTPU_FUSED_VERIFY_MAX_NM", 256))
 
     # witness-carrying proving REQUIRES the constant-time native backend:
     # raise instead of falling back to the variable-time pure-Python oracle.

@@ -83,6 +83,10 @@ _SIGNATURES = {
     "ipp_fold": ([_SZ, _SZ] + [_C] * 6, None),
     "rangeproof_verify_replay_batch_c": (
         [_C, _SZ, _C, _SZ, _C] + [_U64] * 3 + [_C] * 3, ctypes.c_int),
+    # the chunked verifier's prep: per-point dynamic scalars, static
+    # scalars accumulated across calls into one buffer
+    "rangeproof_verify_prep_batch": (
+        [_C, _SZ, _C, _SZ, _C] + [_U64] * 3 + [_C] * 3, ctypes.c_int),
     # the batch prover's Fiat-Shamir stages (native/prove_prep.cpp)
     "rp_reduce_wide": ([_U64, _C, _C], ctypes.c_int),
     "rp_ts_yz": ([_U64, _C, _U64, _U64, _U64, _C, _C], ctypes.c_int),

@@ -1,10 +1,14 @@
-// Kernels K3 and K4: the Pippenger multi-scalar multiplication of the fused
-// batch verifier, for Z = 1 points given in Niels form.
+// Kernels K3, K11 and K4: the Pippenger multi-scalar multiplication of the
+// batch verifier, for Z = 1 points given in Niels form (K3, the fused
+// route) and for points of arbitrary Z (K11, the chunked route, whose final
+// MSM adds per-chunk partial results).
 //
 // K3 msm_accumulate replaces ops/msm_pallas.py:58 _accum_kernel_niels
-// (the phase-1 pallas_call of _msm_pallas_niels, :379).  K4 is two launches
-// of this file: msm_reduce replaces :178 _reduce_kernel (:397) and
-// msm_horner replaces :214 _horner_kernel (:412).
+// (the phase-1 pallas_call of _msm_pallas_niels, :379).  K11
+// msm_accumulate_z replaces :121 _accum_kernel (the phase-1 pallas_call of
+// _msm_pallas, :459).  K4 is two launches of this file, after either:
+// msm_reduce replaces :178 _reduce_kernel (:397, :477) and msm_horner
+// replaces :214 _horner_kernel (:412, :492).
 //
 // Digits are signed base-16 in [-8, 8] (64 windows), so there are 8
 // buckets per window (digit 0 adds nothing).  Verifier data is public, so
@@ -20,6 +24,12 @@
 // laid out [bucket][coordinate][limb][thread] so a warp's accesses hit 32
 // different banks; 40 KB per block of 32 threads, so five blocks share an
 // SM.  The slab leaves the kernel once: (64, 8, 4, 10, lanes) int32.
+//
+// K11 bound: operations, as K3's, with the complete 9-multiplication
+// addition (~900 IMAD.WIDE) per nonzero digit against a 160-byte point.
+// Design: K3's, point for point; a negative digit negates X and T (two limb
+// negations, as the TPU kernel's fneg).  It writes K3's slab layout, so K4
+// runs unchanged after it.
 //
 // K4 msm_reduce: grid (8 buckets, 64 windows), lanes / 2 threads; a tree of
 // complete additions over the lanes in shared memory -> (64, 8, 4, 10).
@@ -108,6 +118,58 @@ accumulate_kernel(const int32_t* __restrict__ niels,
   }
 }
 
+// K11: accumulate_kernel for points of arbitrary Z (extended coordinates),
+// the complete 9-multiplication addition in place of the mixed one; a
+// negative digit adds (-X : Y : Z : -T).  Same grid, lanes and slab.
+__global__ void __launch_bounds__(ACC_THREADS)
+accumulate_z_kernel(const int32_t* __restrict__ pts,
+                    const int8_t* __restrict__ digits,
+                    int32_t* __restrict__ slab, int64_t n, int lanes) {
+  __shared__ int32_t buckets[NBUCKET * 4 * 10 * ACC_THREADS];
+  const int tid = threadIdx.x;
+  const int lane = blockIdx.x * ACC_THREADS + tid;
+  const int w = blockIdx.y;
+  const int cstride = 10 * ACC_THREADS;
+  const int bstride = 4 * cstride;
+
+  const ge id = ge_identity();
+  for (int b = 0; b < NBUCKET; ++b) {
+    int32_t* s = buckets + b * bstride + tid;
+    smem_fe_store(s, ACC_THREADS, id.X);
+    smem_fe_store(s + cstride, ACC_THREADS, id.Y);
+    smem_fe_store(s + 2 * cstride, ACC_THREADS, id.Z);
+    smem_fe_store(s + 3 * cstride, ACC_THREADS, id.T);
+  }
+
+  const int8_t* drow = digits + (int64_t)w * n;
+  for (int64_t k = lane; k < n; k += lanes) {
+    const int d = drow[k];
+    if (d == 0) continue;
+    ge q = ge_load(pts + k, n);
+    if (d < 0) {
+      q.X = fe_neg(q.X);
+      q.T = fe_neg(q.T);
+    }
+    int32_t* s = buckets + ((d < 0 ? -d : d) - 1) * bstride + tid;
+    ge acc;
+    acc.X = smem_fe_load(s, ACC_THREADS);
+    acc.Y = smem_fe_load(s + cstride, ACC_THREADS);
+    acc.Z = smem_fe_load(s + 2 * cstride, ACC_THREADS);
+    acc.T = smem_fe_load(s + 3 * cstride, ACC_THREADS);
+    acc = ge_add(acc, q);
+    smem_fe_store(s, ACC_THREADS, acc.X);
+    smem_fe_store(s + cstride, ACC_THREADS, acc.Y);
+    smem_fe_store(s + 2 * cstride, ACC_THREADS, acc.Z);
+    smem_fe_store(s + 3 * cstride, ACC_THREADS, acc.T);
+  }
+
+  for (int b = 0; b < NBUCKET; ++b) {
+    const int32_t* s = buckets + b * bstride + tid;
+    int32_t* dst = slab + ((int64_t)(w * NBUCKET + b) * 40) * lanes + lane;
+    for (int ck = 0; ck < 40; ++ck) dst[(int64_t)ck * lanes] = s[ck * ACC_THREADS];
+  }
+}
+
 __global__ void reduce_kernel(const int32_t* __restrict__ slab,
                               int32_t* __restrict__ sums, int lanes) {
   extern __shared__ int32_t tree[];                // (40, lanes / 2)
@@ -159,6 +221,16 @@ BP_EXPORT int bp_msm_accumulate(const int32_t* niels, const int8_t* digits,
   dim3 grid((unsigned)(lanes / ACC_THREADS), 64);
   accumulate_kernel<<<grid, ACC_THREADS, 0, stream>>>(niels, digits, slab, n,
                                                       (int)lanes);
+  return (int)cudaGetLastError();
+}
+
+// pts (4, 10, n) int32, digits (64, n) int8 -> slab (64, 8, 4, 10, lanes)
+BP_EXPORT int bp_msm_accumulate_z(const int32_t* pts, const int8_t* digits,
+                                  int32_t* slab, int64_t n, int64_t lanes,
+                                  cudaStream_t stream) {
+  dim3 grid((unsigned)(lanes / ACC_THREADS), 64);
+  accumulate_z_kernel<<<grid, ACC_THREADS, 0, stream>>>(pts, digits, slab, n,
+                                                        (int)lanes);
   return (int)cudaGetLastError();
 }
 

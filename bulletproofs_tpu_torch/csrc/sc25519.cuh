@@ -149,6 +149,36 @@ __device__ __forceinline__ sc sc_from_bytes(const uint8_t* b) {
   return r;
 }
 
+// exact limbs of x < 2^261 -> x mod l (ops/scalar.reduce_top): with
+// q = floor(x / 2^252) < 2^9, x - q l lies in (-l, 2^252), so one
+// conditional addition of l finishes (by a mask, not a branch: the
+// prover's scalars are secret).  The identity on canonical x.
+__device__ __forceinline__ sc sc_reduce_top(const sc& x) {
+  const int64_t q = x.v[8] >> 20;                  // limb 8 starts at bit 232
+  int64_t e[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) e[k] = (int64_t)x.v[k] - q * SC_ELL[k];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int64_t c = e[k] >> SC_BITS;
+    e[k] &= SC_MASK;
+    e[k + 1] += c;
+  }
+  const int64_t neg = e[8] >> 63;                  // all ones when x - q l < 0
+#pragma unroll
+  for (int k = 0; k < 9; ++k) e[k] += (int64_t)SC_ELL[k] & neg;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int64_t c = e[k] >> SC_BITS;
+    e[k] &= SC_MASK;
+    e[k + 1] += c;
+  }
+  sc r;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r.v[k] = (uint32_t)e[k];
+  return r;
+}
+
 // canonical x -> signed base-16 digits in [-7, 8] (ops/scalar.signed_digits:
 // the nibbles of x + 0x77..7, minus 7)
 __device__ __forceinline__ void sc_signed_digits(const sc& x, int8_t out[64]) {

@@ -1,0 +1,115 @@
+"""The batch prover's mod-l vector kernels: K8 fold, K9 smul and K10
+digits (csrc/fold.cu), each with its plain PyTorch version.
+
+The JAX package's ops/fold_pallas.py (`fold_lanes`, `smul_lanes`,
+`digits_lanes`) in the port's layout: vectors are (R, 9, P) int64
+canonical scalars (ops/scalar.py), per-proof scalars (9, P).  The wrappers
+take any row and column count (the TPU kernels' 512-column tile and its
+`usable` gate were Mosaic limits), check shapes, dtypes and contiguity on
+either device, run the plain version for a CPU tensor and launch the
+kernel for a CUDA tensor.  Outputs are canonical, so a kernel's result
+equals its plain version's exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from . import scalar as S
+from .limbs import SC_LIMBS
+
+L = SC_LIMBS
+
+
+def _check(t: torch.Tensor, shape, what: str, dtype=torch.int64) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
+            or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
+def _vectors(x: torch.Tensor, what: str):
+    if x.dim() != 3 or x.shape[1] != L:
+        raise ValueError(f"{what}: expected (R, {L}, P) limbs, got "
+                         f"{tuple(x.shape)}")
+    return x.shape[0], x.shape[2]
+
+
+# -- K8: fold ----------------------------------------------------------------------
+
+def fold_plain(x, y, u, v) -> torch.Tensor:
+    return S.sadd(S.smul(x, u), S.smul(y, v))
+
+
+def fold_lanes(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """x, y (R, 9, P), u, v (9, P) per-proof scalars -> (R, 9, P)
+    u x + v y mod l."""
+    R, P = _vectors(x, "fold_lanes")
+    _check(x, (R, L, P), "fold_lanes x")
+    _check(y, (R, L, P), "fold_lanes y")
+    _check(u, (L, P), "fold_lanes u")
+    _check(v, (L, P), "fold_lanes v")
+    if x.device.type == "cpu":
+        return fold_plain(x, y, u, v)
+    for t in (x, y, u, v):
+        _cuda.check(t, torch.int64)
+    out = torch.empty_like(x)
+    if x.numel():
+        _cuda.launch("fold", "fold", "bp_fold", x, y, u, v, out, R, P)
+    return out
+
+
+# -- K9: smul ----------------------------------------------------------------------
+
+def smul_plain(x, mask, m1, m0) -> torch.Tensor:
+    return S.smul(x, torch.where(mask[:, None, None], m1, m0))
+
+
+def smul_lanes(x: torch.Tensor, mask: torch.Tensor, m1: torch.Tensor,
+               m0: torch.Tensor) -> torch.Tensor:
+    """x (R, 9, P), mask (R,) bool, m1, m0 (9, P) per-proof scalars ->
+    (R, 9, P): row r times m1 where mask[r], else times m0, mod l."""
+    R, P = _vectors(x, "smul_lanes")
+    _check(x, (R, L, P), "smul_lanes x")
+    _check(mask, (R,), "smul_lanes mask", torch.bool)
+    _check(m1, (L, P), "smul_lanes m1")
+    _check(m0, (L, P), "smul_lanes m0")
+    if x.device.type == "cpu":
+        return smul_plain(x, mask, m1, m0)
+    for t in (x, m1, m0):
+        _cuda.check(t, torch.int64)
+    _cuda.check(mask, torch.bool)
+    out = torch.empty_like(x)
+    if x.numel():
+        _cuda.launch("smul", "fold", "bp_smul", x, mask, m1, m0, out, R, P)
+    return out
+
+
+# -- K10: digits --------------------------------------------------------------------
+
+def digits_plain(x: torch.Tensor) -> torch.Tensor:
+    nb, _, q = x.shape
+    d = S.signed_digits(S.reduce_top(x.permute(1, 0, 2).reshape(L, nb * q)))
+    return d.reshape(64, nb, q).permute(1, 0, 2).reshape(nb * 64, q) \
+        .contiguous()
+
+
+def digits_lanes(x: torch.Tensor) -> torch.Tensor:
+    """(nb, 9, Q) or (9, Q) exact limbs (value < 2^261; canonical in the
+    port) -> (nb * 64, Q) int8 signed base-16 digits in [-7, 8] of the
+    values mod l, row j * 64 + w (the fixed-base tables' stream order; the
+    64 windows of one scalar for a (9, Q) input)."""
+    if x.dim() == 2:
+        x = x[None]
+    nb, Q = _vectors(x, "digits_lanes")
+    _check(x, (nb, L, Q), "digits_lanes x")
+    if x.device.type == "cpu":
+        return digits_plain(x)
+    _cuda.check(x, torch.int64)
+    out = torch.empty((nb * 64, Q), dtype=torch.int8, device=x.device)
+    if x.numel():
+        _cuda.launch("digits", "fold", "bp_digits", x, out, nb, Q)
+    return out

@@ -1,14 +1,18 @@
-"""Pippenger multi-scalar multiplication for Z = 1 points in Niels form:
-kernels K3 (bucket accumulation) and K4 (bucket reduction, then the Horner
-window combine with the ristretto is-identity flag), csrc/msm.cu.
+"""Pippenger multi-scalar multiplication: kernels K3 (bucket accumulation
+of Z = 1 points in Niels form), K11 (bucket accumulation of points of any
+Z) and K4 (bucket reduction, then the Horner window combine with the
+ristretto is-identity flag), csrc/msm.cu.
 
-The JAX package's ops/msm_pallas.py `_msm_pallas_niels` in the port's
-layout: signed base-16 digits in [-8, 8] over 64 windows (ops/scalar.
-signed_digits makes them), 8 buckets per window, `lanes` independent
-accumulators per window (`pick_lanes` of the point count).  Point k goes
-to lane k % lanes; a lane adds its
-points in order of k.  Each kernel has its plain PyTorch version here,
-which a wrapper runs for CPU tensors; the two agree limb for limb.
+The JAX package's ops/msm_pallas.py `_msm_pallas_niels` (`msm_niels`) and
+`_msm_pallas` (`msm_lanes_flag`) in the port's layout: signed base-16
+digits in [-8, 8] over 64 windows (ops/scalar.signed_digits or K10 make
+them), 8 buckets per window, `lanes` independent accumulators per window
+(`pick_lanes` of the point count).  Point k goes to lane k % lanes; a lane
+adds its points in order of k.  Any point count is taken: the plain
+versions pad to whole lane steps with identities and zero digits, the
+kernels stop at N (the TPU's 512 x 8 padding quantum was a block shape).
+Each kernel has its plain PyTorch version here, which a wrapper runs for
+CPU tensors; the two agree limb for limb.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ import torch
 
 from . import _cuda
 from . import curve as C
+from . import field as F
+from . import fold as FO
+from . import scalar as S
 from .limbs import FE_LIMBS
 
 L = FE_LIMBS
@@ -43,24 +50,24 @@ def _niels_identity(n: int, device) -> torch.Tensor:
     return ident
 
 
-# -- K3: bucket accumulation -----------------------------------------------------
+# -- K3 / K11: bucket accumulation ---------------------------------------------------
 
-def accumulate_plain(niels: torch.Tensor,
-                     digits: torch.Tensor) -> torch.Tensor:
-    """niels (3, 10, N) int32, digits (64, N) int8 -> slab
-    (64, 8, 4, 10, pick_lanes(N)) int32 of bucket sums (bucket b holds
-    digit magnitude b + 1)."""
-    n = niels.shape[-1]
+def _accumulate_plain(pts: torch.Tensor, digits: torch.Tensor, pad_pts,
+                      add) -> torch.Tensor:
+    """The bucket loop of both accumulations: pts (c, 10, N), padded with
+    pad_pts(k) to whole lane steps; add(bucket coords, point coords (each
+    (64, 10, lanes)), neg (64, 1, lanes)) -> the new bucket coords."""
+    n = pts.shape[-1]
     lanes = pick_lanes(n)
     steps = -(-n // lanes)
     pad = steps * lanes - n
-    dev = niels.device
+    dev = pts.device
     if pad:
-        niels = torch.cat([niels, _niels_identity(pad, dev)], dim=-1)
+        pts = torch.cat([pts, pad_pts(pad, dev)], dim=-1)
         digits = torch.cat([digits, torch.zeros((NUM_WINDOWS, pad),
                                                 dtype=digits.dtype,
                                                 device=dev)], dim=-1)
-    pre = niels.to(torch.int64).reshape(3, L, steps, lanes)
+    pre = pts.to(torch.int64).reshape(pts.shape[0], L, steps, lanes)
     digs = digits.to(torch.int64).reshape(NUM_WINDOWS, steps, lanes)
     # slot 0 is a sink for digit 0; slots 1..8 are the buckets
     slab = C.identity(1, dev).to(torch.int64).reshape(1, 1, 4, L, 1).expand(
@@ -68,17 +75,35 @@ def accumulate_plain(niels: torch.Tensor,
     for s in range(steps):
         d = digs[:, s]                                       # (64, lanes)
         neg = (d < 0)[:, None, :]
-        ypx, ymx, t2d = (pre[c, :, s][None].expand(NUM_WINDOWS, L, lanes)
-                         for c in range(3))
-        q = (torch.where(neg, ymx, ypx), torch.where(neg, ypx, ymx),
-             torch.where(neg, -t2d, t2d))
+        q = tuple(pre[c, :, s][None].expand(NUM_WINDOWS, L, lanes)
+                  for c in range(pre.shape[0]))
         idx = d.abs()[:, None, None, None, :].expand(NUM_WINDOWS, 1, 4, L,
                                                       lanes)
         cur = slab.gather(1, idx)[:, 0]                      # (64, 4, L, lanes)
-        new = torch.stack(C.madd((cur[:, 0], cur[:, 1], cur[:, 2], cur[:, 3]),
-                                 q), dim=1)
+        new = torch.stack(add((cur[:, 0], cur[:, 1], cur[:, 2], cur[:, 3]),
+                              q, neg), dim=1)
         slab.scatter_(1, idx, new[:, None])
     return slab[:, 1:].to(torch.int32).contiguous()
+
+
+def _add_niels(cur, q, neg):
+    ypx, ymx, t2d = q
+    return C.madd(cur, (torch.where(neg, ymx, ypx), torch.where(neg, ypx, ymx),
+                        torch.where(neg, -t2d, t2d)))
+
+
+def _add_extended(cur, q, neg):
+    X, Y, Z, T = q
+    return C.add(cur, (torch.where(neg, F.neg(X), X), Y, Z,
+                       torch.where(neg, F.neg(T), T)))
+
+
+def accumulate_plain(niels: torch.Tensor,
+                     digits: torch.Tensor) -> torch.Tensor:
+    """niels (3, 10, N) int32, digits (64, N) int8 -> slab
+    (64, 8, 4, 10, pick_lanes(N)) int32 of bucket sums (bucket b holds
+    digit magnitude b + 1)."""
+    return _accumulate_plain(niels, digits, _niels_identity, _add_niels)
 
 
 def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -95,6 +120,33 @@ def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
                        dtype=torch.int32, device=niels.device)
     _cuda.launch("msm_accumulate", "msm", "bp_msm_accumulate", niels, digits,
                  slab, n, lanes)
+    return slab
+
+
+def accumulate_z_plain(points: torch.Tensor,
+                       digits: torch.Tensor) -> torch.Tensor:
+    """points (4, 10, N) int32 of any Z, digits (64, N) int8 -> slab
+    (64, 8, 4, 10, pick_lanes(N)) int32 (accumulate_plain's, by the
+    complete addition; a negative digit adds (-X : Y : Z : -T))."""
+    return _accumulate_plain(points, digits, C.identity, _add_extended)
+
+
+def accumulate_z(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Kernel K11 on CUDA tensors, the plain version on CPU tensors."""
+    n = points.shape[-1]
+    if points.dim() != 3 or points.shape[:2] != (4, L) \
+            or digits.shape != (NUM_WINDOWS, n):
+        raise ValueError("accumulate_z takes points (4, 10, N), digits "
+                         "(64, N)")
+    if points.device.type == "cpu":
+        return accumulate_z_plain(points, digits)
+    lanes = pick_lanes(n)
+    _cuda.check(points, torch.int32)
+    _cuda.check(digits, torch.int8)
+    slab = torch.empty((NUM_WINDOWS, NUM_BUCKETS, 4, L, lanes),
+                       dtype=torch.int32, device=points.device)
+    _cuda.launch("msm_accumulate_z", "msm", "bp_msm_accumulate_z", points,
+                 digits, slab, n, lanes)
     return slab
 
 
@@ -167,3 +219,22 @@ def msm_niels(niels: torch.Tensor,
     digits (64, N) int8 -> (point (4, 10) int32, is-identity flag (1,)
     bool), on the device of the inputs."""
     return horner(reduce(accumulate(niels, digits)))
+
+
+def msm_lanes_flag(points: torch.Tensor, scalars: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sum_k s_k P_k for points (4, 10, N) int32 of any Z and scalars
+    (N, 32) uint8 little-endian (any value < 2^256, taken mod l) -> (point
+    (4, 10, 1) int32, is-identity flag (1,) bool), on the inputs' device
+    (msm_pallas.msm_lanes_flag): digits by K10, then K11, K4a, K4b."""
+    if scalars.dim() != 2 or scalars.shape != (points.shape[-1], 32):
+        raise ValueError("msm_lanes_flag takes (N, 32) scalar bytes for "
+                         "(4, 10, N) points")
+    digits = FO.digits_lanes(S.from_bytes32(scalars))
+    out, flag = horner(reduce(accumulate_z(points, digits)))
+    return out[..., None], flag
+
+
+def msm_lanes(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """msm_lanes_flag's point alone, (4, 10, 1) int32."""
+    return msm_lanes_flag(points, scalars)[0]

@@ -7,9 +7,10 @@ C++ call between two stages); a "fused" function here covers one whole
 phase between two challenges and returns the bytes that the next host
 call absorbs.  Points go through the fixed-base MSM (ops/fixed_msm.py,
 kernels K6 and K7) and compression (ops/curve.compress, kernel K5).  The
-mod-l vector math is plain PyTorch on canonical scalars (ops/scalar.py),
-the JAX package's configuration with its fold kernels off
-(BPTPU_NO_FOLD_PALLAS=1).
+mod-l vector math runs on canonical scalars: every digit stream through
+kernel K10 and the IPP fold through K8 / K9 (ops/fold.py, where the JAX
+package calls ops/fold_pallas.py), the rest in plain PyTorch
+(ops/scalar.py, where the JAX package's `_vmul` is XLA).
 
 Protocol math mirrors the reference party / dealer / IPP prover
 (src/range_proof/party.rs:182-237, dealer.rs:226-293,
@@ -33,6 +34,7 @@ import torch
 from ..core.scalar import L as ELL
 from . import curve as C
 from . import fixed_msm as FM
+from . import fold as FO
 from . import scalar as S
 from .limbs import SC_LIMBS, sc_ints_to_limbs, sc_to_bytes
 
@@ -41,11 +43,8 @@ L = SC_LIMBS
 
 def _coef_digits(coef: torch.Tensor) -> torch.Tensor:
     """(nb, 9, Q) canonical coefficients -> (nb * 64, Q) int8 signed digit
-    stream, row j * 64 + w (fixed_msm's table order)."""
-    nb, _, q = coef.shape
-    d = S.signed_digits(coef.permute(1, 0, 2).reshape(L, nb * q))
-    return d.reshape(64, nb, q).permute(1, 0, 2).reshape(nb * 64, q) \
-        .contiguous()
+    stream, row j * 64 + w (fixed_msm's table order), by kernel K10."""
+    return FO.digits_lanes(coef.contiguous())
 
 
 def v_digits(v_sc: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
@@ -69,7 +68,7 @@ def a_digits(N: int, bits: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
     """Digit stream (64 + 2N, P) over a_stream_sel's rows: ab's 64 windows,
     aL_i = bit_i, then aR_i = bit_i - 1."""
     aL = (bits != 0).to(torch.int8)
-    return torch.cat([S.signed_digits(ab), aL, aL - 1]).contiguous()
+    return torch.cat([FO.digits_lanes(ab.contiguous()), aL, aL - 1])
 
 
 def s_base_sel(N: int):
@@ -193,17 +192,19 @@ def round_base_sets(n: int, nk: int):
 
 
 def round_fold(n: int, nk: int, a, b, gw, hw, u, uinv):
-    """Fold a, b with the round's challenge; update gw, hw.  The folded
-    halves land in slots [0, nk / 2); the stale upper slots are never read."""
+    """Fold a, b with the round's challenge (kernel K8); update gw, hw
+    (kernel K9).  The folded halves land in slots [0, nk / 2); the stale
+    upper slots are never read.  u, uinv (9, P) are per proof: the kernels
+    read them by proof, so nothing is broadcast over the rows."""
     h = nk // 2
     hi, *_ = _slot_maps(n, nk)
-    lo_m = torch.as_tensor(~hi, device=a.device)[:, None, None]
-    na = S.sadd(S.smul(a[:h], u), S.smul(a[h:nk], uinv))
-    nb = S.sadd(S.smul(b[:h], uinv), S.smul(b[h:nk], u))
+    lo_m = torch.as_tensor(~hi, device=a.device)
+    na = FO.fold_lanes(a[:h], a[h:nk], u, uinv)
+    nb = FO.fold_lanes(b[:h], b[h:nk], uinv, u)
     a = torch.cat([na, a[h:]])
     b = torch.cat([nb, b[h:]])
-    gw = S.smul(gw, torch.where(lo_m, uinv, u))
-    hw = S.smul(hw, torch.where(lo_m, u, uinv))
+    gw = FO.smul_lanes(gw, lo_m, uinv, u)
+    hw = FO.smul_lanes(hw, lo_m, u, uinv)
     return a, b, gw, hw
 
 

@@ -99,6 +99,17 @@ def sreduce(x: torch.Tensor) -> torch.Tensor:
     return from_mont(to_mont(x))
 
 
+def reduce_top(x: torch.Tensor) -> torch.Tensor:
+    """Exact limbs of any value < 2^261 -> the value mod l
+    (csrc/sc25519.cuh sc_reduce_top): with q = floor(x / 2^252) < 2^9,
+    x - q l lies in (-l, 2^252), so one conditional addition of l ends it.
+    The identity on canonical x."""
+    q = x[..., L - 1:, :] >> 20                  # limb 8 starts at bit 232
+    e = normalize(x - q * const(ELL, x.device))
+    return normalize(e + torch.where(e[..., L - 1:, :] < 0,
+                                     const(ELL, x.device), 0))
+
+
 def from_bytes32(raw: torch.Tensor) -> torch.Tensor:
     """(N, 32) uint8 little-endian -> (9, N) exact limbs (value < 2^256)."""
     return sc_from_bytes(raw)

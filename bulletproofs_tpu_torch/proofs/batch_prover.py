@@ -1,13 +1,16 @@
-"""Batched range proving on the card: many single-value (m = 1) proofs
-driven through the device stages at once (the JAX package's
-proofs/batch_prover.py, its per-stage route `_prove_batch_device`).
+"""Batched range proving on the card: many proofs driven through the
+device stages at once (the JAX package's proofs/batch_prover.py, its
+per-stage route `_prove_batch_device` / `_prove_half_gen`).  m = 1 proves
+one value per proof; m > 1 proves aggregated statements of m values per
+proof, as the reference's `prove_multiple` and its local dealer do.
 
 Split of labour:
 
 * device (ops/prover_stages.py): the blinding draws (ChaCha20 from one
   32-byte key per half-batch), every commitment and every IPP L / R as
   fixed-base MSMs over [B, B~, G.., H..] (kernels K6, K7), their
-  compression (K5), and all mod-l vector math;
+  compression (K5), the digit streams (K10), the IPP fold (K8, K9) and the
+  rest of the mod-l vector math;
 * host (native/prove_prep.cpp through core/_native.py): Fiat-Shamir, one
   batched C++ call between two device stages (rp_ts_yz, rp_ts_x, rp_ts_w,
   rp_ts_round).
@@ -15,8 +18,8 @@ Split of labour:
 Large batches run as two interleaved halves, so the host's transcript work
 of one half overlaps the device work of the other.  The transcripts
 advance in place, as the reference's prover does.  Outputs have the
-reference crate's wire format and verify with RangeProof.verify_single
-and BatchVerifier.
+reference crate's wire format and verify with RangeProof.verify_single /
+verify_multiple and BatchVerifier.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def _check_rc(rc: int, what: str) -> None:
 
 
 class BatchProver:
-    """Device tables for (n, m = 1) and batched range proving on them."""
+    """Device tables for (n, m) and batched range proving on them."""
 
     HALVES_FROM = 1024          # batches this large (and even) run as halves
 
@@ -56,10 +59,6 @@ class BatchProver:
             raise MPCError(MPCError.INVALID_BITSIZE)
         if m == 0 or m & (m - 1):
             raise MPCError(MPCError.INVALID_AGGREGATION)
-        if m != 1:
-            raise NotImplementedError(
-                "aggregated batch proving (m > 1) is not ported yet "
-                "(ROADMAP.md section 1, item 9)")
         if _NATIVE is None:
             raise RuntimeError("the batch prover needs the native host "
                                "library (core/_native.py)")
@@ -89,20 +88,31 @@ class BatchProver:
     def prove_batch(self, values: Sequence, blindings: Sequence,
                     transcripts: List[Transcript], rng=None
                     ) -> Tuple[List[RangeProof], List[bytes]]:
-        """Prove one n-bit value per transcript -> (proofs, value
-        commitments); each proof verifies against its transcript's label
-        as RangeProof.prove_single's does.  `rng` (anything with
-        .randbytes) seeds the blinding draws: 32 bytes per half-batch."""
+        """Prove one n-bit statement per transcript -> (proofs, value
+        commitments).  For m = 1 each statement is one value and each
+        commitment one compressed point; for m > 1 each is a list of m
+        values (blindings) and a list of m compressed points.  Each proof
+        verifies against its transcript's label as RangeProof.prove_single
+        / prove_multiple's does.  `rng` (anything with .randbytes) seeds the
+        blinding draws: 32 bytes per half-batch."""
         rng = rng or SystemRandom()
         if not (len(values) == len(blindings) == len(transcripts)):
             raise ValueError("values, blindings and transcripts differ in "
                              "length")
         if not values:
             raise ValueError("prove_batch requires at least one value")
-        values = [int(v) for v in values]
-        for v in values:
-            if v < 0 or v >> self.n:
-                raise ValueError(f"value out of range for {self.n}-bit proof")
+        if self.m == 1:
+            values = [[v] for v in values]
+            blindings = [[b] for b in blindings]
+        values = [[int(v) for v in vs] for vs in values]
+        for vs, bs in zip(values, blindings):
+            if len(vs) != self.m or len(bs) != self.m:
+                raise ValueError(f"expected {self.m} values and blindings "
+                                 f"per statement")
+            for v in vs:
+                if v < 0 or v >> self.n:
+                    raise ValueError(
+                        f"value out of range for {self.n}-bit proof")
         count = len(values)
         if count >= self.HALVES_FROM and count % 2 == 0:
             h = count // 2
@@ -149,13 +159,18 @@ class BatchProver:
         # (N * count each, i-major), from one key
         red = chacha.random_scalars(rng.randbytes(32), count * (4 + 2 * N),
                                     self.device)
-        v_bytes = self._upload(b"".join(v.to_bytes(32, "little")
-                                        for v in values), count)
-        vb_bytes = self._upload(b"".join(b.to_bytes() for b in blindings),
-                                count)
-        vals_np = np.array(values, np.uint64)
-        bits = torch.from_numpy(((vals_np[None, :] >> np.arange(
-            n, dtype=np.uint64)[:, None]) & 1).astype(np.int32)).to(self.device)
+        # party-major scalars (column j * count + p) and bits (N, count),
+        # row k = j * n + i the bit i of party j's value
+        v_bytes = self._upload(b"".join(
+            values[p][j].to_bytes(32, "little")
+            for j in range(m) for p in range(count)), m * count)
+        vb_bytes = self._upload(b"".join(
+            blindings[p][j].to_bytes() for j in range(m) for p in range(count)),
+            m * count)
+        vals_np = np.array(values, np.uint64).T                 # (m, count)
+        bits = torch.from_numpy(((vals_np[:, None, :] >> np.arange(
+            n, dtype=np.uint64)[None, :, None]) & 1).reshape(N, count)
+            .astype(np.int32)).to(self.device)
 
         vas = yield PS.stage0_fused(n, m, self.tables_bb.niels,
                                     self.a_tables.niels, self.s_tables.niels,
@@ -223,9 +238,12 @@ class BatchProver:
                 R_vec=[bytes(Rr[p]) for Rr in R_rows],
                 a=sc(fin[3, p]), b=sc(fin[4, p]))
             proofs.append(RangeProof(
-                A=bytes(vas[count + p]), S=bytes(vas[2 * count + p]),
+                A=bytes(vas[m * count + p]), S=bytes(vas[(m + 1) * count + p]),
                 T_1=bytes(tb[p]), T_2=bytes(tb[count + p]),
                 t_x=sc(fin[0, p]), t_x_blinding=sc(fin[1, p]),
                 e_blinding=sc(fin[2, p]), ipp_proof=ipp))
-            vcs.append(bytes(vas[p]))
+            if m == 1:
+                vcs.append(bytes(vas[p]))
+            else:
+                vcs.append([bytes(vas[j * count + p]) for j in range(m)])
         return proofs, vcs

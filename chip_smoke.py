@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--total 8192] [--prove-runs 3] [--runs 5]
+                          [--agg-total 256] [--agg-runs 3]
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   1. drives the prover's main path: BatchProver.prove_batch of `--total`
@@ -18,7 +19,17 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      L stream and one 8192-point compression of the prover), and the
      verifier MSM against the host curve library on a small input;
   4. times the verifier's main path (best of `--runs` after a warm-up);
-  5. prints the kernels' launches, times, plain times and bounds as one
+  5. drives the aggregated path at full width: BatchProver(m=16) of
+     `--agg-total` n=64 proofs (one warm-up, then the best of `--agg-runs`,
+     launch counts and breakdown) and BatchVerifier(m=16) on its chunked
+     route (best of `--agg-runs`); the same proofs accepted by the fused
+     route too, a flipped byte and swapped commitments rejected, 2 proofs
+     through the host verify_multiple, and n=8, m=2 proofs from the card
+     equal to the CPU route's byte for byte;
+  6. holds kernels K8-K11 against their plain versions on the aggregated
+     path's inputs (one fold, one gw update, the S coefficients' digits,
+     one verifier chunk's and the final MSM's accumulation);
+  7. prints the kernels' launches, times, plain times and bounds as one
      JSON line, the card's name and power limit, and last the device line.
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -227,6 +238,8 @@ def main() -> int:
     ap.add_argument("--prove-runs", type=int, default=3)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--agg-total", type=int, default=256)
+    ap.add_argument("--agg-runs", type=int, default=3)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -240,7 +253,9 @@ def main() -> int:
     from bulletproofs_tpu_torch.core.ristretto import multiscalar_mul
     from bulletproofs_tpu_torch.ops import _cuda
     from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.config import settings
     from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    from bulletproofs_tpu_torch.ops import fold as FO
     from bulletproofs_tpu_torch.ops import msm as M
     from bulletproofs_tpu_torch.ops import prover_stages as PS
     from bulletproofs_tpu_torch.ops import scalar as S
@@ -310,6 +325,9 @@ def main() -> int:
     times = [time.time() - t0]
     prove_launches = dict(_cuda.LAUNCHES)
     log(f"prove_batch launches: {prove_launches}")
+    for k in ("fold", "smul", "digits"):
+        if prove_launches[k] == 0:
+            failures.append(f"{k} not launched by the m=1 prover")
     for r in range(args.prove_runs - 1):
         t0 = time.time()
         prove(102 + r)
@@ -582,6 +600,221 @@ def main() -> int:
         f"{replay_ms:.1f} ms (host); kernels {kern_ms:.2f} ms (device, sum "
         f"of kernel time x launches); the rest is PyTorch glue and copies")
 
+    # -- 7. the aggregated path: m = 16, n = 64 ---------------------------------------
+    m16 = 16
+    bp16 = BulletproofGens(n, m16)
+    t0 = time.time()
+    prover16 = BatchProver(bp16, pc, n, m16, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"BatchProver(n={n}, m={m16}) tables: {time.time() - t0:.2f} s")
+    agg = args.agg_total
+    vals16 = [[rng.r.randrange(1 << n) for _ in range(m16)] for _ in range(agg)]
+    vals16[0][:2] = [0, (1 << n) - 1]
+    blinds16 = [[Scalar.random(rng) for _ in range(m16)] for _ in range(agg)]
+    labels16 = [b"chip smoke agg %d" % i for i in range(agg)]
+
+    def prove16(seed):
+        ts = [Transcript(l) for l in labels16]
+        out = prover16.prove_batch(vals16, blinds16, ts, rng=Rng(seed))
+        torch.cuda.synchronize()
+        return out
+
+    # the warm-up keeps the aggregated path's kernel inputs: the first fold
+    # (512 rows), the first gw update (1024 rows), the S coefficients'
+    # digits (2N + 1 = 2049 rows)
+    N16 = n * m16
+    pcaps = [Capture(PS.FO, "fold_lanes",
+                    lambda x, *a: x.shape[0] == N16 // 2),
+            Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
+            Capture(PS.FO, "digits_lanes",
+                    lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1)]
+    t0 = time.time()
+    try:
+        prove16(200)
+    finally:
+        for c in reversed(pcaps):
+            c.restore()
+    log(f"prove_batch m={m16} warm-up ({agg} proofs): {time.time() - t0:.2f} s")
+    _cuda.reset_counts()
+    t0 = time.time()
+    proofs16, vcs16 = prove16(201)
+    times = [time.time() - t0]
+    prove16_launches = dict(_cuda.LAUNCHES)
+    log(f"prove_batch m={m16} launches: {prove16_launches}")
+    for r in range(args.agg_runs - 1):
+        t0 = time.time()
+        prove16(202 + r)
+        times.append(time.time() - t0)
+    best = min(times)
+    log(f"prove_batch {agg} proofs of n={n}, m={m16}: best {best * 1e3:.1f} ms "
+        f"of {len(times)} -> {agg / best:.1f} proofs/s, "
+        f"{best * 1e3 / agg:.3f} ms/proof (runs "
+        f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+    wall, per, host_ms = instrumented(lambda: prove16(210))
+    dev_ms = sum(per.values())
+    log(f"prove m={m16} breakdown (one instrumented run): wall {wall:.1f} ms; "
+        f"kernels {dev_ms:.2f} ms device ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per.items()))
+        + f"); host C++ transcripts {host_ms:.1f} ms; the rest "
+        f"{wall - host_ms - dev_ms:.1f} ms if nothing overlapped")
+    rows = profiled(lambda: prove16(211))
+    if rows:
+        busy = sum(r[0] for r in rows)
+        log(f"prove m={m16} device time (torch.profiler, one run): {busy:.1f} "
+            f"ms in {sum(r[1] for r in rows)} kernel launches, busy "
+            f"{busy / (best * 1e3):.1%} of the best call; largest: "
+            + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}" for ms, c, k in rows[:6]))
+    for k in ("fold", "smul", "digits", "fixed_accumulate", "compress"):
+        if prove16_launches[k] == 0:
+            failures.append(f"{k} not launched by the m={m16} prover")
+
+    bv16 = BatchVerifier(bp16, pc, n=n, m=m16, device=DEVICE)
+    lg16, _, n_dyn16 = V.shape(n, m16)
+    chunk_pts = min(settings.verify_chunk_pts // n_dyn16, agg) * n_dyn16
+    final_pts = 2 + 2 * N16 + -(-agg * n_dyn16 // chunk_pts)
+
+    def verify16(ps, vs, seed):
+        bv16.verify_batch(ps, vs, [Transcript(l) for l in labels16],
+                          rng=Rng(seed))
+        torch.cuda.synchronize()
+
+    vcaps = [Capture(M, "accumulate_z",
+                    lambda pts, d: pts.shape[-1] == chunk_pts),
+            Capture(M, "accumulate_z",
+                    lambda pts, d: pts.shape[-1] == final_pts)]
+    _cuda.reset_counts()
+    t0 = time.time()
+    try:
+        verify16(proofs16, vcs16, 21)
+    finally:
+        for c in reversed(vcaps):
+            c.restore()
+    verify16_launches = dict(_cuda.LAUNCHES)
+    log(f"verify_batch({agg} card-proved m={m16} proofs, chunked route): "
+        f"accepted (first run {time.time() - t0:.3f} s); launches "
+        f"{verify16_launches}")
+    for k in ("decompress", "msm_accumulate_z", "msm_reduce", "msm_horner",
+              "digits"):
+        if verify16_launches[k] == 0:
+            failures.append(f"{k} not launched by the m={m16} verifier")
+    if verify16_launches["emit"] or verify16_launches["msm_accumulate"]:
+        failures.append(f"the m={m16} verifier took the fused route")
+    times = []
+    for r in range(args.agg_runs):
+        t0 = time.time()
+        verify16(proofs16, vcs16, 22 + r)
+        times.append(time.time() - t0)
+    best = min(times)
+    log(f"verify_batch {agg} proofs of n={n}, m={m16} (chunked): best "
+        f"{best * 1e3:.1f} ms of {len(times)} -> {agg / best:.0f} proofs/s "
+        f"(runs {[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+
+    old_max = settings.fused_verify_max_nm
+    settings.fused_verify_max_nm = N16
+    try:
+        _cuda.reset_counts()
+        verify16(proofs16, vcs16, 30)
+        if _cuda.LAUNCHES["emit"] == 0:
+            failures.append("the fused cross-check did not take the fused route")
+    finally:
+        settings.fused_verify_max_nm = old_max
+    log(f"the same {agg} m={m16} proofs on the fused route: accepted")
+    last = agg - 1
+    b = bytearray(proofs16[last].to_bytes())
+    b[128] ^= 1                                       # low byte of t_x
+    swapped = list(vcs16[last])
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    for name, ps, vs in (
+            (f"m={m16} flipped byte", proofs16[:last]
+             + [RangeProof.from_bytes(bytes(b))], vcs16),
+            (f"m={m16} swapped commitments", proofs16,
+             vcs16[:last] + [swapped])):
+        try:
+            verify16(ps, vs, 31)
+        except ProofError:
+            log(f"{name}: rejected")
+        else:
+            failures.append(f"{name} accepted")
+            log(f"{name}: ACCEPTED")
+    for i in (0, last):
+        proofs16[i].verify_multiple(bp16, pc, Transcript(labels16[i]),
+                                    vcs16[i], n)
+    log(f"host verify_multiple: proofs 0 and {last} accepted")
+
+    small = []
+    bp2 = BulletproofGens(8, 2)
+    for device in (DEVICE, "cpu"):
+        ts = [Transcript(b"small agg %d" % i) for i in range(4)]
+        ps, vs = BatchProver(bp2, pc, 8, 2, device=device).prove_batch(
+            [[0, 255], [1, 2], [200, 3], [255, 0]],
+            [blinds[i: i + 2] for i in range(4)], ts, rng=Rng(32))
+        small.append(([p.to_bytes() for p in ps], vs,
+                      [t.strobe.buf.raw for t in ts]))
+    same = small[0] == small[1]
+    log(f"4 proofs at n=8, m=2, card vs device='cpu': "
+        f"{'byte-identical' if same else 'DIFFERENT'}")
+    if not same:
+        failures.append("card and cpu m=2 proofs differ")
+
+    # -- 8. K8-K11 against their plain versions, on the aggregated path's inputs --------
+    if any(c.args is None for c in pcaps + vcaps):
+        failures.append("aggregated-path kernel inputs not captured")
+    else:
+        x, y, u, v = pcaps[0].args
+        R, P = x.shape[0], x.shape[-1]
+        log(f"aggregated-path kernel phases (fold {R} x {P}; gw update "
+            f"{pcaps[1].args[0].shape[0]} x {P}; S digits "
+            f"{pcaps[2].args[0].shape[0]} x {P}; K11 on {chunk_pts} and "
+            f"{final_pts} points):")
+        got = FO.fold_lanes(x, y, u, v)
+        record("fold", "bulletproofs_tpu_torch/csrc/fold.cu",
+               "bulletproofs_tpu/ops/fold_pallas.py:42",
+               max_abs_err(got, FO.fold_plain(x, y, u, v)),
+               time_cuda(lambda: FO.fold_lanes(x, y, u, v), 20),
+               time_cuda(lambda: FO.fold_plain(x, y, u, v), 1),
+               (3 * R + 2) * 9 * P * 8, 3 * MONT_PRODUCTS * R * P,
+               prove16_launches)
+        gx, mask, m1, m0 = pcaps[1].args
+        R = gx.shape[0]
+        got = FO.smul_lanes(gx, mask, m1, m0)
+        record("smul", "bulletproofs_tpu_torch/csrc/fold.cu",
+               "bulletproofs_tpu/ops/fold_pallas.py:50",
+               max_abs_err(got, FO.smul_plain(gx, mask, m1, m0)),
+               time_cuda(lambda: FO.smul_lanes(gx, mask, m1, m0), 20),
+               time_cuda(lambda: FO.smul_plain(gx, mask, m1, m0), 1),
+               (2 * R + 2) * 9 * P * 8 + R, 2 * MONT_PRODUCTS * R * P,
+               prove16_launches)
+        (coef,) = pcaps[2].args
+        nb = coef.shape[0]
+        got = FO.digits_lanes(coef)
+        # the guard's reduction: 9 small limb products per scalar
+        record("digits", "bulletproofs_tpu_torch/csrc/fold.cu",
+               "bulletproofs_tpu/ops/fold_pallas.py:115",
+               max_abs_err(got, FO.digits_plain(coef)),
+               time_cuda(lambda: FO.digits_lanes(coef), 20),
+               time_cuda(lambda: FO.digits_plain(coef), 1),
+               nb * P * (9 * 8 + 64), 9 * nb * P, prove16_launches)
+        add9 = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
+                                         * 2))
+        for cap, what in ((vcaps[0], "chunk"), (vcaps[1], "final MSM")):
+            zp, zd = cap.args
+            zs = M.accumulate_z(zp, zd)
+            err = max_abs_err(zs, M.accumulate_z_plain(zp, zd))
+            ms = time_cuda(lambda: M.accumulate_z(zp, zd), 10)
+            plain_ms = time_cuda(lambda: M.accumulate_z_plain(zp, zd), 1)
+            nbytes = zp.numel() * 4 + zd.numel() + zs.numel() * 4
+            products = int((zd != 0).sum()) * add9 * FMUL_PRODUCTS
+            if what == "chunk":
+                record("msm_accumulate_z", "bulletproofs_tpu_torch/csrc/msm.cu",
+                       "bulletproofs_tpu/ops/msm_pallas.py:121", err, ms,
+                       plain_ms, nbytes, products, verify16_launches)
+            else:
+                b_ms, b_by = bound(nbytes, products, imads)
+                log(f"  msm_accumulate_z on the {what} ({zp.shape[-1]} "
+                    f"points): max_abs_err {err}; {ms:.4f} ms kernel, "
+                    f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
+                if err != 0:
+                    failures.append("msm_accumulate_z on the final MSM")
     if failures:
         log("FAILED:", failures)
         return 1

@@ -135,8 +135,8 @@ def test_rejects_out_of_range_and_unsupported():
         prover.prove_batch([-1], [T.Scalar(1)], [T.Transcript(b"x")])
     with pytest.raises(T.MPCError):
         T.BatchProver(T_BP, T_PC, 12, device="cpu")
-    with pytest.raises(NotImplementedError):
-        T.BatchProver(T.BulletproofGens(8, 2), T_PC, 8, m=2, device="cpu")
+    with pytest.raises(T.MPCError):
+        T.BatchProver(T.BulletproofGens(8, 4), T_PC, 8, m=3, device="cpu")
 
 
 def test_default_device_is_cuda():

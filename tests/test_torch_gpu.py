@@ -165,3 +165,88 @@ def test_prove_batch_on_card(cuda):
     BatchVerifier(bp, pc, n=64, m=1, device=cuda).verify_batch(
         proofs, [[v] for v in vcs], [Transcript(l) for l in labels], rng=rng)
     proofs[3].verify_single(bp, pc, Transcript(labels[3]), vcs[3], 64)
+
+
+def _sc_vectors(rows, cols, seed, top=ELL):
+    r = random.Random(seed)
+    vals = [r.randrange(top) for _ in range(rows * cols)]
+    return torch.as_tensor(sc_ints_to_limbs(vals)).reshape(
+        9, rows, cols).permute(1, 0, 2).contiguous()
+
+
+def test_fold_kernels_match_plain(cuda):
+    from bulletproofs_tpu_torch.ops import fold as FO
+    R, P = 37, 100                                # ragged: any shape runs
+    x, y = _sc_vectors(R, P, 70).to(cuda), _sc_vectors(R, P, 71).to(cuda)
+    u, v = _sc_vectors(1, P, 72)[0].to(cuda), _sc_vectors(1, P, 73)[0].to(cuda)
+    mask = torch.arange(R, device=cuda) % 3 == 0
+    before = dict(_cuda.LAUNCHES)
+    got = (FO.fold_lanes(x, y, u, v), FO.smul_lanes(x, mask, u, v))
+    want = (FO.fold_plain(x, y, u, v), FO.smul_plain(x, mask, u, v))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["fold"] == before["fold"] + 1
+    assert _cuda.LAUNCHES["smul"] == before["smul"] + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_digits_kernel_matches_plain(cuda):
+    """Canonical coefficients and values up to 2^261 (the guard's
+    reduction), as the fixed-base stream (nb * 64, Q)."""
+    from bulletproofs_tpu_torch.ops import fold as FO
+    for x in (_sc_vectors(5, 300, 74), _sc_vectors(3, 70, 75, 1 << 261)):
+        x = x.to(cuda)
+        got = FO.digits_lanes(x)
+        want = FO.digits_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_accumulate_z_and_msm_lanes_match_plain(cuda):
+    k = 700
+    raw = _encodings(2 * k, 76)[:k].to(cuda)
+    _, pts = C.decompress(raw)
+    pts = C.from_coords(C.double(C.to_coords(pts)))           # Z != 1
+    r = random.Random(77)
+    vals = [r.randrange(1 << 256) for _ in range(k)]
+    sc = torch.as_tensor(np.frombuffer(b"".join(
+        v.to_bytes(32, "little") for v in vals), np.uint8).reshape(k, 32)
+        .copy()).to(cuda)
+    digits = S.signed_digits(S.reduce_top(S.from_bytes32(sc)))
+    slab = M.accumulate_z(pts, digits)
+    assert torch.equal(slab, M.accumulate_z_plain(pts, digits))
+    out, flag = M.msm_lanes_flag(pts, sc)
+    torch.cuda.synchronize()
+    host = C.lanes_to_points(pts.cpu().numpy())
+    from bulletproofs_tpu_torch.core.ristretto import multiscalar_mul
+    ref = multiscalar_mul([Scalar(v % ELL) for v in vals], host)
+    assert C.lanes_to_points(out.cpu().numpy())[0].compress() \
+        == ref.compress()
+    assert not bool(flag[0])
+
+
+def test_aggregated_prove_and_chunked_verify_on_card(cuda, monkeypatch):
+    from bulletproofs_tpu_torch import BatchProver
+    from bulletproofs_tpu_torch.config import settings
+    bp, pc = BulletproofGens(8, 2), PedersenGens()
+    labels = [b"gpu agg %d" % i for i in range(5)]
+    values = [[i, 255 - i] for i in range(5)]
+    blinds = [[Scalar(7 + i), Scalar(9 + i)] for i in range(5)]
+    out = []
+    for device in (cuda, "cpu"):
+        ts = [Transcript(l) for l in labels]
+        ps, vs = BatchProver(bp, pc, 8, m=2, device=device).prove_batch(
+            values, blinds, ts, rng=Rng(78))
+        out.append(([p.to_bytes() for p in ps], vs, [t.strobe.buf.raw
+                                                     for t in ts]))
+    assert out[0] == out[1]
+    monkeypatch.setattr(settings, "fused_verify_max_nm", 8)
+    monkeypatch.setattr(settings, "verify_chunk_pts", 28)
+    bv = BatchVerifier(bp, pc, n=8, m=2, device=cuda)
+    before = _cuda.LAUNCHES["msm_accumulate_z"]
+    proofs = [RangeProof.from_bytes(b) for b in out[0][0]]
+    bv.verify_batch(proofs, out[0][1], [Transcript(l) for l in labels],
+                    rng=Rng(79))
+    assert _cuda.LAUNCHES["msm_accumulate_z"] == before + 4  # 3 chunks + final
+    with pytest.raises(ProofError):
+        bv.verify_batch(proofs, [out[0][1][0][::-1]] + out[0][1][1:],
+                        [Transcript(l) for l in labels], rng=Rng(80))
