@@ -1,4 +1,12 @@
-// Kernels K8, K9 and K10: the batch prover's mod-l vector kernels.
+// Kernels K8, K9, K10 and K14: the batch prover's mod-l vector kernels.
+//
+// K14 sinv has no Pallas counterpart: it is the JAX package's XLA
+// vec_scalar.py:207 sinv (a scan of 253 steps), the inverse of each IPP
+// challenge u on the device transcript route.  One thread per proof runs
+// the ladder of sc_invert (sc25519.cuh): 326 Montgomery multiplications in
+// registers.  Bound: operations (326 x 171 limb products per proof against
+// 144 bytes); at 4096 proofs that is ~0.3 % of the card's threads, so
+// the time is one thread's chain of dependent multiplications.
 //
 // K8 fold replaces ops/fold_pallas.py:42 _fold_kernel (fold_lanes, :88),
 // u x + v y elementwise, the IPP fold of a and b.  K9 smul replaces :50
@@ -95,6 +103,15 @@ digits_kernel(const int64_t* __restrict__ x, int8_t* __restrict__ out,
   for (int w = 0; w < 64; ++w) dst[w * Q] = d[w];
 }
 
+// x (9, P) -> out (9, P): x^(l-2) mod l per proof
+__global__ void __launch_bounds__(FOLD_THREADS)
+sinv_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
+            int64_t P) {
+  const int64_t p = (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x;
+  if (p >= P) return;
+  sc_store64(out + p, P, sc_invert(sc_load64(x + p, P)));
+}
+
 static unsigned blocks_for(int64_t total) {
   return (unsigned)((total + FOLD_THREADS - 1) / FOLD_THREADS);
 }
@@ -122,5 +139,12 @@ BP_EXPORT int bp_digits(const int64_t* x, int8_t* out, int64_t nb, int64_t Q,
                         cudaStream_t stream) {
   digits_kernel<<<blocks_for(nb * Q), FOLD_THREADS, 0, stream>>>(x, out,
                                                                  nb * Q, Q);
+  return (int)cudaGetLastError();
+}
+
+// x, out (9, P) int64
+BP_EXPORT int bp_sinv(const int64_t* x, int64_t* out, int64_t P,
+                      cudaStream_t stream) {
+  sinv_kernel<<<blocks_for(P), FOLD_THREADS, 0, stream>>>(x, out, P);
   return (int)cudaGetLastError();
 }

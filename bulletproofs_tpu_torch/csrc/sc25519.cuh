@@ -179,6 +179,25 @@ __device__ __forceinline__ sc sc_reduce_top(const sc& x) {
   return r;
 }
 
+// l - 2, the Fermat exponent, as little-endian 64-bit words
+__device__ __constant__ uint64_t SC_ELL_MINUS_2[4] = {
+    0x5812631a5cf5d3ebull, 0x14def9dea2f79cd6ull, 0ull, 0x1000000000000000ull};
+
+// canonical x -> x^(l-2) mod l, canonical (0 -> 0; ops/scalar.sinv_plain):
+// the MSB-first square-and-multiply ladder in Montgomery form, starting at
+// the top bit (252).  It branches on the exponent's bits, which are
+// public and the same for every thread; the input (the prover's IPP
+// challenges) is public too.
+__device__ __forceinline__ sc sc_invert(const sc& x) {
+  const sc xm = sc_to_mont(x);
+  sc acc = xm;
+  for (int b = 251; b >= 0; --b) {
+    acc = sc_mont_mul(acc, acc);
+    if ((SC_ELL_MINUS_2[b >> 6] >> (b & 63)) & 1) acc = sc_mont_mul(acc, xm);
+  }
+  return sc_from_mont(acc);
+}
+
 // canonical x -> signed base-16 digits in [-7, 8] (ops/scalar.signed_digits:
 // the nibbles of x + 0x77..7, minus 7)
 __device__ __forceinline__ void sc_signed_digits(const sc& x, int8_t out[64]) {

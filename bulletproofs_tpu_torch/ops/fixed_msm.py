@@ -1,5 +1,6 @@
 """Batched fixed-base MSM, the prover's point engine: kernels K6 (bucket
-accumulation) and K7 (bucket reduction), csrc/fixed_msm.cu.
+accumulation), K12 (its two-set form) and K7 (bucket reduction),
+csrc/fixed_msm.cu.
 
 The JAX package's ops/fixed_msm.py.  out[q] = sum_j coef[j, q] Base_j for
 Q output lanes over NB shared bases:
@@ -16,6 +17,9 @@ Q output lanes over NB shared bases:
   rows of one lane are split into `pick_splits(S, Q)` contiguous chunks,
   each with its own buckets, so Q * splits threads fill the card (the TPU
   kernel ran one serial stream per lane);
+* K12 `accumulate2` (under `_ILP2`): K6 with two bucket sets per chunk,
+  fed by alternate rows (two independent mixed-addition chains), merged
+  bucket by bucket at the end into K6's slab layout;
 * K7 `reduce`: per lane, merge the chunks' buckets with complete additions
   and form sum_b b B_b by the running double sum.
 
@@ -47,8 +51,15 @@ NUM_BUCKETS = 8                 # digit magnitudes 1..8
 # K6 keeps its buckets in shared memory, 5 blocks of 32 lanes per SM on an
 # H100 (40 KB each): 132 * 5 * 32 threads fill the card in one wave
 TARGET_THREADS = 21120
+# K12 keeps two bucket sets, 80 KB per block: 2 blocks per SM
+TARGET_THREADS2 = 8448
 MIN_ROWS_PER_SPLIT = 32
 MAX_SPLITS = 16
+
+# `accumulate` takes the two-set kernel K12 in place of K6 (the JAX
+# package's flag of the same name, off there: measured even with the
+# one-set kernel on its TPU, kept for other hardware)
+_ILP2 = False
 
 
 # -- tables ------------------------------------------------------------------------
@@ -110,27 +121,28 @@ class SubsetTables(StreamSubsetTables):
 
 # -- K6: bucket accumulation --------------------------------------------------------
 
-def pick_splits(rows: int, lanes: int) -> int:
-    """Chunks per lane's stream: about TARGET_THREADS / lanes, each chunk
-    at least MIN_ROWS_PER_SPLIT rows, at most MAX_SPLITS."""
+def pick_splits(rows: int, lanes: int, target: int = TARGET_THREADS) -> int:
+    """Chunks per lane's stream: about target / lanes (the kernel's thread
+    count that fills the card), each chunk at least MIN_ROWS_PER_SPLIT
+    rows, at most MAX_SPLITS."""
     cap = max(1, min(MAX_SPLITS, rows // MIN_ROWS_PER_SPLIT))
-    return max(1, min(cap, TARGET_THREADS // max(lanes, 1)))
+    return max(1, min(cap, target // max(lanes, 1)))
 
 
-def _split(niels, digits):
+def _split(niels, digits, target=TARGET_THREADS, quantum=1):
     """-> (niels, digits, splits): pick_splits for the stream, which is
     padded with Niels identities (1, 1, 0) and zero digits to a multiple of
-    the split (fixed_msm.py:489-493)."""
+    splits * quantum rows (fixed_msm.py:489-493; K12 takes quantum 2, an
+    even row count per chunk)."""
     if niels.dim() != 3 or niels.shape[:2] != (3, L) \
             or digits.dim() != 2 or digits.shape[0] != niels.shape[-1]:
         raise ValueError("accumulate takes niels (3, 10, S), digits (S, Q)")
     S, Q = digits.shape
-    splits = pick_splits(S, Q)
-    pad = (-S) % splits
+    splits = pick_splits(S, Q, target)
+    pad = (-S) % (splits * quantum)
     if pad:
         ident = torch.zeros((3, L, pad), dtype=niels.dtype, device=niels.device)
-        ident[0, 0] = 1
-        ident[1, 0] = 1
+        ident[:2, 0].fill_(1)
         niels = torch.cat([niels, ident], dim=-1)
         digits = torch.cat([digits, torch.zeros((pad, Q), dtype=digits.dtype,
                                                 device=digits.device)])
@@ -173,7 +185,10 @@ def accumulate_plain(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 
 def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Kernel K6 on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel K6 on CUDA tensors, the plain version on CPU tensors; K12
+    (`accumulate2`) in its place when _ILP2 is set."""
+    if _ILP2:
+        return accumulate2(niels, digits)
     if niels.device.type == "cpu":
         return accumulate_plain(niels, digits)
     niels, digits, splits = _split(niels, digits)
@@ -184,6 +199,45 @@ def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
                        device=niels.device)
     if Q:
         _cuda.launch("fixed_accumulate", "fixed_msm", "bp_fixed_accumulate",
+                     niels, digits, slab, S, Q, splits)
+    return slab
+
+
+# -- K12: two-set accumulation ----------------------------------------------------------
+
+def accumulate2_plain(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """The same slab as accumulate_plain up to the points' projective
+    representation, splits = pick_splits(S, Q, TARGET_THREADS2): in each
+    chunk (an even number of rows) rows 2t go to bucket set 0 and rows
+    2t + 1 to set 1, each set accumulated as K6 does, then merged bucket by
+    bucket with a complete addition (set 0 + set 1)."""
+    return _accumulate2_plain(*_split(niels, digits, TARGET_THREADS2, 2))
+
+
+def _accumulate2_plain(niels: torch.Tensor, digits: torch.Tensor,
+                       splits: int) -> torch.Tensor:
+    """accumulate2_plain with the stream's split given (S % (2 splits)
+    == 0): chunk c's rows 2t (2t + 1) are rows c R / 2 + t of the even
+    (odd) rows' stream split the same way."""
+    sets = [_accumulate_plain(niels[..., h::2].contiguous(),
+                              digits[h::2].contiguous(), splits)
+            .to(torch.int64) for h in (0, 1)]
+    merged = C.add(*(tuple(v[:, :, c] for c in range(4)) for v in sets))
+    return torch.stack(merged, dim=2).to(torch.int32)
+
+
+def accumulate2(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Kernel K12 on CUDA tensors, the plain version on CPU tensors."""
+    if niels.device.type == "cpu":
+        return accumulate2_plain(niels, digits)
+    niels, digits, splits = _split(niels, digits, TARGET_THREADS2, 2)
+    _cuda.check(niels, torch.int32)
+    _cuda.check(digits, torch.int8)
+    S, Q = digits.shape
+    slab = torch.empty((splits, NUM_BUCKETS, 4, L, Q), dtype=torch.int32,
+                       device=niels.device)
+    if Q:
+        _cuda.launch("fixed_accumulate2", "fixed_msm", "bp_fixed_accumulate2",
                      niels, digits, slab, S, Q, splits)
     return slab
 

@@ -19,6 +19,7 @@ converts its tensors (the BatchVerifier's generator table) to this layout.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, Sequence
 
 import numpy as np
@@ -46,18 +47,28 @@ def _gather_schedule(pos, width):
     return idx, off, mask
 
 
+@lru_cache(maxsize=None)
+def _gather_tensors(pos, width, device):
+    """_gather_schedule and the byte shifts as tensors on `device`, made
+    once (a host-to-device copy on the prover's path would wait for the
+    card)."""
+    idx, off, mask = _gather_schedule(pos, width)
+    return (torch.as_tensor(idx.reshape(-1), device=device),
+            torch.arange(0, 40, 8, device=device),
+            torch.as_tensor(off, device=device),
+            torch.as_tensor(mask, device=device))
+
+
 def _bytes_to_limbs(raw: torch.Tensor, pos, width) -> torch.Tensor:
     """(N, 32) uint8 -> (K, N) int64 limbs (bits beyond the last limb drop)."""
-    idx, off, mask = _gather_schedule(pos, width)
+    idx, shifts, off, mask = _gather_tensors(tuple(pos), tuple(width),
+                                             raw.device)
     n = raw.shape[0]
     b = torch.zeros((n, 40), dtype=torch.int64, device=raw.device)
     b[:, :32] = raw.to(torch.int64)
-    g = b[:, torch.as_tensor(idx.reshape(-1), device=raw.device)].reshape(
-        n, len(pos), 5)
-    val = (g << torch.arange(0, 40, 8, device=raw.device)).sum(-1)
-    val = (val >> torch.as_tensor(off, device=raw.device)) \
-        & torch.as_tensor(mask, device=raw.device)
-    return val.T.contiguous()
+    g = b[:, idx].reshape(n, len(pos), 5)
+    val = (g << shifts).sum(-1)
+    return ((val >> off) & mask).T.contiguous()
 
 
 def _limbs_to_bytes(limbs: torch.Tensor, pos) -> torch.Tensor:

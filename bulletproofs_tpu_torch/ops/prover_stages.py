@@ -1,11 +1,14 @@
 """The batch range prover's device stages: every point and every mod-l
-vector of the proofs, in PyTorch on the prover's device (the per-stage
-part of the JAX package's ops/prover_stages.py, names kept).
+vector of the proofs, in PyTorch on the prover's device (the JAX
+package's ops/prover_stages.py, names kept).
 
-Fiat-Shamir stays on the host (native/prove_prep.cpp rp_ts_*, one batched
-C++ call between two stages); a "fused" function here covers one whole
-phase between two challenges and returns the bytes that the next host
-call absorbs.  Points go through the fixed-base MSM (ops/fixed_msm.py,
+Two routes share the stages.  On the per-stage route Fiat-Shamir stays on
+the host (native/prove_prep.cpp rp_ts_*, one batched C++ call between two
+stages); a "fused" function there covers one whole phase between two
+challenges and returns the bytes that the next host call absorbs.  On the
+device-transcript route (the section at the end) the host draws only y
+and z; the transcripts, every later challenge and the IPP rounds stay on
+the device.  Points go through the fixed-base MSM (ops/fixed_msm.py,
 kernels K6 and K7) and compression (ops/curve.compress, kernel K5).  The
 mod-l vector math runs on canonical scalars: every digit stream through
 kernel K10 and the IPP fold through K8 / K9 (ops/fold.py, where the JAX
@@ -32,11 +35,13 @@ import numpy as np
 import torch
 
 from ..core.scalar import L as ELL
+from . import chacha
 from . import curve as C
 from . import fixed_msm as FM
 from . import fold as FO
 from . import scalar as S
 from .limbs import SC_LIMBS, sc_ints_to_limbs, sc_to_bytes
+from .transcript_device import DeviceStrobe
 
 L = SC_LIMBS
 
@@ -102,7 +107,7 @@ def stage1(n: int, m: int, bits, y, z, sl, sr, t1b, t2b):
     ypow = S.power_sequence(y, N)
     zz = S.smul(z, z)
     zz_zpow = S.smul(S.power_sequence(z, m), zz)
-    offset_zz = zz_zpow.repeat_interleave(n, dim=0)
+    offset_zz = zz_zpow[:, None].expand(m, n, L, y.shape[-1]).reshape(N, L, -1)
     neg_z = S.sneg(z)
     z_m1 = S.sadd(z, S.const(ELL - 1, dev))
     one_minus_z = S.sadd(neg_z, S.const(1, dev))
@@ -304,3 +309,235 @@ def final_fused(N: int, a, b, gw, hw, u_bytes, ui_bytes, t_x, t_xb, e_b):
     uinv = S.from_bytes32(ui_bytes)
     a, b, _, _ = round_fold(N, 2, a, b, gw, hw, u, uinv)
     return _canonical_rows(final_scalars(a, b, t_x, t_xb, e_b))
+
+
+# -- the device-transcript route ------------------------------------------------------
+#
+# The JAX package's default prove route on its accelerator
+# (prover_stages.py:453-912): stage 0 (blinds, V / A / S), one host
+# Fiat-Shamir step (C++ rp_ts_yz, the only one whose byte positions depend
+# on the caller's transcript), then everything else on the device with no
+# host round trip: the transcripts (ops/transcript_device.DeviceStrobe over
+# kernel K13), the challenges' inverses (kernel K14) and a shape-uniform
+# IPP round body whose per-round slot structure is runtime gather maps,
+# uploaded once per N.  JAX compiles that rest as one program (m = 1) or
+# three (the segmented form, m > 1); the port has the segmented form only
+# (prove_rest), for every m: each round finds its maps by a device round
+# index, so every round runs the same tensors and launches, which is what a
+# CUDA graph of one round would need.
+
+# entry / exit counters of every IPP round body: the last operation before
+# and after each round is a 64-byte challenge PRF (a permutation, then a
+# squeeze of 64 bytes from position 0)
+_ROUND_COUNTERS = (64, 0, 7)   # pos, pos_begin, FLAG_I | FLAG_A | FLAG_C
+
+
+def _dyn_round_maps(N: int):
+    """Per-round gather maps (numpy) -> (emit, folds): emit[k] covers the
+    L / R emission at width nk = N >> k, folds[k - 1] the fold into width
+    nk (rounds k >= 1)."""
+    emit, folds = [], []
+    j = np.arange(N)
+    nk = N
+    while nk > 1:
+        h = nk // 2
+        s = j % nk
+        hi = s >= h
+        hi_sel = np.nonzero(hi)[0]
+        lo_sel = np.nonzero(~hi)[0]
+        L_bases = np.concatenate([[0], 2 + hi_sel, 2 + N + lo_sel])
+        R_bases = np.concatenate([[0], 2 + lo_sel, 2 + N + hi_sel])
+        w64 = np.arange(64)
+        emit.append(dict(
+            idx_partner=np.where(j < h, j + h, 0),
+            mask_half=j < h,
+            hi_sel=hi_sel, lo_sel=lo_sel,
+            al=hi_sel % nk - h, bl=lo_sel % nk + h,
+            ar=lo_sel % nk + h, br=hi_sel % nk - h,
+            sel_l=(L_bases[:, None] * 64 + w64[None, :]).reshape(-1),
+            sel_r=(R_bases[:, None] * 64 + w64[None, :]).reshape(-1),
+        ))
+        if nk < N:
+            folds.append(dict(mask_fold=j < nk,
+                              idx_fold=np.where(j < nk, j + nk, 0),
+                              glo=(j % (2 * nk)) < nk))
+        nk //= 2
+    return emit, folds
+
+
+@lru_cache(maxsize=None)
+def _round0_maps(N: int, device) -> dict:
+    """Round 0's emission maps on `device` (uploaded once)."""
+    emit, _ = _dyn_round_maps(N)
+    return {k: torch.as_tensor(v, device=device) for k, v in emit[0].items()}
+
+
+@lru_cache(maxsize=None)
+def dyn_round_xs(N: int, device) -> dict:
+    """The maps of rounds 1 .. R - 1 stacked, (R - 1, ...) tensors on
+    `device` (uploaded once per N; ~0.5 MB at N = 1024), and under "k" the
+    round indices 0 .. R - 2 as a device int64 vector."""
+    emit, folds = _dyn_round_maps(N)
+    xs = {k: np.stack([em[k] for em in emit[1:]]) for k in emit[0]}
+    for k in folds[0]:
+        xs[k] = np.stack([f[k] for f in folds])
+    xs["k"] = np.arange(len(folds))
+    return {k: torch.as_tensor(v, device=device) for k, v in xs.items()}
+
+
+def fold_dyn(a, b, gw, hw, u, uinv, mask_fold, idx_fold, glo):
+    """Shape-uniform fold of all N rows: a[j] <- u a[j] + u^-1 a[j + nk] and
+    b with u, u^-1 swapped (kernel K8) where mask_fold (j < nk), the rows
+    above keep their stale values (never read again); gw / hw take u^-1 or
+    u by the lo / hi slot pattern glo (kernel K9)."""
+    na = FO.fold_lanes(a, a.index_select(0, idx_fold), u, uinv)
+    nb = FO.fold_lanes(b, b.index_select(0, idx_fold), uinv, u)
+    gw = FO.smul_lanes(gw, glo, uinv, u)
+    hw = FO.smul_lanes(hw, glo, u, uinv)
+    m = mask_fold[:, None, None]
+    return torch.where(m, na, a), torch.where(m, nb, b), gw, hw
+
+
+def round_emit_dyn(a, b, gw, hw, w, em):
+    """round_digits_compact with runtime gather maps -> (dig_l, dig_r), each
+    ((N + 1) * 64, P) over the base orders em["sel_l"] / em["sel_r"].  The
+    six vector products of the round are one `smul` over their rows
+    stacked (the JAX package makes six; on the card each plain `smul` is
+    hundreds of launches), the two cross terms one tree sum."""
+    N, P = a.shape[0], a.shape[-1]
+    h = em["hi_sel"].shape[0]
+    x = torch.cat([a, a.index_select(0, em["idx_partner"]),
+                   a.index_select(0, em["al"]), b.index_select(0, em["bl"]),
+                   a.index_select(0, em["ar"]), b.index_select(0, em["br"])])
+    y = torch.cat([b.index_select(0, em["idx_partner"]), b,
+                   gw.index_select(0, em["hi_sel"]),
+                   hw.index_select(0, em["lo_sel"]),
+                   gw.index_select(0, em["lo_sel"]),
+                   hw.index_select(0, em["hi_sel"])])
+    prod = S.smul(x, y)
+    mh = em["mask_half"][:, None, None]
+    cross = S.tree_sum(torch.where(mh, torch.cat([prod[:N], prod[N: 2 * N]],
+                                                 dim=-1), 0))
+    cw = S.smul(cross, torch.cat([w, w], dim=-1))          # [cL w | cR w]
+    alpha_l, beta_l, alpha_r, beta_r = prod[2 * N:].split(h)
+    coef_l = torch.cat([cw[None, :, :P], alpha_l, beta_l])
+    coef_r = torch.cat([cw[None, :, P:], alpha_r, beta_r])
+    return _coef_digits(coef_l), _coef_digits(coef_r)
+
+
+def _emit_lr(niels, em, a, b, gw, hw, w) -> torch.Tensor:
+    """One round's L / R over the full table's rows em["sel_l"] /
+    em["sel_r"] -> (2P, 32) compressed rows [L | R]."""
+    dig_l, dig_r = round_emit_dyn(a, b, gw, hw, w, em)
+    pts = torch.cat([
+        FM.msm_digits_niels(niels.index_select(2, em["sel_l"]), dig_l),
+        FM.msm_digits_niels(niels.index_select(2, em["sel_r"]), dig_r)], dim=-1)
+    return C.compress(pts)
+
+
+def _absorb_round(ts, lr: torch.Tensor):
+    """Absorb L and R, draw u -> (u, u^-1 by kernel K14)."""
+    P = lr.shape[0] // 2
+    ts.append_rows(b"L", lr[:P].T)
+    ts.append_rows(b"R", lr[P:].T)
+    u = ts.challenge_scalar(b"u")
+    if ts.counters() != _ROUND_COUNTERS:
+        raise RuntimeError("device transcript left the round schedule")
+    return u, S.sinv(u)
+
+
+def stage0_eager(n: int, m: int, niels_bb, niels_a, niels_s, key: bytes,
+                 v_bytes, vb_bytes, bits):
+    """Stage 0 of the device-transcript route: the blinding draws from one
+    32-byte ChaCha key, then V / A / S (stage0_fused) -> (vas ((m + 2) P,
+    32) compressed rows for the host's Fiat-Shamir step, red (9,
+    (4 + 2N) P) the blinds that the rest consumes)."""
+    N, P = n * m, bits.shape[-1]
+    red = chacha.random_scalars(key, P * (4 + 2 * N), bits.device)
+    return stage0_fused(n, m, niels_bb, niels_a, niels_s, red, v_bytes,
+                        vb_bytes, bits), red
+
+
+def prove_mid_fused(n: int, m: int, niels, states_z, red, bits, yz_bytes,
+                    vb_bytes):
+    """Everything between the challenges z and the first u: stage 1 (T_1,
+    T_2), x, stage 2, w, the IPP domain separator and round 0, with the
+    transcripts on the device.
+
+    niels: the full table's stream (3, 10, (2N + 2) 64); states_z: (200, P)
+    post-z STROBE states (every transcript at _ROUND_COUNTERS); red:
+    stage 0's blinds; bits (N, P); yz_bytes (3P, 32) rows [y | z | y^-1]
+    of rp_ts_yz; vb_bytes (m P, 32) the value blindings.
+
+    -> (tb (2P, 32), lr0 (2P, 32), w, a, b, gw, hw, u, u^-1, states
+    (200, P), the canonical rows of t_x, t_x_blinding, e_blinding (P, 32))."""
+    N, P = n * m, bits.shape[-1]
+    ab, sb, t1b, t2b, sl, sr = _blind_slices(N, P, red)
+    yzi = S.from_bytes32(yz_bytes)
+    y, z, yinv = yzi[:, :P], yzi[:, P: 2 * P], yzi[:, 2 * P:]
+    ts = DeviceStrobe(states_z, *_ROUND_COUNTERS)
+
+    l0, l1, r0, r1, t0, t1, t2, zz_zpow, tdig = stage1(
+        n, m, bits, y, z, sl, sr, t1b, t2b)
+    tb = C.compress(FM.msm_digits_niels(niels[:, :, :128].contiguous(), tdig))
+    ts.append_rows(b"T_1", tb[:P].T)
+    ts.append_rows(b"T_2", tb[P:].T)
+    x = ts.challenge_scalar(b"x")
+
+    vb = S.from_bytes32(vb_bytes).reshape(L, m, P).transpose(0, 1)
+    a, b, gw, hw, t_x, t_xb, e_b = stage2(
+        N, x, l0, l1, r0, r1, t0, t1, t2, zz_zpow, vb, t1b, t2b, ab, sb, yinv)
+    txs = [sc_to_bytes(v) for v in (t_x, t_xb, e_b)]
+    for label, rows in zip((b"t_x", b"t_x_blinding", b"e_blinding"), txs):
+        ts.append_rows(label, rows.T)
+    w = ts.challenge_scalar(b"w")
+    ts.innerproduct_domain_sep(N)
+
+    lr0 = _emit_lr(niels, _round0_maps(N, bits.device), a, b, gw, hw, w)
+    u, uinv = _absorb_round(ts, lr0)
+    return (tb, lr0, w, a, b, gw, hw, u, uinv, ts.state()) + tuple(txs)
+
+
+def round_step_fused(niels, xs, k, w, a, b, gw, hw, u, uinv, st):
+    """One shape-uniform IPP round (1 .. R - 1) whose maps come from the
+    stacked xs (dyn_round_xs) by `k`, a (1,) device int64 index (rounds
+    1, 2, .. are k = 0, 1, ..): the same tensors and launches for every
+    round.  Fold with the previous challenge, emit L / R, absorb, draw u
+    -> (lr, a, b, gw, hw, u, u^-1, states)."""
+    em = {key: v.index_select(0, k)[0] for key, v in xs.items() if key != "k"}
+    a, b, gw, hw = fold_dyn(a, b, gw, hw, u, uinv, em["mask_fold"],
+                            em["idx_fold"], em["glo"])
+    lr = _emit_lr(niels, em, a, b, gw, hw, w)
+    ts = DeviceStrobe(st, *_ROUND_COUNTERS)
+    u, uinv = _absorb_round(ts, lr)
+    return lr, a, b, gw, hw, u, uinv, ts.state()
+
+
+def prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by, eb_by):
+    """The last fold (2 -> 1, kernel K8) -> (lr_all (R, 2P, 32), fin (5, P,
+    32) canonical rows [t_x, t_x_blinding, e_blinding, a0, b0])."""
+    a0 = FO.fold_lanes(a[:1], a[1:2], u, uinv)[0]
+    b0 = FO.fold_lanes(b[:1], b[1:2], uinv, u)[0]
+    fin = torch.stack([tx_by, txb_by, eb_by, sc_to_bytes(a0),
+                       sc_to_bytes(b0)])
+    return torch.stack(lrs), fin
+
+
+def prove_rest(n: int, m: int, niels, states_z, red, bits, yz_bytes,
+               vb_bytes):
+    """Everything after the y / z challenges (prove_mid_fused's inputs), as
+    three segments: prove_mid_fused, round_step_fused for rounds 1 .. R - 1
+    (one body, its maps chosen by a device round index), prove_fin_fused
+    -> (tb (2P, 32), lr_all (R, 2P, 32), fin (5, P, 32), states (200, P));
+    the final counters are _ROUND_COUNTERS."""
+    (tb, lr0, w, a, b, gw, hw, u, uinv, st,
+     tx_by, txb_by, eb_by) = prove_mid_fused(n, m, niels, states_z, red, bits,
+                                             yz_bytes, vb_bytes)
+    lrs = [lr0]
+    xs = dyn_round_xs(n * m, bits.device)
+    for k in range(xs["k"].shape[0]):
+        lr, a, b, gw, hw, u, uinv, st = round_step_fused(
+            niels, xs, xs["k"][k: k + 1], w, a, b, gw, hw, u, uinv, st)
+        lrs.append(lr)
+    lr_all, fin = prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by, eb_by)
+    return tb, lr_all, fin, st

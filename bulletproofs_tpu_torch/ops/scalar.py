@@ -10,6 +10,9 @@ a b R^-1 mod l.  Callers either work in the Montgomery domain
 (`to_mont` / `from_mont`, as the emit kernel does) or use `smul`, which
 multiplies plain canonical values.
 
+`sinv` (the inverse mod l) is the one wrapper of a kernel here: K14 in
+csrc/fold.cu for a CUDA tensor, `sinv_plain` for a CPU tensor.
+
 Column bound of `mont_mul`: each of the 9 rounds adds at most two 58-bit
 products to a limb position, 9 * 2^59 < 2^63, so int64 holds it.
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core.scalar import L as ELL
+from . import _cuda
 from .limbs import SC_BITS, SC_LIMBS, SC_MASK, sc_from_bytes, \
     sc_ints_to_limbs
 
@@ -108,6 +112,40 @@ def reduce_top(x: torch.Tensor) -> torch.Tensor:
     e = normalize(x - q * const(ELL, x.device))
     return normalize(e + torch.where(e[..., L - 1:, :] < 0,
                                      const(ELL, x.device), 0))
+
+
+# bits of the Fermat exponent l - 2, most significant first
+_INV_BITS = [(ELL - 2) >> i & 1
+             for i in range((ELL - 2).bit_length() - 1, -1, -1)]
+
+
+def sinv_plain(x: torch.Tensor) -> torch.Tensor:
+    """Canonical x -> x^(l-2) mod l, canonical (0 -> 0): the square-and-
+    multiply ladder over the static bits of l - 2, most significant first,
+    in Montgomery form, starting at the top bit (csrc/sc25519.cuh
+    sc_invert)."""
+    xm = to_mont(x)
+    acc = xm
+    for bit in _INV_BITS[1:]:
+        acc = mont_mul(acc, acc)
+        if bit:
+            acc = mont_mul(acc, xm)
+    return from_mont(acc)
+
+
+def sinv(x: torch.Tensor) -> torch.Tensor:
+    """(9, P) canonical scalars -> their inverses mod l (vec_scalar.sinv):
+    kernel K14 (csrc/fold.cu) on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.dim() != 2 or x.shape[0] != L or x.dtype != torch.int64:
+        raise ValueError(f"sinv takes a ({L}, P) int64 tensor")
+    if x.device.type == "cpu":
+        return sinv_plain(x)
+    x = _cuda.check(x, torch.int64)
+    out = torch.empty_like(x)
+    if x.shape[1]:
+        _cuda.launch("sinv", "fold", "bp_sinv", x, out, x.shape[1])
+    return out
 
 
 def from_bytes32(raw: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,34 @@
 """Batched range proving on the card: many proofs driven through the
-device stages at once (the JAX package's proofs/batch_prover.py, its
-per-stage route `_prove_batch_device` / `_prove_half_gen`).  m = 1 proves
-one value per proof; m > 1 proves aggregated statements of m values per
-proof, as the reference's `prove_multiple` and its local dealer do.
+device stages at once (the JAX package's proofs/batch_prover.py).  m = 1
+proves one value per proof; m > 1 proves aggregated statements of m values
+per proof, as the reference's `prove_multiple` and its local dealer do.
 
-Split of labour:
+Two routes, both the JAX package's device routes:
 
-* device (ops/prover_stages.py): the blinding draws (ChaCha20 from one
-  32-byte key per half-batch), every commitment and every IPP L / R as
-  fixed-base MSMs over [B, B~, G.., H..] (kernels K6, K7), their
-  compression (K5), the digit streams (K10), the IPP fold (K8, K9) and the
-  rest of the mod-l vector math;
-* host (native/prove_prep.cpp through core/_native.py): Fiat-Shamir, one
-  batched C++ call between two device stages (rp_ts_yz, rp_ts_x, rp_ts_w,
-  rp_ts_round).
+* the device-transcript route (`fused = True`, the default;
+  `_prove_batch_device_fused`): stage 0 on the device (the blinding draws,
+  ChaCha20 from one 32-byte key per half-batch, and V / A / S), ONE host
+  Fiat-Shamir step (C++ rp_ts_yz, the only transcript segment whose byte
+  positions depend on the caller's prior content), then everything else on
+  the device with no host round trip (ops/prover_stages.prove_rest, the
+  JAX package's segmented form for every m): the transcripts
+  (ops/transcript_device, kernel K13), T_1 / T_2, the IPP rounds with
+  their challenges and inverses (kernel K14), the canonical output
+  scalars.
+* the per-stage route (`fused = False`; `_prove_batch_device`): the same
+  device stages, with the host's C++ transcript (rp_ts_yz, rp_ts_x,
+  rp_ts_w, rp_ts_round) between two of them.
 
-Large batches run as two interleaved halves, so the host's transcript work
+Both give the same proofs for the same inputs and rng bytes.  Points are
+fixed-base MSMs over [B, B~, G.., H..] (kernels K6 or K12, and K7),
+compressed by K5; the mod-l vectors go through K8-K10 and plain PyTorch.
+Large batches run as two interleaved halves (from 2048 proofs on the
+device-transcript route, from 1024 on the per-stage one), so the host work
 of one half overlaps the device work of the other.  The transcripts
-advance in place, as the reference's prover does.  Outputs have the
-reference crate's wire format and verify with RangeProof.verify_single /
-verify_multiple and BatchVerifier.
+advance in place, as the reference's prover does; if the device-transcript
+route raises, every transcript is restored to its bytes before the call.
+Outputs have the reference crate's wire format and verify with
+RangeProof.verify_single / verify_multiple and BatchVerifier.
 """
 
 from __future__ import annotations
@@ -48,10 +57,18 @@ def _check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"native prove engine failed in {what} (rc={rc})")
 
 
+def _fetch(x):
+    """A device tensor, or a tuple of them, -> numpy (waits for the card)."""
+    if isinstance(x, tuple):
+        return tuple(t.cpu().numpy() for t in x)
+    return x.cpu().numpy()
+
+
 class BatchProver:
     """Device tables for (n, m) and batched range proving on them."""
 
-    HALVES_FROM = 1024          # batches this large (and even) run as halves
+    HALVES_FROM = 1024          # per-stage route: batches this large (and
+    FUSED_HALVES_FROM = 2048    # even) run as halves; device-transcript route
 
     def __init__(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
                  n: int, m: int = 1, device="cuda"):
@@ -65,6 +82,7 @@ class BatchProver:
         self.n, self.m, self.N = n, m, n * m
         self.bp_gens, self.pc_gens = bp_gens, pc_gens
         self.device = resolve_device(device)
+        self.fused = True           # False: the per-stage route
         bases = [pc_gens.B, pc_gens.B_blinding] + bp_gens.G(n, m) \
             + bp_gens.H(n, m)
         self.tables = fixed_msm.FixedBaseTables(bases, self.device)
@@ -75,7 +93,8 @@ class BatchProver:
             self.tables, PS.a_stream_sel(self.N))
         self.s_tables = fixed_msm.SubsetTables(
             self.tables, PS.s_base_sel(self.N))
-        # per-round active bases: half the G's and the other half of the H's
+        # per-round active bases of the per-stage route: half the G's and
+        # the other half of the H's
         self.round_tables = {}
         nk = self.N
         while nk > 1:
@@ -113,16 +132,41 @@ class BatchProver:
                 if v < 0 or v >> self.n:
                     raise ValueError(
                         f"value out of range for {self.n}-bit proof")
+        if not self.fused:
+            return self._prove_halves(self._prove_half_gen, self.HALVES_FROM,
+                                      values, blindings, transcripts, rng)
+        return self._prove_batch_device_fused(values, blindings, transcripts,
+                                              rng)
+
+    def _prove_batch_device_fused(self, values, blindings, transcripts, rng):
+        """The device-transcript route.  With interleaved halves, one half
+        may have written its transcripts back before the other raises, so
+        every transcript's bytes are kept first and restored on an error,
+        which then propagates (there is no fallback route)."""
+        snaps = [t.strobe.buf.raw for t in transcripts]
+        try:
+            return self._prove_halves(self._prove_half_fused_gen,
+                                      self.FUSED_HALVES_FROM, values,
+                                      blindings, transcripts, rng)
+        except BaseException:
+            for t, snap in zip(transcripts, snaps):
+                t.strobe.buf.raw = snap
+            raise
+
+    def _prove_halves(self, half_gen, halves_from, values, blindings,
+                      transcripts, rng):
+        """Drive one generator per half: each yields device tensors right
+        after queueing a stage and receives them as numpy, so that while
+        the host works on one half's bytes the card runs the other's."""
         count = len(values)
-        if count >= self.HALVES_FROM and count % 2 == 0:
+        if count >= halves_from and count % 2 == 0:
             h = count // 2
             parts = [slice(0, h), slice(h, count)]
         else:
             parts = [slice(0, count)]
         gens, pend = [], []
         for s in parts:
-            g = self._prove_half_gen(values[s], blindings[s], transcripts[s],
-                                     rng)
+            g = half_gen(values[s], blindings[s], transcripts[s], rng)
             gens.append(g)
             pend.append(next(g))        # primes: queues its stage 0
         results = [None] * len(gens)
@@ -130,7 +174,7 @@ class BatchProver:
         while live:
             for i in list(live):
                 try:
-                    pend[i] = gens[i].send(pend[i].cpu().numpy())
+                    pend[i] = gens[i].send(_fetch(pend[i]))
                 except StopIteration as e:
                     results[i] = e.value
                     live.remove(i)
@@ -140,15 +184,72 @@ class BatchProver:
             vcs.extend(r[1])
         return proofs, vcs
 
-    def _upload(self, raw: bytes, rows: int) -> torch.Tensor:
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array -> a tensor on the device; to a card from pinned
+        memory without waiting for it."""
+        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _rows32(self, raw: bytes, rows: int) -> torch.Tensor:
         """rows 32-byte rows -> a (rows, 32) uint8 tensor on the device."""
-        return torch.from_numpy(np.frombuffer(raw, np.uint8).reshape(
-            rows, 32).copy()).to(self.device)
+        return self._upload(np.frombuffer(raw, np.uint8).reshape(rows, 32))
+
+    def _statements(self, values, blindings):
+        """-> (v_bytes, vb_bytes (m P, 32) party-major rows j P + p, bits
+        (N, P) int32, row j n + i the bit i of party j's value)."""
+        n, m, count = self.n, self.m, len(values)
+        v_bytes = self._rows32(b"".join(
+            values[p][j].to_bytes(32, "little")
+            for j in range(m) for p in range(count)), m * count)
+        vb_bytes = self._rows32(b"".join(
+            blindings[p][j].to_bytes() for j in range(m) for p in range(count)),
+            m * count)
+        vals_np = np.array(values, np.uint64).T                 # (m, count)
+        bits = self._upload(((vals_np[:, None, :] >> np.arange(
+            n, dtype=np.uint64)[None, :, None]) & 1).reshape(self.N, count)
+            .astype(np.int32))
+        return v_bytes, vb_bytes, bits
+
+    def _prove_half_fused_gen(self, values, blindings, transcripts, rng):
+        """Generator of the device-transcript route (JAX
+        _prove_half_fused_gen): two yields, stage 0's rows and the rest's
+        outputs."""
+        n, m, count = self.n, self.m, len(values)
+        key = rng.randbytes(32)
+        v_bytes, vb_bytes, bits = self._statements(values, blindings)
+        vas_dev, red = PS.stage0_eager(
+            n, m, self.tables_bb.niels, self.a_tables.niels,
+            self.s_tables.niels, key, v_bytes, vb_bytes, bits)
+        vas = yield vas_dev
+
+        # host Fiat-Shamir: dom-sep, V / A / S -> y, z (and 1/y); after z's
+        # PRF every transcript sits at PS._ROUND_COUNTERS
+        strobe_size = len(transcripts[0].strobe.buf.raw)
+        strobes = ctypes.create_string_buffer(
+            b"".join(t.strobe.buf.raw for t in transcripts),
+            strobe_size * count)
+        yz = ctypes.create_string_buffer(3 * count * 32)
+        _check_rc(_NATIVE.rp_ts_yz(count, strobes, strobe_size, n, m,
+                                   vas.tobytes(), yz), "rp_ts_yz")
+        states_z = np.frombuffer(strobes.raw, np.uint8).reshape(
+            count, strobe_size)[:, :200].T
+        tb, lr_all, fin, st = yield PS.prove_rest(
+            n, m, self.tables.niels, self._upload(states_z), red, bits,
+            self._rows32(yz.raw, 3 * count), vb_bytes)
+
+        posf, pbf, flf = PS._ROUND_COUNTERS
+        for i, t in enumerate(transcripts):
+            buf = bytearray(t.strobe.buf.raw)
+            buf[:200] = st[:, i].tobytes()
+            buf[200], buf[201], buf[202] = posf, pbf, flf
+            t.strobe.buf.raw = bytes(buf)
+        return self._assemble(vas, tb, lr_all, fin)
 
     def _prove_half_gen(self, values, blindings, transcripts, rng):
-        """Generator: yields a device tensor right after queueing each
-        stage and receives its bytes (numpy), so that prove_batch can
-        interleave two halves."""
+        """Generator of the per-stage route (JAX _prove_half_gen): yields
+        after queueing each stage, the host's C++ transcript between."""
         n, m, N, count = self.n, self.m, self.N, len(values)
         strobe_size = len(transcripts[0].strobe.buf.raw)
         strobes = ctypes.create_string_buffer(
@@ -159,18 +260,7 @@ class BatchProver:
         # (N * count each, i-major), from one key
         red = chacha.random_scalars(rng.randbytes(32), count * (4 + 2 * N),
                                     self.device)
-        # party-major scalars (column j * count + p) and bits (N, count),
-        # row k = j * n + i the bit i of party j's value
-        v_bytes = self._upload(b"".join(
-            values[p][j].to_bytes(32, "little")
-            for j in range(m) for p in range(count)), m * count)
-        vb_bytes = self._upload(b"".join(
-            blindings[p][j].to_bytes() for j in range(m) for p in range(count)),
-            m * count)
-        vals_np = np.array(values, np.uint64).T                 # (m, count)
-        bits = torch.from_numpy(((vals_np[:, None, :] >> np.arange(
-            n, dtype=np.uint64)[None, :, None]) & 1).reshape(N, count)
-            .astype(np.int32)).to(self.device)
+        v_bytes, vb_bytes, bits = self._statements(values, blindings)
 
         vas = yield PS.stage0_fused(n, m, self.tables_bb.niels,
                                     self.a_tables.niels, self.s_tables.niels,
@@ -181,14 +271,14 @@ class BatchProver:
 
         (tb_dev, l0, l1, r0, r1, t0, t1, t2, zz_zpow, yinv) = PS.stage1_fused(
             n, m, self.tables_bb.niels, bits, red,
-            self._upload(yz.raw, 3 * count))
+            self._rows32(yz.raw, 3 * count))
         tb = yield tb_dev
         x_buf = ctypes.create_string_buffer(count * 32)
         _check_rc(_NATIVE.rp_ts_x(count, strobes, strobe_size, tb.tobytes(),
                                   x_buf), "rp_ts_x")
 
         (txs_dev, a, b, gw, hw, t_x, t_xb, e_b) = PS.stage2_fused(
-            n, m, self._upload(x_buf.raw, count), l0, l1, r0, r1, t0, t1, t2,
+            n, m, self._rows32(x_buf.raw, count), l0, l1, r0, r1, t0, t1, t2,
             zz_zpow, red, vb_bytes, yinv)
         txs = (yield txs_dev).reshape(3, count, 32)
         w_buf = ctypes.create_string_buffer(count * 32)
@@ -196,9 +286,9 @@ class BatchProver:
             count, strobes, strobe_size, N,
             np.ascontiguousarray(txs.transpose(1, 0, 2)).tobytes(), w_buf),
             "rp_ts_w")
-        w_bytes = self._upload(w_buf.raw, count)
+        w_bytes = self._rows32(w_buf.raw, count)
 
-        L_rows, R_rows = [], []
+        lrs = []
         u_bytes = ui_bytes = None
         nk = N
         while nk > 1:
@@ -211,15 +301,14 @@ class BatchProver:
                     N, nk, niels_l, niels_r, a, b, gw, hw, u_bytes, ui_bytes,
                     w_bytes)
             lr = yield lr_dev
-            L_rows.append(lr[:count])
-            R_rows.append(lr[count:])
+            lrs.append(lr)
             u_buf = ctypes.create_string_buffer(count * 32)
             ui_buf = ctypes.create_string_buffer(count * 32)
             _check_rc(_NATIVE.rp_ts_round(count, strobes, strobe_size,
                                           lr.tobytes(), u_buf, ui_buf),
                       "rp_ts_round")
-            u_bytes = self._upload(u_buf.raw, count)
-            ui_bytes = self._upload(ui_buf.raw, count)
+            u_bytes = self._rows32(u_buf.raw, count)
+            ui_bytes = self._rows32(ui_buf.raw, count)
             nk //= 2
 
         fin = (yield PS.final_fused(N, a, b, gw, hw, u_bytes, ui_bytes, t_x,
@@ -227,6 +316,14 @@ class BatchProver:
         sraw = strobes.raw
         for i, t in enumerate(transcripts):
             t.strobe.buf.raw = sraw[i * strobe_size: (i + 1) * strobe_size]
+        return self._assemble(vas, tb, np.stack(lrs), fin)
+
+    def _assemble(self, vas, tb, lr_all, fin):
+        """Host proof objects from the fetched bytes: vas ((m + 2) P, 32)
+        rows [V | A | S], tb (2P, 32) [T_1 | T_2], lr_all (R, 2P, 32)
+        [L | R] per round, fin (5, P, 32) canonical [t_x, t_x_blinding,
+        e_blinding, a, b] -> (proofs, value commitments)."""
+        m, count = self.m, fin.shape[1]
 
         def sc(row) -> Scalar:
             return Scalar.from_canonical_bytes(row.tobytes())
@@ -234,8 +331,8 @@ class BatchProver:
         proofs, vcs = [], []
         for p in range(count):
             ipp = InnerProductProof(
-                L_vec=[bytes(Lr[p]) for Lr in L_rows],
-                R_vec=[bytes(Rr[p]) for Rr in R_rows],
+                L_vec=[bytes(lr[p]) for lr in lr_all],
+                R_vec=[bytes(lr[count + p]) for lr in lr_all],
                 a=sc(fin[3, p]), b=sc(fin[4, p]))
             proofs.append(RangeProof(
                 A=bytes(vas[m * count + p]), S=bytes(vas[(m + 1) * count + p]),

@@ -5,9 +5,13 @@
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   1. drives the prover's main path: BatchProver.prove_batch of `--total`
-     n=64 range proofs on the card (one warm-up, then the best of
-     `--prove-runs`), with the launch counts of one run and a breakdown
-     (device time per kernel, host C++ transcript time);
+     n=64 range proofs on the card on its default route, the device
+     transcript (one warm-up, then the best of `--prove-runs`), with the
+     launch counts of one run and a breakdown (device time per kernel,
+     host C++ transcript time); runs one half's device rest again under
+     torch.cuda.set_sync_debug_mode("error") (no op may wait for the
+     card); proves once more on the per-stage route with the same rng and
+     requires the same proofs, commitments and transcripts;
   2. checks the proofs: the card's BatchVerifier accepts all of them (the
      verifier's main path, with its launch counts), 64 sampled ones pass
      the host RangeProof.verify_single, a flipped byte and two swapped
@@ -16,19 +20,25 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      byte for byte;
   3. holds every kernel against its plain PyTorch version on the card, on
      main-path inputs (one 2048-proof verifier sub-batch; one IPP round's
-     L stream and one 8192-point compression of the prover), and the
-     verifier MSM against the host curve library on a small input;
+     L stream, one 8192-point compression, one half's transcript states
+     and IPP challenges of the prover; K12 beside K6 on the L stream), and
+     the verifier MSM against the host curve library on a small input;
   4. times the verifier's main path (best of `--runs` after a warm-up);
   5. drives the aggregated path at full width: BatchProver(m=16) of
-     `--agg-total` n=64 proofs (one warm-up, then the best of `--agg-runs`,
-     launch counts and breakdown) and BatchVerifier(m=16) on its chunked
-     route (best of `--agg-runs`); the same proofs accepted by the fused
-     route too, a flipped byte and swapped commitments rejected, 2 proofs
-     through the host verify_multiple, and n=8, m=2 proofs from the card
-     equal to the CPU route's byte for byte;
-  6. holds kernels K8-K11 against their plain versions on the aggregated
+     `--agg-total` n=64 proofs on the device-transcript route (one
+     warm-up, then the best of `--agg-runs`, launch counts, breakdown, the
+     no-sync check of one rest), once on the per-stage route (its launch
+     counts checked) and `--agg-runs` times with fixed_msm._ILP2 set (the
+     two-set kernel K12 in place of K6), all three byte-identical; then
+     BatchVerifier(m=16) on its chunked route (best of `--agg-runs`); the
+     same proofs accepted by the fused route too, a flipped byte and
+     swapped commitments rejected, 2 proofs through the host
+     verify_multiple, and n=8, m=2 proofs from the card equal to the CPU
+     route's byte for byte;
+  6. holds kernels K8-K12 against their plain versions on the aggregated
      path's inputs (one fold, one gw update, the S coefficients' digits,
-     one verifier chunk's and the final MSM's accumulation);
+     one verifier chunk's and the final MSM's accumulation, the S
+     commitment's stream for K12, timed beside K6);
   7. prints the kernels' launches, times, plain times and bounds as one
      JSON line, the card's name and power limit, and last the device line.
 Exits non-zero on any failure, and at once when there is no CUDA device.
@@ -153,22 +163,46 @@ def emit_mont_muls(n: int, m: int, P: int, tile: int) -> int:
 
 
 class Capture:
-    """Keeps the first main-path input of a wrapper that matches `want`,
-    while the wrapper goes on working."""
+    """Keeps the first main-path input (tensors cloned) and result of a
+    function that matches `want`, while the function goes on working."""
 
-    def __init__(self, module, name, want):
+    def __init__(self, module, name, want=lambda *a: True):
         self.module, self.name, self.want = module, name, want
         self.real = getattr(module, name)
-        self.args = None
+        self.args = self.out = None
         setattr(module, name, self)
 
     def __call__(self, *args):
-        if self.args is None and self.want(*args):
-            self.args = tuple(a.clone() for a in args)
-        return self.real(*args)
+        keep = self.args is None and self.want(*args)
+        if keep:
+            self.args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args)
+        out = self.real(*args)
+        if keep:
+            self.out = out
+        return out
 
     def restore(self):
         setattr(self.module, self.name, self.real)
+
+
+def time_once(fn):
+    """(fn(), milliseconds of that one call by CUDA events): for the plain
+    versions at main-path shapes, too slow to repeat."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def same_outputs(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_outputs(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
 
 
 def instrumented(fn):
@@ -258,7 +292,9 @@ def main() -> int:
     from bulletproofs_tpu_torch.ops import fold as FO
     from bulletproofs_tpu_torch.ops import msm as M
     from bulletproofs_tpu_torch.ops import prover_stages as PS
+    from bulletproofs_tpu_torch.ops import keccak_device as K
     from bulletproofs_tpu_torch.ops import scalar as S
+    from bulletproofs_tpu_torch.ops import transcript_device as TD
     from bulletproofs_tpu_torch.ops import verify as V
     from bulletproofs_tpu_torch.ops.limbs import sc_ints_to_limbs
     from bulletproofs_tpu_torch.core.scalar import L as ELL
@@ -284,7 +320,7 @@ def main() -> int:
     failures = []
     kernels = []
 
-    # -- 2. the prover's main path -------------------------------------------------
+    # -- 2. the prover's main path: the device-transcript route ---------------------
     t0 = time.time()
     prover = BatchProver(bp, pc, n, m, device=DEVICE)
     torch.cuda.synchronize()
@@ -294,38 +330,53 @@ def main() -> int:
     values[:2] = [0, (1 << n) - 1]
     blinds = [Scalar.random(rng) for _ in values]
     labels = [b"chip smoke %d" % i for i in range(args.total)]
-    half = args.total // 2 if args.total >= prover.HALVES_FROM else args.total
+    half = args.total // 2 if args.total >= prover.FUSED_HALVES_FROM \
+        else args.total
 
-    def prove(seed):
-        out = prover.prove_batch(values, blinds,
-                                 [Transcript(l) for l in labels],
-                                 rng=Rng(seed))
+    def prove(seed, fused=True):
+        """-> (proofs, commitments, transcript bytes after)."""
+        prover.fused = fused
+        ts = [Transcript(l) for l in labels]
+        out = prover.prove_batch(values, blinds, ts, rng=Rng(seed))
         torch.cuda.synchronize()
-        return out
+        return out + ([t.strobe.buf.raw for t in ts],)
 
-    # the warm-up keeps one IPP round's L stream and one 8192-point
-    # compression: the main-path inputs of the prover's kernel checks
+    def wire(out):
+        return [p.to_bytes() for p in out[0]], out[1], out[2]
+
+    # the warm-up keeps the main-path inputs of the kernel checks: one IPP
+    # round's L stream, one 8192-point compression, one half's transcript
+    # states and challenges, and the inputs and outputs of one half's
+    # device rest
     round_rows = (n + 1) * FM.NUM_WINDOWS
-    cap_msm = Capture(PS.FM, "msm_digits_niels",
-                      lambda niels, digits: niels.shape[-1] == round_rows
-                      and digits.shape[1] == half)
-    cap_cmp = Capture(PS.C, "compress",
-                      lambda pts: pts.shape[-1] == min(2 * half, 8192))
+    caps1 = {
+        "msm": Capture(PS.FM, "msm_digits_niels",
+                       lambda niels, digits: niels.shape[-1] == round_rows
+                       and digits.shape[1] == half),
+        "compress": Capture(PS.C, "compress",
+                            lambda pts: pts.shape[-1] == min(2 * half, 8192)),
+        "keccak": Capture(TD, "f1600_state_bytes",
+                          lambda st: st.shape[1] == half),
+        "sinv": Capture(PS.S, "sinv", lambda x: x.shape[1] == half),
+        "rest": Capture(PS, "prove_rest")}
     t0 = time.time()
     try:
         prove(100)
     finally:
-        cap_msm.restore()
-        cap_cmp.restore()
-    log(f"prove_batch warm-up ({args.total} proofs): {time.time() - t0:.2f} s")
+        for c in caps1.values():
+            c.restore()
+    log(f"prove_batch warm-up ({args.total} proofs, device-transcript "
+        f"route): {time.time() - t0:.2f} s")
 
     _cuda.reset_counts()
     t0 = time.time()
-    proofs, vcs = prove(101)
+    fused_out = prove(101)
     times = [time.time() - t0]
     prove_launches = dict(_cuda.LAUNCHES)
-    log(f"prove_batch launches: {prove_launches}")
-    for k in ("fold", "smul", "digits"):
+    proofs, vcs = fused_out[0], fused_out[1]
+    log(f"prove_batch launches (device-transcript route): {prove_launches}")
+    for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
+              "fixed_accumulate", "fixed_reduce", "compress"):
         if prove_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 prover")
     for r in range(args.prove_runs - 1):
@@ -333,9 +384,10 @@ def main() -> int:
         prove(102 + r)
         times.append(time.time() - t0)
     best = min(times)
-    log(f"prove_batch {args.total} proofs of n={n}: best {best * 1e3:.1f} ms "
-        f"of {len(times)} -> {args.total / best:.0f} proofs/s "
-        f"(runs {[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+    log(f"prove_batch {args.total} proofs of n={n} (device-transcript "
+        f"route): best {best * 1e3:.1f} ms of {len(times)} -> "
+        f"{args.total / best:.0f} proofs/s (runs "
+        f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
     wall, per, host_ms = instrumented(lambda: prove(110))
     dev_ms = sum(per.values())
     log(f"prove breakdown (one instrumented run): wall {wall:.1f} ms; "
@@ -355,6 +407,49 @@ def main() -> int:
     else:
         log("torch.profiler saw no device time: the prove's device busy "
             "share is not measured")
+
+    def no_host_sync(cap, what):
+        """Run a captured device rest again under set_sync_debug_mode
+        ("error"): any op that waits for the card raises."""
+        if cap.args is None:
+            failures.append(f"{what}: inputs not captured")
+            return
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = cap.real(*cap.args)
+        except RuntimeError as e:
+            failures.append(f"{what}: host sync")
+            log(f"{what} under set_sync_debug_mode('error'): SYNC: {e}")
+            return
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        same = same_outputs(out, cap.out)
+        log(f"{what} (one half, {cap.args[5].shape[-1]} proofs) under "
+            f"set_sync_debug_mode('error'): no host sync; "
+            f"output {'equal to' if same else 'DIFFERENT from'} the warm-up's")
+        if not same:
+            failures.append(f"{what}: output differs under the sync check")
+
+    no_host_sync(caps1["rest"], "prove_rest (m=1)")
+
+    _cuda.reset_counts()
+    t0 = time.time()
+    stage_out = prove(101, fused=False)
+    stage_ms = (time.time() - t0) * 1e3
+    stage_launches = dict(_cuda.LAUNCHES)
+    same = wire(stage_out) == wire(fused_out)
+    log(f"prove_batch {args.total} proofs, per-stage route: {stage_ms:.1f} "
+        f"ms (one run) on {smi}; launches {stage_launches}; proofs, "
+        f"commitments and transcripts "
+        f"{'byte-identical to' if same else 'DIFFERENT from'} the "
+        f"device-transcript route's")
+    if not same:
+        failures.append("m=1 per-stage and device-transcript proofs differ")
+    for k in ("fold", "smul", "digits"):
+        if stage_launches[k] == 0:
+            failures.append(f"{k} not launched by the m=1 per-stage prover")
 
     # -- 3. the proofs are right -------------------------------------------------------
     bv = BatchVerifier(bp, pc, n=n, m=m, device=DEVICE)
@@ -433,6 +528,34 @@ def main() -> int:
             failures.append(name)
         if launches[name] == 0:
             failures.append(f"{name} not launched on the main path")
+
+    madd = count_fmuls(lambda: C.madd(
+        C.to_coords(C.identity(1, "cpu")),
+        tuple(torch.zeros((10, 1), dtype=torch.int64) for _ in range(3))))
+    add = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
+
+    def k12_against_k6(niels, dig, what):
+        """K12 against its plain version and beside K6 on one stream ->
+        (max_abs_err, ms, plain ms, bytes, limb products)."""
+        slab2 = FM.accumulate2(niels, dig)
+        plain2, plain_ms = time_once(lambda: FM.accumulate2_plain(niels, dig))
+        err = max_abs_err(slab2, plain2)
+        ms2 = time_cuda(lambda: FM.accumulate2(niels, dig), 3)
+        ms6 = time_cuda(lambda: FM.accumulate(niels, dig), 3)
+        same = torch.equal(C.compress(FM.reduce(slab2)),
+                           C.compress(FM.reduce(FM.accumulate(niels, dig))))
+        rows, q = dig.shape
+        k2, k6 = slab2.shape[0], FM.pick_splits(rows, q)
+        log(f"  fixed_accumulate2 on {what} ({rows} rows x {q} lanes): "
+            f"max_abs_err {err}; {ms2:.4f} ms (split {k2}) beside K6 "
+            f"{ms6:.4f} ms (split {k6}) on {smi}; plain {plain_ms:.2f} ms; "
+            f"points {'equal to' if same else 'DIFFERENT from'} K6's")
+        if err != 0 or not same:
+            failures.append(f"fixed_accumulate2 on {what}")
+        return (err, ms2, plain_ms,
+                niels.numel() * 4 + dig.numel() + slab2.numel() * 4,
+                (rows * q * madd + k2 * q * FM.NUM_BUCKETS * add)
+                * FMUL_PRODUCTS)
 
     # -- 4. verifier kernels against their plain versions (exact: integer
     #       arithmetic repeated step for step, so the tolerance is 0) ----------------
@@ -530,11 +653,11 @@ def main() -> int:
         failures.append("msm vs host")
 
     # -- 5. prover kernels against their plain versions, on main-path inputs ---------
-    if cap_cmp.args is None or cap_msm.args is None:
+    if any(c.args is None for c in caps1.values()):
         failures.append("prover kernel inputs not captured")
     else:
-        (cpts,) = cap_cmp.args
-        rniels, rdig = cap_msm.args
+        (cpts,) = caps1["compress"].args
+        rniels, rdig = caps1["msm"].args
         log(f"prover kernel phases (compress of {cpts.shape[-1]} points; IPP "
             f"L stream of {rdig.shape[0]} rows x {rdig.shape[1]} lanes):")
         got = C.compress(cpts)
@@ -549,17 +672,13 @@ def main() -> int:
         rows, q = rdig.shape
         fslab = FM.accumulate(rniels, rdig)
         splits = fslab.shape[0]
-        madd = count_fmuls(lambda: C.madd(
-            C.to_coords(C.identity(1, "cpu")),
-            tuple(torch.zeros((10, 1), dtype=torch.int64) for _ in range(3))))
+        fplain, fplain_ms = time_once(lambda: FM.accumulate_plain(rniels, rdig))
         record("fixed_accumulate", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:274",
-               max_abs_err(fslab, FM.accumulate_plain(rniels, rdig)),
-               time_cuda(lambda: FM.accumulate(rniels, rdig), 5),
-               time_cuda(lambda: FM.accumulate_plain(rniels, rdig), 1),
+               max_abs_err(fslab, fplain),
+               time_cuda(lambda: FM.accumulate(rniels, rdig), 5), fplain_ms,
                rniels.numel() * 4 + rdig.numel() + fslab.numel() * 4,
                rows * q * madd * FMUL_PRODUCTS, prove_launches)
-        add = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
         fout = FM.reduce(fslab)
         record("fixed_reduce", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:346",
@@ -571,6 +690,29 @@ def main() -> int:
                * add * FMUL_PRODUCTS, prove_launches)
         log(f"  (fixed-base split {splits}; {madd} multiplications per mixed "
             f"addition, {add} per addition)")
+        k12_against_k6(rniels, rdig, "the m=1 IPP L stream")
+
+        (kst,) = caps1["keccak"].args
+        got = K.f1600_state_bytes(kst)
+        plain, plain_ms = time_once(lambda: K.f1600_state_bytes_plain(kst))
+        record("keccak_f1600", "bulletproofs_tpu_torch/csrc/keccak.cu",
+               "bulletproofs_tpu/ops/keccak_device.py:68",
+               max_abs_err(got, plain),
+               time_cuda(lambda: K.f1600_state_bytes(kst), 50), plain_ms,
+               2 * kst.numel(), 0, prove_launches)
+        (sx,) = caps1["sinv"].args
+        got = S.sinv(sx)
+        plain, plain_ms = time_once(lambda: S.sinv_plain(sx))
+        mont = 2 + (len(S._INV_BITS) - 1) + sum(S._INV_BITS[1:])
+        record("sinv", "bulletproofs_tpu_torch/csrc/fold.cu",
+               "bulletproofs_tpu/ops/vec_scalar.py:207",
+               max_abs_err(got, plain), time_cuda(lambda: S.sinv(sx), 20),
+               plain_ms, 2 * 8 * sx.numel(),
+               mont * MONT_PRODUCTS * sx.shape[1], prove_launches)
+        log(f"  (keccak_f1600 on {kst.shape[1]} states and sinv on "
+            f"{sx.shape[1]} challenges ({mont} Montgomery multiplications "
+            f"each): no Pallas counterpart, the JAX package runs both in "
+            f"XLA)")
 
     # -- 6. the verifier's timing ------------------------------------------------------
     times = []
@@ -613,42 +755,52 @@ def main() -> int:
     blinds16 = [[Scalar.random(rng) for _ in range(m16)] for _ in range(agg)]
     labels16 = [b"chip smoke agg %d" % i for i in range(agg)]
 
-    def prove16(seed):
+    def prove16(seed, fused=True):
+        """-> (proofs, commitments, transcript bytes after)."""
+        prover16.fused = fused
         ts = [Transcript(l) for l in labels16]
         out = prover16.prove_batch(vals16, blinds16, ts, rng=Rng(seed))
         torch.cuda.synchronize()
-        return out
+        return out + ([t.strobe.buf.raw for t in ts],)
 
-    # the warm-up keeps the aggregated path's kernel inputs: the first fold
-    # (512 rows), the first gw update (1024 rows), the S coefficients'
-    # digits (2N + 1 = 2049 rows)
+    # the warm-up (device-transcript route) keeps the
+    # aggregated path's kernel inputs: the first fold and the first gw
+    # update (all N = 1024 rows: the rest's folds are full width), the S
+    # coefficients' digits (2N + 1 = 2049 rows), the S commitment's stream
+    # (131,136 rows), and the inputs and outputs of one device rest
     N16 = n * m16
-    pcaps = [Capture(PS.FO, "fold_lanes",
-                    lambda x, *a: x.shape[0] == N16 // 2),
-            Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
-            Capture(PS.FO, "digits_lanes",
-                    lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1)]
+    s_rows = (2 * N16 + 1) * FM.NUM_WINDOWS
+    pcaps = [Capture(PS.FO, "fold_lanes", lambda x, *a: x.shape[0] == N16),
+             Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
+             Capture(PS.FO, "digits_lanes",
+                     lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1),
+             Capture(PS.FM, "msm_digits_niels",
+                     lambda niels, digits: niels.shape[-1] == s_rows),
+             Capture(PS, "prove_rest")]
     t0 = time.time()
     try:
         prove16(200)
     finally:
         for c in reversed(pcaps):
             c.restore()
-    log(f"prove_batch m={m16} warm-up ({agg} proofs): {time.time() - t0:.2f} s")
+    log(f"prove_batch m={m16} warm-up ({agg} proofs, device-transcript "
+        f"route): {time.time() - t0:.2f} s")
     _cuda.reset_counts()
     t0 = time.time()
-    proofs16, vcs16 = prove16(201)
+    fused16 = prove16(201)
     times = [time.time() - t0]
     prove16_launches = dict(_cuda.LAUNCHES)
-    log(f"prove_batch m={m16} launches: {prove16_launches}")
+    proofs16, vcs16 = fused16[0], fused16[1]
+    log(f"prove_batch m={m16} launches (device-transcript route): "
+        f"{prove16_launches}")
     for r in range(args.agg_runs - 1):
         t0 = time.time()
         prove16(202 + r)
         times.append(time.time() - t0)
     best = min(times)
-    log(f"prove_batch {agg} proofs of n={n}, m={m16}: best {best * 1e3:.1f} ms "
-        f"of {len(times)} -> {agg / best:.1f} proofs/s, "
-        f"{best * 1e3 / agg:.3f} ms/proof (runs "
+    log(f"prove_batch {agg} proofs of n={n}, m={m16} (device-transcript "
+        f"route): best {best * 1e3:.1f} ms of {len(times)} -> "
+        f"{agg / best:.1f} proofs/s, {best * 1e3 / agg:.3f} ms/proof (runs "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
     wall, per, host_ms = instrumented(lambda: prove16(210))
     dev_ms = sum(per.values())
@@ -664,9 +816,49 @@ def main() -> int:
             f"ms in {sum(r[1] for r in rows)} kernel launches, busy "
             f"{busy / (best * 1e3):.1%} of the best call; largest: "
             + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}" for ms, c, k in rows[:6]))
-    for k in ("fold", "smul", "digits", "fixed_accumulate", "compress"):
+    for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
+              "fixed_accumulate", "compress"):
         if prove16_launches[k] == 0:
             failures.append(f"{k} not launched by the m={m16} prover")
+    no_host_sync(pcaps[4], f"prove_rest (m={m16})")
+
+    _cuda.reset_counts()
+    t0 = time.time()
+    stage16 = prove16(201, fused=False)
+    stage16_launches = dict(_cuda.LAUNCHES)
+    log(f"prove_batch m={m16}, per-stage route: "
+        f"{(time.time() - t0) * 1e3:.1f} ms (one run) on {smi}; launches "
+        f"{stage16_launches}")
+    for k in ("fold", "smul", "digits", "fixed_accumulate", "compress"):
+        if stage16_launches[k] == 0:
+            failures.append(f"{k} not launched by the m={m16} per-stage "
+                            f"prover")
+    FM._ILP2 = True
+    try:
+        _cuda.reset_counts()
+        t0 = time.time()
+        ilp16 = prove16(201)
+        times = [time.time() - t0]
+        ilp2_launches = dict(_cuda.LAUNCHES)
+        for r in range(args.agg_runs - 1):
+            t0 = time.time()
+            prove16(202 + r)
+            times.append(time.time() - t0)
+    finally:
+        FM._ILP2 = False
+    log(f"prove_batch m={m16} with _ILP2 (K12 in place of K6): best "
+        f"{min(times) * 1e3:.1f} ms of {len(times)} (runs "
+        f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}; launches "
+        f"{ilp2_launches}")
+    if ilp2_launches["fixed_accumulate2"] == 0 \
+            or ilp2_launches["fixed_accumulate"] != 0:
+        failures.append("_ILP2 did not route the m=16 prover through K12")
+    same = wire(stage16) == wire(fused16) == wire(ilp16)
+    log(f"m={m16} proofs, commitments and transcripts: per-stage, "
+        f"device-transcript and device-transcript with K12 "
+        f"{'byte-identical' if same else 'DIFFER'}")
+    if not same:
+        failures.append(f"m={m16} routes give different proofs")
 
     bv16 = BatchVerifier(bp16, pc, n=n, m=m16, device=DEVICE)
     lg16, _, n_dyn16 = V.shape(n, m16)
@@ -815,6 +1007,12 @@ def main() -> int:
                     f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
                 if err != 0:
                     failures.append("msm_accumulate_z on the final MSM")
+        sniels, sdig = pcaps[3].args
+        err, ms, plain_ms, nbytes, products = k12_against_k6(
+            sniels, sdig, f"the m={m16} S stream")
+        record("fixed_accumulate2", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
+               "bulletproofs_tpu/ops/fixed_msm.py:206", err, ms, plain_ms,
+               nbytes, products, ilp2_launches)
     if failures:
         log("FAILED:", failures)
         return 1

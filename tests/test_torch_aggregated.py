@@ -1,6 +1,8 @@
 """Aggregated range proofs (m > 1) on the PyTorch port: the batch prover
-(BatchProver(m=2, device="cpu"): plain PyTorch versions of kernels K5-K10)
-against the JAX package's BatchProver(force_device=True), and the chunked
+(BatchProver(m=2, device="cpu"): plain PyTorch versions of its kernels),
+on its per-stage route and on its device-transcript route (with K6's or
+K12's plain version), against the JAX package's
+BatchProver(force_device=True), and the chunked
 verifier route (BatchVerifier, nm above fused_verify_max_nm: K1, K10, K11,
 K4) against the JAX package's _verify_native_chunked, on the same proofs
 and rng bytes.
@@ -22,6 +24,7 @@ from bulletproofs_tpu.proofs.batch_prover import BatchProver as JBatchProver
 
 import bulletproofs_tpu_torch as T
 from bulletproofs_tpu_torch.config import settings as TSET
+from bulletproofs_tpu_torch.ops import fixed_msm as FM
 from bulletproofs_tpu_torch.parallel.batch_verify import BatchVerifier
 
 N_BITS, M_AGG, COUNT = 8, 2, 3
@@ -84,12 +87,18 @@ def _tampered(wires, vcss):
             "swapped": (wires, [vcss[0], vcss[1][::-1], vcss[2]])}
 
 
+def _port_prover(fused):
+    prover = T.BatchProver(T_BP, T_PC, N_BITS, m=M_AGG, device="cpu")
+    prover.fused = fused
+    return prover
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """The port's and JAX's proofs of the same statements, and the JAX
-    chunked verifier on the port's proofs: valid, flipped, swapped."""
-    port = _prove(T, T.BatchProver(T_BP, T_PC, N_BITS, m=M_AGG, device="cpu"),
-                  N_BITS, M_AGG, COUNT, 71)
+    """The port's (per-stage route) and JAX's proofs of the same
+    statements, and the JAX chunked verifier on the port's proofs: valid,
+    flipped, swapped."""
+    port = _prove(T, _port_prover(False), N_BITS, M_AGG, COUNT, 71)
     jp = JBatchProver(J_BP, J_PC, N_BITS, m=M_AGG)
     jp.force_device = True
     jax_run = _prove(J, jp, N_BITS, M_AGG, COUNT, 71)
@@ -168,6 +177,20 @@ def test_chunked_and_fused_routes_agree(runs, monkeypatch):
         proofs, vcs, ts, rng=Rng(73))
     assert chunked[0] is True
     assert chunked[1] == [t.challenge_bytes(b"after", 32) for t in ts]
+
+
+@pytest.mark.parametrize("ilp2", [True, False])
+def test_fused_route_byte_identical_to_jax(runs, ilp2, monkeypatch):
+    """The device-transcript route (its segmented rest: prove_mid_fused,
+    round_step_fused, prove_fin_fused), its fixed-base MSMs through K6's
+    or, under _ILP2, K12's plain version, on the same inputs and rng:
+    proofs, commitment lists and transcripts equal the JAX package's."""
+    monkeypatch.setattr(FM, "_ILP2", ilp2)
+    fp, fv, fts, _ = _prove(T, _port_prover(True), N_BITS, M_AGG, COUNT, 71)
+    jp, jv, jts, _ = runs[1]
+    assert [p.to_bytes() for p in fp] == [p.to_bytes() for p in jp]
+    assert fv == jv
+    assert [t.strobe.buf.raw for t in fts] == [t.strobe.buf.raw for t in jts]
 
 
 def test_m4_on_the_port_alone():

@@ -1,14 +1,15 @@
 """The PyTorch port's m = 1 batch prover as a whole
-(BatchProver(device="cpu"): plain PyTorch versions of kernels K5-K7)
-against the JAX package's BatchProver(force_device=True), and against the
-port's own verifiers.
+(BatchProver(device="cpu"): plain PyTorch versions of its kernels) on
+both its routes, the per-stage one and the device-transcript one (the
+default), against the JAX package's BatchProver(force_device=True), and
+against the port's own verifiers.
 
-For fewer than 1024 proofs the JAX package's device routes (the per-stage
-route the port follows, and the default device route run here because it
-compiles faster on the CPU) draw the same ChaCha key from the rng and
-make the same transcript bytes, so the port must give byte-identical
-proofs, value commitments and post-prove transcript states.  Inputs come
-from seeded generators."""
+For fewer than 1024 proofs the JAX package's device routes (the
+per-stage route, and the device-transcript route that force_device runs)
+draw the same ChaCha key from the
+rng and make the same transcript bytes, so the port must give
+byte-identical proofs, value commitments and post-prove transcript
+states on either route.  Inputs come from seeded generators."""
 
 import os
 import random
@@ -57,27 +58,35 @@ def _prove(pkg, prover, n, count, seed):
     return proofs, vcs, ts, labels
 
 
+def _port_prover(n, fused):
+    prover = T.BatchProver(T_BP, T_PC, n, device="cpu")
+    prover.fused = fused
+    return prover
+
+
 @pytest.fixture(scope="module")
 def both_n8():
-    """n = 8, 3 proofs on the same inputs: (port, jax) results."""
-    port = _prove(T, T.BatchProver(T_BP, T_PC, 8, device="cpu"), 8, 3, 61)
+    """n = 8, 3 proofs on the same inputs: (port on its per-stage route,
+    jax, port on its device-transcript route) results."""
+    port = _prove(T, _port_prover(8, False), 8, 3, 61)
     jp = JBatchProver(J_BP, J_PC, 8)
     jp.force_device = True
-    return port, _prove(J, jp, 8, 3, 61)
+    return port, _prove(J, jp, 8, 3, 61), _prove(T, _port_prover(8, True), 8,
+                                                 3, 61)
 
 
 def test_proofs_byte_identical_to_jax(both_n8):
-    (pp, _, _, _), (jp, _, _, _) = both_n8
+    (pp, _, _, _), (jp, _, _, _), _ = both_n8
     assert [p.to_bytes() for p in pp] == [p.to_bytes() for p in jp]
 
 
 def test_value_commitments_identical_to_jax(both_n8):
-    (_, pv, _, _), (_, jv, _, _) = both_n8
+    (_, pv, _, _), (_, jv, _, _), _ = both_n8
     assert pv == jv and len(pv) == 3
 
 
 def test_transcripts_advance_as_jax(both_n8):
-    (_, _, pts, _), (_, _, jts, _) = both_n8
+    (_, _, pts, _), (_, _, jts, _), _ = both_n8
     assert [t.strobe.buf.raw for t in pts] == [t.strobe.buf.raw for t in jts]
     assert [t.clone().challenge_bytes(b"after", 32) for t in pts] == \
         [t.clone().challenge_bytes(b"after", 32) for t in jts]
@@ -113,9 +122,10 @@ def test_n16_on_the_port_alone():
 
 
 def test_halves_draw_a_key_each_and_verify():
-    """A batch large enough for two interleaved halves (the threshold
-    lowered to 2) proves as two halves of 2 with one 32-byte key each."""
-    prover = T.BatchProver(T_BP, T_PC, 8, device="cpu")
+    """A batch large enough for two interleaved halves of the per-stage
+    route (the threshold lowered to 2) proves as two halves of 2 with one
+    32-byte key each."""
+    prover = _port_prover(8, False)
     prover.HALVES_FROM = 2
     values, blinds, labels = _inputs(8, 4, 63)
     rng = Rng(63)
@@ -123,6 +133,72 @@ def test_halves_draw_a_key_each_and_verify():
                                      [T.Transcript(l) for l in labels],
                                      rng=rng)
     assert rng.r.randbytes(8) == Rng(63).r.randbytes(72)[64:]
+    for p, v, l in zip(proofs, vcs, labels):
+        p.verify_single(T_BP, T_PC, T.Transcript(l), v, 8)
+
+
+def test_fused_route_byte_identical_to_jax(both_n8):
+    """The device-transcript route (the default) on the same inputs and rng:
+    proofs, commitments and post-prove transcripts equal the JAX
+    package's, which ran its own device-transcript route."""
+    (fp, fv, fts, _), (jp, jv, jts, _) = both_n8[2], both_n8[1]
+    assert [p.to_bytes() for p in fp] == [p.to_bytes() for p in jp]
+    assert fv == jv
+    assert [t.strobe.buf.raw for t in fts] == [t.strobe.buf.raw for t in jts]
+    assert [t.clone().challenge_bytes(b"after", 32) for t in fts] == \
+        [t.clone().challenge_bytes(b"after", 32) for t in jts]
+
+
+def test_default_route_is_the_device_transcript_one():
+    prover = T.BatchProver(T_BP, T_PC, 8, device="cpu")
+    assert prover.fused is True
+
+
+@pytest.mark.parametrize("where", ["prove_rest", "second_half"])
+def test_fused_route_restores_transcripts_on_error(where, monkeypatch):
+    """An error part way through the device-transcript route propagates and
+    leaves every caller transcript at its bytes before the call: raised
+    in the device rest, or after the first of two halves has already
+    written its transcripts back."""
+    from bulletproofs_tpu_torch.ops import prover_stages as PS
+    prover = _port_prover(8, True)
+    values, blinds, labels = _inputs(8, 4, 64)
+    ts = [T.Transcript(l) for l in labels]
+    for t in ts:
+        t.append_message(b"prior", b"content")
+    before = [t.strobe.buf.raw for t in ts]
+    if where == "prove_rest":
+        def boom(*a):
+            raise RuntimeError("rest failed")
+        monkeypatch.setattr(PS, "prove_rest", boom)
+    else:
+        prover.FUSED_HALVES_FROM = 2
+        real, calls = prover._assemble, []
+
+        def assemble(*a):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("second half failed")
+            return real(*a)
+        monkeypatch.setattr(prover, "_assemble", assemble)
+    with pytest.raises(RuntimeError):
+        prover.prove_batch(values, [T.Scalar(b) for b in blinds], ts,
+                           rng=Rng(64))
+    assert [t.strobe.buf.raw for t in ts] == before
+
+
+@pytest.mark.parametrize("count, keys", [(3, 1), (4, 2)])
+def test_fused_route_draws_a_key_per_half(count, keys):
+    """With the halves threshold at 4, the device-transcript route draws one
+    32-byte key below it and two at it, and the proofs verify."""
+    prover = _port_prover(8, True)
+    prover.FUSED_HALVES_FROM = 4
+    values, blinds, labels = _inputs(8, count, 65)
+    rng = Rng(65)
+    proofs, vcs = prover.prove_batch(values, [T.Scalar(b) for b in blinds],
+                                     [T.Transcript(l) for l in labels],
+                                     rng=rng)
+    assert rng.r.randbytes(8) == Rng(65).r.randbytes(32 * keys + 8)[-8:]
     for p, v, l in zip(proofs, vcs, labels):
         p.verify_single(T_BP, T_PC, T.Transcript(l), v, 8)
 

@@ -165,8 +165,9 @@ def test_default_device_is_cuda():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: import the port, make 3 proofs and verify
-    them on the CPU, then 3 aggregated m = 2 proofs by the batch prover,
-    verified on the chunked route over two chunks; neither jax nor
+    them on the CPU, prove 2 with the batch prover's device-transcript
+    route, then 3 aggregated m = 2 proofs on that route, verified on the
+    chunked route over two chunks; neither jax nor
     bulletproofs_tpu gets imported."""
     code = """
 import random, sys
@@ -183,11 +184,19 @@ for i in range(3):
                                      T.Scalar.random(rng), 8, rng=rng)
     ps.append(p); vs.append([v]); ts.append(T.Transcript(b"iso"))
 BatchVerifier(bp, pc, n=8, m=1, device="cpu").verify_batch(ps, vs, ts, rng=rng)
-# the aggregated prover (m = 2) and the chunked verifier route
+# the batch prover on its device-transcript route (the default), m = 1
+p1 = T.BatchProver(bp, pc, 8, device="cpu")
+assert p1.fused
+ps, vs = p1.prove_batch([9, 250], [T.Scalar(3), T.Scalar(4)],
+                        [T.Transcript(b"iso1"), T.Transcript(b"iso1")], rng=rng)
+ps[1].verify_single(bp, pc, T.Transcript(b"iso1"), vs[1], 8)
+# the aggregated prover (m = 2, device-transcript route) and the chunked
+# verifier route
 from bulletproofs_tpu_torch.config import settings
 bp2 = T.BulletproofGens(8, 2)
 ts = [T.Transcript(b"iso2 %d" % i) for i in range(3)]
-ps, vs = T.BatchProver(bp2, pc, 8, m=2, device="cpu").prove_batch(
+p2 = T.BatchProver(bp2, pc, 8, m=2, device="cpu")
+ps, vs = p2.prove_batch(
     [[1, 2], [3, 4], [255, 0]],
     [[T.Scalar(5), T.Scalar(6)] for _ in range(3)], ts, rng=rng)
 settings.fused_verify_max_nm, settings.verify_chunk_pts = 8, 28

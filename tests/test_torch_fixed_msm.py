@@ -182,3 +182,103 @@ def test_wrappers_reject_bad_shapes(tables):
         FM.reduce(torch.zeros((2, 9, 4, 10, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
         FM.msm_digits_niels(niels, torch.zeros((64, 4), dtype=torch.int8))
+
+
+# -- K12: the two-set accumulation (_fixed_accum_kernel2 under _ILP2) -------------
+
+def _jax_fixed_msm2(niels, digits, qblk, kchunk):
+    """The JAX package's _fixed_msm with its _ILP2 kernel forced, in
+    interpret mode: the two pallas_calls of fixed_msm.py:387-419 with
+    _fixed_accum_kernel2 (which _fixed_msm never selects in interpret
+    mode) and _fixed_reduce_kernel."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    S, Q, B, L = niels.shape[2], digits.shape[-1], JFM.NUM_BUCKETS, JFM.L
+    n_qblk, n_chunks = Q // qblk, S // kchunk
+    consts = jnp.asarray(PM.CONSTS)
+    slabs = pl.pallas_call(
+        JFM._fixed_accum_kernel2,
+        grid=(n_qblk, n_chunks),
+        in_specs=[
+            pl.BlockSpec((PM.NCONST, L, 1), lambda qb, ck: (0, 0, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((3, L, kchunk, 1), lambda qb, ck: (0, 0, ck, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((kchunk, 1, qblk), lambda qb, ck: (ck, 0, qb),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((1, B, 4, L, qblk),
+                               lambda qb, ck: (qb, 0, 0, 0, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n_qblk, B, 4, L, qblk), jnp.int32),
+        scratch_shapes=[pltpu.VMEM((2, B, 4, L, qblk), jnp.int32)],
+        interpret=True,
+    )(consts, niels, digits.reshape(S, 1, Q))
+    out = pl.pallas_call(
+        JFM._fixed_reduce_kernel,
+        grid=(n_qblk,),
+        in_specs=[
+            pl.BlockSpec((PM.NCONST, L, 1), lambda qb: (0, 0, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, B, 4, L, qblk), lambda qb: (qb, 0, 0, 0, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((1, 4, L, qblk), lambda qb: (qb, 0, 0, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n_qblk, 4, L, qblk), jnp.int32),
+        interpret=True,
+    )(consts, slabs)
+    return jnp.transpose(out, (1, 2, 0, 3)).reshape(4, L, Q)
+
+
+def test_accumulate2_plain_matches_jax_kernel2_interpret(small_stream, tables):
+    """32 rows in two chunks of 16 (the JAX kernel needs an even chunk),
+    256 lanes: the port's two-set plain version, reduced, gives the JAX
+    two-slab kernel's points."""
+    sel, digits, jniels, out = small_stream
+    niels = FM.StreamSubsetTables(tables[0], sel).niels
+    got = FM.reduce(FM.accumulate2_plain(niels, torch.as_tensor(digits)))
+    j = jax.device_get(_jax_fixed_msm2(jniels, jnp.asarray(_encode(digits)),
+                                       256, 16))
+    assert _compressed(got) == _jax_compressed(j) == _compressed(out)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_accumulate2_splits_match_k6(tables, splits):
+    """96 rows over 16 lanes, any split into even chunks: the same points as
+    K6's plain version; zero and negative digits included."""
+    niels = FM.StreamSubsetTables(tables[0], range(96)).niels
+    d = np.random.default_rng(55).integers(-7, 9, (96, 16)).astype(np.int8)
+    d[:, 0] = 0
+    d[:, 1] = -7
+    digits = torch.as_tensor(d)
+    slab = FM._accumulate2_plain(niels, digits, splits)
+    assert slab.shape == (splits, 8, 4, 10, 16)
+    assert _compressed(FM.reduce(slab)) == _compressed(
+        FM.reduce(FM.accumulate_plain(niels, digits)))
+
+
+def test_accumulate2_pads_odd_streams(tables):
+    """101 rows over 16 lanes: pick_splits with K12's thread target gives 3
+    chunks, and the wrapper pads the stream to 102 rows (even chunks of 34)
+    with Niels identities and zero digits."""
+    niels = FM.StreamSubsetTables(tables[0], range(101)).niels
+    digits = torch.as_tensor(np.random.default_rng(56).integers(
+        -7, 9, (101, 16)).astype(np.int8))
+    assert FM.pick_splits(101, 16, FM.TARGET_THREADS2) == 3
+    slab = FM.accumulate2(niels, digits)
+    assert slab.shape == (3, 8, 4, 10, 16)
+    assert _compressed(FM.reduce(slab)) == _compressed(
+        FM.reduce(FM.accumulate_plain(niels, digits)))
+
+
+def test_ilp2_switches_accumulate_to_k12(tables, monkeypatch):
+    niels = FM.StreamSubsetTables(tables[0], range(64)).niels
+    digits = torch.as_tensor(np.random.default_rng(57).integers(
+        -7, 9, (64, 8)).astype(np.int8))
+    monkeypatch.setattr(FM, "_ILP2", True)
+    assert torch.equal(FM.accumulate(niels, digits),
+                       FM.accumulate2_plain(niels, digits))
+    monkeypatch.setattr(FM, "_ILP2", False)
+    assert torch.equal(FM.accumulate(niels, digits),
+                       FM.accumulate_plain(niels, digits))

@@ -208,3 +208,50 @@ def test_wrappers_reject_bad_arguments():
         FO.digits_lanes(torch.zeros((2, 10, 8), dtype=torch.int64))
     assert FO.digits_lanes(torch.zeros((0, 9, 8), dtype=torch.int64)) \
         .shape == (0, 8)
+
+
+# -- K14: sinv (vec_scalar.sinv, XLA in the JAX package) -------------------------------
+
+def _canonical_bytes(ints):
+    return [v.to_bytes(32, "little") for v in ints]
+
+
+def test_sinv_matches_jax_and_pow():
+    """x^(l-2) mod l on 0, 1, l - 1 and seeded values: the port's plain
+    ladder against JAX vec_scalar.sinv (compared as canonical bytes) and
+    Python's pow."""
+    vals = _vals(12, 97)
+    got = S.sinv(torch.as_tensor(sc_ints_to_limbs(vals)))
+    ints = sc_limbs_to_ints(got.numpy())
+    assert _canonical_bytes(ints) == _canonical_bytes(
+        _jax_ints(VS.sinv(_jax_cols(vals))))
+    assert ints == [pow(v, ELL - 2, ELL) for v in vals]
+    assert all(0 <= v < ELL for v in ints)
+
+
+def test_sinv_times_x_is_one():
+    vals = _vals(8, 98)[1:]                          # all nonzero
+    x = torch.as_tensor(sc_ints_to_limbs(vals))
+    one = sc_limbs_to_ints(S.smul(x, S.sinv(x)).numpy())
+    assert one == [1] * len(vals)
+
+
+def test_sinv_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        S.sinv(torch.zeros((8, 3), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        S.sinv(torch.zeros((9, 3), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("N", [8, 64, 1024])
+def test_dyn_round_maps_match_jax(N):
+    """The device-transcript route's per-round gather maps equal the JAX
+    package's (its masks are int32 0 / 1, the port's bool)."""
+    emit, folds = PS._dyn_round_maps(N)
+    jemit, jfolds = JPS._dyn_round_maps(N)
+    assert len(emit) == len(jemit) and len(folds) == len(jfolds)
+    for mine, theirs in zip(emit + folds, jemit + jfolds):
+        assert mine.keys() == theirs.keys()
+        for k in mine:
+            assert np.array_equal(mine[k].astype(np.int64),
+                                  theirs[k].astype(np.int64)), k

@@ -250,3 +250,78 @@ def test_aggregated_prove_and_chunked_verify_on_card(cuda, monkeypatch):
     with pytest.raises(ProofError):
         bv.verify_batch(proofs, [out[0][1][0][::-1]] + out[0][1][1:],
                         [Transcript(l) for l in labels], rng=Rng(80))
+
+
+def test_fixed_accumulate2_matches_plain(cuda):
+    """K12 against its plain version; reduced and compressed, its points
+    equal K6's."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    r = random.Random(81)
+    bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+             for _ in range(5)]
+    tables = FM.FixedBaseTables(bases, cuda)
+    niels = tables.niels[:, :, :5 * 64 - 3].contiguous()       # padded
+    digits = torch.as_tensor(np.random.default_rng(82).integers(
+        -7, 9, (5 * 64 - 3, 300)).astype(np.int8)).to(cuda)
+    before = _cuda.LAUNCHES["fixed_accumulate2"]
+    slab = FM.accumulate2(niels, digits)
+    assert torch.equal(slab, FM.accumulate2_plain(niels, digits))
+    got = C.compress(FM.reduce(slab))
+    want = C.compress(FM.reduce(FM.accumulate(niels, digits)))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["fixed_accumulate2"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_keccak_kernel_matches_plain(cuda):
+    from bulletproofs_tpu_torch.ops import keccak_device as K
+    from bulletproofs_tpu_torch.utils.keccak import f1600_state
+    st = torch.as_tensor(np.random.default_rng(83).integers(
+        0, 256, (200, 1000)).astype(np.uint8)).to(cuda)
+    got = K.f1600_state_bytes(st)
+    want = K.f1600_state_bytes_plain(st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    host = st[:, 7].cpu().numpy().tobytes()
+    assert got[:, 7].cpu().numpy().tobytes() == f1600_state(host)
+
+
+def test_sinv_kernel_matches_plain(cuda):
+    from bulletproofs_tpu_torch.ops.limbs import sc_limbs_to_ints
+    r = random.Random(84)
+    vals = [0, 1, ELL - 1] + [r.randrange(ELL) for _ in range(997)]
+    x = torch.as_tensor(sc_ints_to_limbs(vals)).to(cuda)
+    before = _cuda.LAUNCHES["sinv"]
+    got = S.sinv(x)
+    want = S.sinv_plain(x)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sinv"] == before + 1
+    assert torch.equal(got, want)
+    assert sc_limbs_to_ints(got[:, :20].cpu().numpy()) == [
+        pow(v, ELL - 2, ELL) for v in vals[:20]]
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_fused_route_equals_per_stage_on_card(cuda, m):
+    """n = 8: the device-transcript route's proofs, commitments and
+    transcripts on the card equal the per-stage route's and the CPU's."""
+    from bulletproofs_tpu_torch import BatchProver
+    bp, pc = BulletproofGens(8, m), PedersenGens()
+    labels = [b"gpu fused %d" % i for i in range(5)]
+    values = [[i, 255 - i][:m] for i in range(5)]
+    blinds = [[Scalar(7 + i), Scalar(9 + i)][:m] for i in range(5)]
+    if m == 1:
+        values, blinds = [v[0] for v in values], [b[0] for b in blinds]
+    out = []
+    for device, fused in ((cuda, True), (cuda, False), ("cpu", True)):
+        prover = BatchProver(bp, pc, 8, m=m, device=device)
+        prover.fused = fused
+        ts = [Transcript(l) for l in labels]
+        before = dict(_cuda.LAUNCHES)
+        ps, vs = prover.prove_batch(values, blinds, ts, rng=Rng(85))
+        if device is cuda:
+            launched = _cuda.LAUNCHES["keccak_f1600"] - before["keccak_f1600"]
+            assert (launched > 0) == fused
+        out.append(([p.to_bytes() for p in ps], vs,
+                    [t.strobe.buf.raw for t in ts]))
+    assert out[0] == out[1] == out[2]
