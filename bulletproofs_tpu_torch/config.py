@@ -11,6 +11,13 @@ tests and embedders can also flip them directly before first use.
 | verify_chunk_pts       | BPTPU_VERIFY_CHUNK_PTS    | parallel/batch_verify chunked route: dynamic points per chunk |
 | fused_verify_max_nm    | BPTPU_FUSED_VERIFY_MAX_NM | parallel/batch_verify: largest nm on the fused route |
 | require_consttime      | BPTPU_REQUIRE_CONSTTIME   | vartime_witness_fallback (hard gate) |
+| msm_device_floor       | BPTPU_MSM_DEVICE_FLOOR    | ops/msm.msm_host_auto crossover |
+| linear_device_msm_floor| BPTPU_LINEAR_DEVICE_FLOOR | proofs/linear.batch_verify device route |
+| r1cs_device_msm_floor  | BPTPU_R1CS_DEVICE_FLOOR   | proofs/r1cs/verifier device mega-MSM |
+| enable_r1cs            | BPTPU_ENABLE_R1CS         | proofs/r1cs (the `yoloproofs` feature flag) |
+
+The three floors keep the JAX package's defaults (its config.py), so the
+port routes as it does; PERF.md records where the H100's crossover lies.
 """
 
 from __future__ import annotations
@@ -24,6 +31,16 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, default))
     except ValueError:
         return default
+
+
+def _env_opt_int(name: str):
+    v = os.environ.get(name)
+    if not v:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        return None
 
 
 @dataclass
@@ -53,6 +70,27 @@ class Settings:
     # Default off: the fallback warns once and proceeds (test oracle use).
     require_consttime: bool = field(
         default_factory=lambda: bool(os.environ.get("BPTPU_REQUIRE_CONSTTIME")))
+
+    # point count from which msm_host_auto takes the device MSM; None =
+    # auto (2^18 with the C++ backend built, 32 without)
+    msm_device_floor: int | None = field(
+        default_factory=lambda: _env_opt_int("BPTPU_MSM_DEVICE_FLOOR"))
+
+    # total point count from which LinearProof.batch_verify routes its
+    # fused MSM to the device (dynamic points uploaded compressed)
+    linear_device_msm_floor: int = field(
+        default_factory=lambda: _env_int("BPTPU_LINEAR_DEVICE_FLOOR",
+                                         1 << 20))
+
+    # padded multiplier count from which the R1CS verification mega-MSM
+    # runs on the device
+    r1cs_device_msm_floor: int = field(
+        default_factory=lambda: _env_int("BPTPU_R1CS_DEVICE_FLOOR", 1 << 14))
+
+    # the reference gates R1CS behind its unstable `yoloproofs` feature;
+    # on by default, enforced at proofs/r1cs import
+    enable_r1cs: bool = field(
+        default_factory=lambda: os.environ.get("BPTPU_ENABLE_R1CS", "1") != "0")
 
 
 settings = Settings()

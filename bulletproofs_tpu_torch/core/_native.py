@@ -77,6 +77,8 @@ _SIGNATURES = {
     "rist_compress": ([_C] * 2, None),
     "rist_batch_compress": ([_SZ, _C, _C], None),
     "rist_decompress": ([_C] * 2, ctypes.c_int),
+    "rist_batch_decompress": ([_SZ] + [_C] * 3, ctypes.c_int),
+    "rist_is_identity": ([_C], ctypes.c_int),
     "rist_from_uniform_bytes": ([_C] * 2, None),
     "sc_invert1": ([_C] * 2, None),
     "ipp_round_scalars": ([_SZ, _SZ] + [_C] * 8, None),
@@ -93,6 +95,16 @@ _SIGNATURES = {
     "rp_ts_x": ([_U64, _C, _U64, _C, _C], ctypes.c_int),
     "rp_ts_w": ([_U64, _C, _U64, _U64, _C, _C], ctypes.c_int),
     "rp_ts_round": ([_U64, _C, _U64, _C, _C, _C], ctypes.c_int),
+    # the R1CS prover's and verifier's vector stages (native/sc_vec.cpp)
+    "r1cs_lr_polys": ([_SZ] + [_C] * 17, None),
+    "r1cs_lr_eval": ([_SZ, _SZ] + [_C] * 11, None),
+    "r1cs_verify_scalars": ([_SZ, _SZ, _SZ] + [_C] * 14, None),
+    "r1cs_hg_factors": ([_SZ, _SZ] + [_C] * 4, None),
+    "sc_vec_axpy": ([_SZ] + [_C] * 3, None),
+    # the linear proof's batched replay (native/linear_prep.cpp)
+    "linear_verify_replay_batch_c": (
+        [_C, _SZ, _C, _SZ] + [_C] * 5 + [_U64, _U64] + [_C] * 3,
+        ctypes.c_int),
 }
 
 

@@ -31,7 +31,7 @@ CUDA_DIR = os.path.join(BUILD_DIR, "cuda")
 # library -> its .cu source; headers shared by all sources are hashed too
 SOURCES = {"decompress": "decompress.cu", "emit": "emit.cu", "msm": "msm.cu",
            "compress": "compress.cu", "fixed_msm": "fixed_msm.cu",
-           "fold": "fold.cu", "keccak": "keccak.cu"}
+           "fold": "fold.cu", "keccak": "keccak.cu", "fmul13": "fmul13.cu"}
 HEADERS = ("fe25519.cuh", "sc25519.cuh", "common.cuh")
 
 # kernel name -> number of launches since the last reset_counts()
@@ -40,7 +40,8 @@ LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,
                             "fixed_accumulate": 0, "fixed_reduce": 0,
                             "fold": 0, "smul": 0, "digits": 0,
                             "msm_accumulate_z": 0, "fixed_accumulate2": 0,
-                            "keccak_f1600": 0, "sinv": 0}
+                            "keccak_f1600": 0, "sinv": 0, "fmul13_chain": 0,
+                            "fmul13_chain_mma": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -238,3 +238,43 @@ def msm_lanes_flag(points: torch.Tensor, scalars: torch.Tensor
 def msm_lanes(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """msm_lanes_flag's point alone, (4, 10, 1) int32."""
     return msm_lanes_flag(points, scalars)[0]
+
+
+def bytes_tensor(blob: bytes, device) -> torch.Tensor:
+    """Packed 32-byte values -> (N, 32) uint8 on `device` (one upload)."""
+    raw = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    return raw.reshape(-1, 32).to(device)
+
+
+def msm(scalars, points, device):
+    """Host Scalars and RistrettoPoints -> host RistrettoPoint, by
+    msm_lanes_flag on `device` (vec_msm.msm: the same signature order as
+    core.ristretto.multiscalar_mul)."""
+    from ..core.ristretto import RistrettoPoint
+    from ..core.scalar import L as ELL, Scalar
+    points = list(points)
+    if not points:
+        return RistrettoPoint.identity()
+    pts = torch.as_tensor(C.points_to_lanes(points)).to(device)
+    blob = b"".join(((s.v if isinstance(s, Scalar) else int(s)) % ELL)
+                    .to_bytes(32, "little") for s in scalars)
+    out = msm_lanes(pts, bytes_tensor(blob, device))
+    return C.lanes_to_points(out.cpu().numpy())[0]
+
+
+def msm_host_auto(scalars, points, device):
+    """The MSM of the single-proof verifiers: the host C++ Pippenger below
+    a size floor, msm on `device` from it (vec_msm.msm_host_auto).  The
+    route depends on the size alone; `device` decides between the kernels
+    and their plain versions.  settings.msm_device_floor (None: 2^18 with
+    the C++ backend built, 32 without) sets the floor."""
+    from ..config import settings
+    from ..core._native import LIB
+    from ..core.ristretto import multiscalar_mul
+    points = list(points)
+    floor = settings.msm_device_floor
+    if floor is None:
+        floor = (1 << 18) if LIB is not None else 32
+    if len(points) >= floor:
+        return msm(scalars, points, device)
+    return multiscalar_mul(scalars, points)

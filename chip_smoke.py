@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py [--total 8192] [--prove-runs 3] [--runs 5]
                           [--agg-total 256] [--agg-runs 3]
+                          [--probe-steps 1024] [--r1cs-k 32768]
+                          [--linear-items 2048]
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   1. drives the prover's main path: BatchProver.prove_batch of `--total`
@@ -39,7 +41,23 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      path's inputs (one fold, one gw update, the S coefficients' digits,
      one verifier chunk's and the final MSM's accumulation, the S
      commitment's stream for K12, timed beside K6);
-  7. prints the kernels' launches, times, plain times and bounds as one
+  9. drives the MXU probe (benches/mxu_fmul_probe.run, Q = 512 lanes,
+     `--probe-steps` chained steps): its oracle check, then K15 and K16
+     timed; both against their plain versions and each other limb for
+     limb, 14 lanes against the Python-int oracle of the whole chain, and
+     for reference the same int8 products by torch._int_mm;
+ 10. R1CS: a k = `--r1cs-k` shuffle proved on the host and verified on the
+     card by the default rule (the device mega-MSM: cold, then 3 runs
+     alternating with the host C++ route, medians; the MSM alone), K1,
+     K10, K11, K4a and K4b against their plain versions on that MSM's
+     inputs, a flipped byte and swapped output commitments rejected; the
+     same for batch_verify of two k = 2^10 proofs on the device (one
+     tampered batch rejected);
+ 11. linear proofs: batch_verify of `--linear-items` items at n = 1024 on
+     the forced device route (cold, then 3 runs alternating with the host
+     route, medians; the MSM alone), the five MSM kernels against their
+     plain versions on its inputs, and a tampered batch rejected;
+ 12. prints the kernels' launches, times, plain times and bounds as one
      JSON line, the card's name and power limit, and last the device line.
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -50,6 +68,7 @@ import argparse
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -62,12 +81,16 @@ PEAK_BYTES = 3.35e12
 # 32-bit integer multiply-adds per clock per SM at compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table);
 # times the card's SMs and maximum SM clock, read in main(), that is the
-# peak integer rate.  The kernels' unit of work, a 32 x 32 -> 64-bit limb
-# product, takes two of them (low and high word).
+# peak integer rate.  A 32 x 32 -> 64-bit limb product takes two of them
+# (low and high word).
 IMAD_PER_CLOCK_SM = 64
-IMADS_PER_PRODUCT = 2
-FMUL_PRODUCTS = 100     # one field multiplication: 10 x 10 limb products
-MONT_PRODUCTS = 171     # one Montgomery multiplication: 9 x (9 + 1 + 9)
+# dense int8 tensor-core peak of one H100 SXM: 1,979 TOPS (NVIDIA data
+# sheet), two operations to a multiply-add
+PEAK_INT8_MACS = 1979e12 / 2
+# multiply-adds of one field multiplication (10 x 10 limb products) and of
+# one Montgomery multiplication (9 x (9 + 1 + 9) limb products)
+FMUL_MADS = 100 * 2
+MONT_MADS = 171 * 2
 
 
 class Rng:
@@ -95,16 +118,8 @@ def card_line() -> str:
 def time_cuda(fn, reps: int) -> float:
     """Mean milliseconds of fn() over `reps` launches, after one warm-up,
     by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from bulletproofs_tpu_torch.benches import timed
+    return timed(fn, reps, DEVICE)[1]
 
 
 def max_abs_err(a, b) -> float:
@@ -125,11 +140,14 @@ def peak_imads() -> float:
     return sms * IMAD_PER_CLOCK_SM * float(mhz.split()[0]) * 1e6
 
 
-def bound(nbytes: float, products: float, imads_per_s: float):
-    """Least milliseconds for moving `nbytes` and making `products` limb
-    products, and which of the two bounds it."""
+def bound(nbytes: float, mads: float, imads_per_s: float,
+          int8_macs: float = 0):
+    """Least milliseconds for moving `nbytes`, making `mads` 32-bit
+    multiply-adds on the CUDA cores and `int8_macs` int8 multiply-adds on
+    the tensor cores (each unit runs beside the others), and which bounds
+    it."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = products * IMADS_PER_PRODUCT / imads_per_s * 1e3
+    t_ops = max(mads / imads_per_s, int8_macs / PEAK_INT8_MACS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -189,14 +207,8 @@ class Capture:
 def time_once(fn):
     """(fn(), milliseconds of that one call by CUDA events): for the plain
     versions at main-path shapes, too slow to repeat."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
+    from bulletproofs_tpu_torch.benches import timed
+    return timed(fn, 1, DEVICE, warm=False)
 
 
 def same_outputs(a, b) -> bool:
@@ -266,6 +278,409 @@ def profiled(fn):
     return sorted(rows, reverse=True)
 
 
+class NativeTimer:
+    """Replaces core.ristretto's native library handle by one that adds
+    the host milliseconds of every call of `names` into `ms` (restored by
+    close())."""
+
+    def __init__(self, names):
+        from bulletproofs_tpu_torch.core import ristretto
+        self.mod, self.real = ristretto, ristretto._NATIVE
+        self.names, self.ms = names, {n: 0.0 for n in names}
+        ristretto._NATIVE = self
+
+    def __getattr__(self, name):
+        f = getattr(self.real, name)
+        if name not in self.names:
+            return f
+
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return f(*args)
+            finally:
+                self.ms[name] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    def close(self):
+        self.mod._NATIVE = self.real
+
+
+def host_clock(fn) -> float:
+    """Milliseconds of one fn() ending in a synchronize, by the host
+    clock."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def paired(device_fn, host_fn, runs: int = 3):
+    """Device and host route timed alike: `runs` calls of each, alternating
+    and starting with the device -> (device ms, host ms), lists in run
+    order, by the host clock."""
+    dev, host = [], []
+    for _ in range(runs):
+        dev.append(host_clock(device_fn))
+        host.append(host_clock(host_fn))
+    return dev, host
+
+
+def runs_text(ms) -> str:
+    return (f"median {statistics.median(ms):.1f} ms of "
+            f"{[round(x, 1) for x in ms]}")
+
+
+def probe_phase(args, dev, smi, record, failures):
+    """9. The MXU probe's main path (benches/mxu_fmul_probe.run: K15 and
+    K16 at Q = 512, T = --probe-steps), then both kernels against their
+    plain versions and each other, limb for limb over the whole chain, and
+    14 lanes against the Python-int oracle."""
+    from bulletproofs_tpu_torch.benches import mxu_fmul_probe as PROBE
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.ops import fmul13 as F13
+    q, t = 512, args.probe_steps
+    inp = PROBE.make_inputs(q, t)
+    log(f"MXU probe (Q = {q} lanes, T = {t} steps) on {smi}:")
+    _cuda.reset_counts()
+    res = PROBE.run(DEVICE, inputs=inp, reps=8, log=lambda *a: log(" ", *a))
+    launches = dict(_cuda.LAUNCHES)
+    if not res["oracle_ok"]:
+        failures.append("MXU-form product vs oracle")
+        return
+    for k in ("fmul13_chain", "fmul13_chain_mma"):
+        if launches[k] == 0:
+            failures.append(f"{k} not launched by the probe")
+    a, b3, m3 = (inp[k].to(dev) for k in ("a", "b3", "m3"))
+    v, m = res["vpu_out"], res["mxu_out"]
+    pv, pv_ms = time_once(lambda: F13.chain_vpu_plain(a, b3))
+    pm, pm_ms = time_once(lambda: F13.chain_mxu_plain(a, m3))
+    same = torch.equal(v, m)
+    lanes = list(range(0, q, 37))
+    want = PROBE.chain_oracle([inp["a_int"][i] for i in lanes],
+                              inp["b_steps"], t)
+    got = F13.limbs_to_ints(v[:, lanes].cpu().numpy())
+    oracle = [g % F13.P25519 for g in got] == want
+    log(f"  K15 and K16 limb for limb {'equal' if same else 'DIFFERENT'}; "
+        f"{len(lanes)} lanes {'equal to' if oracle else 'DIFFERENT from'} "
+        f"the Python-int oracle of the whole chain; largest limb "
+        f"{int(v.max())} (the int8 split needs < 16384)")
+    if not same or not oracle:
+        failures.append("K15 / K16 chain results")
+    per_lane_step = q * t
+    # 400 multiply-adds per product and 41 multiplications by 608 in its
+    # tail, three products and one carry (one more) per step
+    record("fmul13_chain", "bulletproofs_tpu_torch/csrc/fmul13.cu",
+           "benches/_mxu_fmul_probe.py:135", max_abs_err(v, pv),
+           res["vpu_ms"], pv_ms, a.numel() * 8 + b3.numel() * 4,
+           per_lane_step * (3 * 441 + 1), launches)
+    # the 156 x 40 int8 product on the tensor cores; on the CUDA cores the
+    # tail's 41 multiplications by 608 per product and one per step (the
+    # fold's 128 and 16384 are shifts)
+    record("fmul13_chain_mma", "bulletproofs_tpu_torch/csrc/fmul13.cu",
+           "benches/_mxu_fmul_probe.py:147", max_abs_err(m, pm),
+           res["mxu_ms"], pm_ms, a.numel() * 8 + m3.numel(),
+           per_lane_step * (3 * 41 + 1), launches, int8_macs=3 * per_lane_step * F13.MROWS * F13.MCOLS)
+    # for reference only (the port never calls it): the same 3 T int8
+    # products alone, one library call each, the JAX probe's "int8 matmul
+    # alone" row
+    prods = [m3[j, s] for s in range(t) for j in range(3)]
+    for A in (F13.split(a), F13.split(a).t().contiguous().t()):
+        try:
+            torch._int_mm(prods[0], A)
+        except RuntimeError as e:
+            log(f"  torch._int_mm refused a (40, {q}) operand of strides "
+                f"{A.stride()}: {str(e)[:120]}")
+            continue
+        ms = time_cuda(lambda: [torch._int_mm(p, A) for p in prods], 3)
+        log(f"  for reference, {len(prods)} (156 x 40) @ (40 x {q}) int8 "
+            f"products alone by torch._int_mm: {ms:.4f} ms "
+            f"({ms * 1e3 / t:.3f} us per step) on {smi}")
+        break
+    else:
+        log("  torch._int_mm products: not measured")
+
+
+def msm_path_checks(what, dec, msm, imads, smi, failures):
+    """K1, K10, K11, K4a and K4b against their plain versions on the card,
+    on the inputs of one path's device MSM (`dec` and `msm` are Captures of
+    curve.decompress and msm.msm_lanes_flag from that path's run).  Exact,
+    tolerance 0; the path's own decoded points and MSM result are among the
+    outputs compared."""
+    from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import fold as FO
+    from bulletproofs_tpu_torch.ops import msm as M
+    from bulletproofs_tpu_torch.ops import scalar as S
+    (raw,), (pts, sc) = dec.args, msm.args
+    N = pts.shape[-1]
+    coef = S.from_bytes32(sc)
+    dig = FO.digits_lanes(coef)
+    slab = M.accumulate_z(pts, dig)
+    sums = M.reduce(slab)
+    lanes = slab.shape[-1]
+    decode = count_fmuls(lambda: C.decode(torch.zeros((10, 1),
+                                                      dtype=torch.int64)))
+    add = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
+    log(f"  {what}: kernels against their plain versions ({raw.shape[0]} "
+        f"encodings; {N} MSM points in {lanes} lanes):")
+    # (name, output, kernel, plain version, bytes, multiply-adds): the
+    # first and last outputs are the path's own
+    stages = (
+        ("decompress", dec.out, lambda: C.decompress(raw),
+         lambda: C.decompress_plain(raw), raw.shape[0] * (32 + 1 + 160),
+         raw.shape[0] * decode * FMUL_MADS),
+        ("digits", dig, lambda: FO.digits_lanes(coef),
+         lambda: FO.digits_plain(coef[None]), coef.numel() * 8 + dig.numel(),
+         18 * N),
+        ("msm_accumulate_z", slab, lambda: M.accumulate_z(pts, dig),
+         lambda: M.accumulate_z_plain(pts, dig),
+         pts.numel() * 4 + dig.numel() + slab.numel() * 4,
+         int((dig != 0).sum()) * add * FMUL_MADS),
+        ("msm_reduce", sums, lambda: M.reduce(slab),
+         lambda: M.reduce_plain(slab), slab.numel() * 4 + sums.numel() * 4,
+         64 * 8 * (lanes - 1) * 9 * FMUL_MADS),
+        ("msm_horner", (msm.out[0][..., 0], msm.out[1]),
+         lambda: M.horner(sums), lambda: M.horner_plain(sums),
+         sums.numel() * 4 + 160 + 4,
+         (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_MADS))
+    for name, got, kernel, plain, nbytes, mads in stages:
+        want, plain_ms = time_once(plain)
+        err = max_abs_err(got, want)
+        ms = time_cuda(kernel, 3)
+        b_ms, b_by = bound(nbytes, mads, imads)
+        log(f"    {name}: max_abs_err {err} "
+            f"({'ok' if err == 0 else 'MISMATCH'}); {ms:.4f} ms kernel, "
+            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}) on {smi}")
+        if err != 0:
+            failures.append(f"{name} on the {what}")
+
+
+def device_captures(module, name):
+    """Captures of a device check and of the two calls it makes."""
+    from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import msm as M
+    return (Capture(module, name), Capture(C, "decompress"),
+            Capture(M, "msm_lanes_flag"))
+
+
+MSM_KERNELS = ("decompress", "digits", "msm_accumulate_z", "msm_reduce",
+               "msm_horner")
+
+
+def r1cs_phase(args, smi, imads, failures):
+    """10. R1CS: the k-shuffle (bench.py:321-366) proved on the host,
+    verified on the card by the default rule (cold, then 3 runs alternating
+    with the host C++ route), the mega-MSM alone, K1, K10, K11, K4a and K4b
+    against their plain versions on its inputs, two tampered proofs
+    rejected, and the same for batch_verify of two k = 2^10 proofs."""
+    from bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                        R1CSError)
+    from bulletproofs_tpu_torch.benches import shuffle as SH
+    from bulletproofs_tpu_torch.config import settings
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.proofs import r1cs as R1
+    from bulletproofs_tpu_torch.proofs.r1cs import verifier as RV
+    k = args.r1cs_k
+    padded = 1 << (2 * k - 3).bit_length()          # 2 (k - 1) multipliers
+    pc, bp = PedersenGens(), BulletproofGens(padded, 1)
+    label = b"ShuffleScaleBench"
+    t0 = time.time()
+    ins, outs, proof = SH.prove_shuffle(pc, bp, label, *SH.shuffle_values(k, k),
+                                        Rng(args.seed + 40))
+    log(f"R1CS k={k} shuffle ({padded} padded multipliers): host prove "
+        f"(gadget included) {time.time() - t0:.2f} s; device floor "
+        f"{settings.r1cs_device_msm_floor}")
+    if padded < settings.r1cs_device_msm_floor:
+        failures.append("R1CS: the default rule does not take the device")
+    old = settings.r1cs_device_msm_floor
+
+    def verify(p, ins=ins, outs=outs, seed=41):
+        SH.shuffle_verifier(label, ins, outs).verify(p, pc, bp, rng=Rng(seed),
+                                                    device=DEVICE)
+
+    def on_host(fn, floor):
+        """fn() on the host C++ route (the floor raised) -> its rist_msm
+        milliseconds; no kernel may launch."""
+        settings.r1cs_device_msm_floor = 1 << 40
+        timer = NativeTimer(["rist_msm"])
+        _cuda.reset_counts()
+        try:
+            fn()
+        finally:
+            timer.close()
+            settings.r1cs_device_msm_floor = floor
+        if any(_cuda.LAUNCHES.values()):
+            failures.append("R1CS host route launched a kernel")
+        return timer.ms["rist_msm"]
+
+    def device_run(what, fn, floor):
+        """The path fn() on the card (cold; counts from 0 just before it,
+        read just after), then 3 runs alternating with the host route, the
+        MSM alone, and the kernels against their plain versions on its
+        inputs."""
+        caps = device_captures(RV, "_device_msm_is_identity")
+        _cuda.reset_counts()
+        try:
+            cold = host_clock(fn)
+        finally:
+            for c in caps:
+                c.restore()
+        launches = dict(_cuda.LAUNCHES)
+        for name in MSM_KERNELS:
+            if launches[name] == 0:
+                failures.append(f"{name} not launched by the {what}")
+        if any(c.args is None for c in caps):
+            failures.append(f"{what}: the device MSM did not run")
+            return
+        rist = []
+        dev_ms, host_ms = paired(fn, lambda: rist.append(on_host(fn, floor)))
+        cap = caps[0]
+        msm_ms = [host_clock(lambda: cap.real(*cap.args)) for _ in range(3)]
+        log(f"  {what} on the card: cold {cold:.1f} ms; then alternating "
+            f"with the host C++ route (floor raised), 3 runs each: card "
+            f"{runs_text(dev_ms)}, host {runs_text(host_ms)} (its rist_msm "
+            f"{runs_text(rist)}); launches "
+            f"{ {k: v for k, v in launches.items() if v} }; the device "
+            f"mega-MSM alone ({caps[2].args[0].shape[-1]} points, K1 + K10 + "
+            f"K11 + K4a + K4b, uploads included) {runs_text(msm_ms)}; on "
+            f"{smi}")
+        msm_path_checks(what, caps[1], caps[2], imads, smi, failures)
+
+    device_run(f"R1CS k={k} verify (default rule)", lambda: verify(proof), old)
+    b = bytearray(proof.to_bytes())
+    b[1 + 14 * 32] ^= 1                               # low byte of t_x
+    swapped = [outs[1], outs[0]] + outs[2:]
+    for name, p, o in (("flipped byte", R1.R1CSProof.from_bytes(bytes(b)), outs),
+                       ("swapped output commitments", proof, swapped)):
+        try:
+            verify(p, outs=o, seed=42)
+        except R1CSError:
+            log(f"  R1CS {name}: rejected on the card")
+        else:
+            failures.append(f"R1CS {name} accepted")
+
+    # batch_verify of two k = 2^10 shuffles, the floor lowered to their size
+    ks = min(1 << 10, k)
+    made = [SH.prove_shuffle(pc, bp, b"chip batch %d" % i,
+                             *SH.shuffle_values(ks, ks + i, tamper=i == 2),
+                             Rng(args.seed + 43 + i)) for i in range(3)]
+
+    def items(idx):
+        return [(SH.shuffle_verifier(b"chip batch %d" % i, made[i][0],
+                                     made[i][1]), made[i][2]) for i in idx]
+
+    low = 1 << (2 * ks - 3).bit_length()
+    settings.r1cs_device_msm_floor = low
+    try:
+        device_run(f"R1CS batch_verify of two k={ks} shuffles",
+                   lambda: R1.batch_verify(items([0, 1]), pc, bp, rng=Rng(44),
+                                           device=DEVICE), low)
+        try:
+            R1.batch_verify(items([0, 2]), pc, bp, rng=Rng(45), device=DEVICE)
+        except R1CSError:
+            log("  the batch with one tampered shuffle: rejected on the card")
+        else:
+            failures.append("R1CS tampered batch accepted")
+    finally:
+        settings.r1cs_device_msm_floor = old
+
+
+def linear_phase(args, smi, imads, failures):
+    """11. Linear proofs: batch_verify of --linear-items items at n = 1024
+    (128 created proofs, each repeated with fresh transcripts) on the
+    forced device route (cold, then 3 runs alternating with the host
+    route), the fused MSM alone, K1, K10, K11, K4a and K4b against their
+    plain versions on its inputs, and a tampered batch rejected on the
+    card."""
+    from bulletproofs_tpu_torch import (BulletproofGens, LinearProof,
+                                        PedersenGens, ProofError, Scalar,
+                                        Transcript)
+    from bulletproofs_tpu_torch.config import settings
+    from bulletproofs_tpu_torch.core.ristretto import multiscalar_mul
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.proofs import linear as LIN
+    from bulletproofs_tpu_torch.utils.util import inner_product
+    n = 1024
+    G = BulletproofGens(n, 1).share(0).G(n)
+    pc = PedersenGens()
+    F, B = pc.B, pc.B_blinding
+    rng = Rng(args.seed + 50)
+    made = []
+    t0 = time.time()
+    for i in range(min(128, args.linear_items)):
+        a = [Scalar.random(rng) for _ in range(n)]
+        b = [Scalar.random(rng) for _ in range(n)]
+        r = Scalar.random(rng)
+        C = multiscalar_mul(a + [r, inner_product(a, b)], G + [B, F]).compress()
+        label = b"chip linear %d" % i
+        made.append((LinearProof.create(Transcript(label), rng, C, r, a, b,
+                                        list(G), F, B), C, b, label))
+    reps = args.linear_items // len(made)
+    total = reps * len(made) * (2 + 2 * (n.bit_length() - 1)) + 2 + n
+    log(f"linear proofs, n={n}: {len(made)} created in "
+        f"{time.time() - t0:.1f} s (host), each verified {reps} times "
+        f"(fresh transcripts): {reps * len(made)} items, {total} MSM points "
+        f"(device floor {settings.linear_device_msm_floor})")
+
+    def verify(proofs=None, use_device=True, seed=51):
+        LinearProof.batch_verify(
+            [(p, Transcript(l), C, b) for _ in range(reps)
+             for p, C, b, l in (proofs or made)],
+            G, F, B, rng=Rng(seed), use_device=use_device, device=DEVICE)
+
+    caps = device_captures(LIN, "_device_linear_check")
+    _cuda.reset_counts()
+    try:
+        cold = host_clock(verify)
+    finally:
+        for c in caps:
+            c.restore()
+    launches = dict(_cuda.LAUNCHES)
+    for name in MSM_KERNELS:
+        if launches[name] == 0:
+            failures.append(f"{name} not launched by the linear verifier")
+    if any(c.args is None for c in caps):
+        failures.append("linear: the device check did not run")
+        return
+    parts = {"linear_verify_replay_batch_c": [], "rist_batch_decompress": [],
+             "rist_msm": []}
+
+    def on_host():
+        timer = NativeTimer(list(parts))
+        _cuda.reset_counts()
+        try:
+            verify(use_device=False)
+        finally:
+            timer.close()
+        if any(_cuda.LAUNCHES.values()):
+            failures.append("linear host route launched a kernel")
+        for name, ms in timer.ms.items():
+            parts[name].append(ms)
+
+    dev_ms, host_ms = paired(verify, on_host)
+    cap = caps[0]
+    msm_ms = [host_clock(lambda: cap.real(*cap.args)) for _ in range(3)]
+    log(f"  device route (forced): cold {cold:.1f} ms; then alternating with "
+        f"the host route, 3 runs each: card {runs_text(dev_ms)}, host "
+        f"{runs_text(host_ms)} (its C++ replay "
+        f"{runs_text(parts['linear_verify_replay_batch_c'])}, decompression "
+        f"{runs_text(parts['rist_batch_decompress'])}, rist_msm "
+        f"{runs_text(parts['rist_msm'])}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; the fused MSM alone "
+        f"(uploads included) {runs_text(msm_ms)}; on {smi}")
+    msm_path_checks("linear batch verify", caps[1], caps[2], imads, smi,
+                    failures)
+    p0, C0, b0, l0 = made[0]
+    bad = LinearProof.from_bytes(p0.to_bytes())
+    bad.a = bad.a + Scalar.one()
+    try:
+        verify([(bad, C0, b0, l0)] + made[1:], seed=52)
+    except ProofError:
+        log("  linear batch with one tampered proof: rejected on the card")
+    else:
+        failures.append("linear tampered batch accepted")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total", type=int, default=8192)
@@ -274,6 +689,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--agg-total", type=int, default=256)
     ap.add_argument("--agg-runs", type=int, default=3)
+    ap.add_argument("--probe-steps", type=int, default=1024)
+    ap.add_argument("--r1cs-k", type=int, default=1 << 15)
+    ap.add_argument("--linear-items", type=int, default=2048)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -512,9 +930,9 @@ def main() -> int:
     if not same:
         failures.append("card and cpu proofs differ")
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, products,
-               launches):
-        b_ms, b_by = bound(nbytes, products, imads)
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, mads,
+               launches, **ops):
+        b_ms, b_by = bound(nbytes, mads, imads, **ops)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -536,7 +954,7 @@ def main() -> int:
 
     def k12_against_k6(niels, dig, what):
         """K12 against its plain version and beside K6 on one stream ->
-        (max_abs_err, ms, plain ms, bytes, limb products)."""
+        (max_abs_err, ms, plain ms, bytes, multiply-adds)."""
         slab2 = FM.accumulate2(niels, dig)
         plain2, plain_ms = time_once(lambda: FM.accumulate2_plain(niels, dig))
         err = max_abs_err(slab2, plain2)
@@ -555,7 +973,7 @@ def main() -> int:
         return (err, ms2, plain_ms,
                 niels.numel() * 4 + dig.numel() + slab2.numel() * 4,
                 (rows * q * madd + k2 * q * FM.NUM_BUCKETS * add)
-                * FMUL_PRODUCTS)
+                * FMUL_MADS)
 
     # -- 4. verifier kernels against their plain versions (exact: integer
     #       arithmetic repeated step for step, so the tolerance is 0) ----------------
@@ -588,7 +1006,7 @@ def main() -> int:
            max_abs_err((got[0], got[1]), (want[0], want[1])),
            time_cuda(lambda: C.decompress(raw_dev), 20),
            time_cuda(lambda: C.decompress_plain(raw_dev), 1),
-           N * (32 + 1 + 160), N * fm * FMUL_PRODUCTS, verify_launches)
+           N * (32 + 1 + 160), N * fm * FMUL_MADS, verify_launches)
 
     blk = torch.from_numpy(blk_np.copy()).to(dev)
     got = V.emit(n, m, blk)
@@ -598,7 +1016,7 @@ def main() -> int:
            max_abs_err(got, want), time_cuda(lambda: V.emit(n, m, blk), 20),
            time_cuda(lambda: V.emit_plain(n, m, blk), 1),
            blk.numel() + n * 36 + got[0].numel() + got[1].numel() * 4,
-           emit_mont_muls(n, m, sub, V.EMIT_TILE) * MONT_PRODUCTS,
+           emit_mont_muls(n, m, sub, V.EMIT_TILE) * MONT_MADS,
            verify_launches)
 
     valid, pts = C.decompress(raw.to(dev))
@@ -617,7 +1035,7 @@ def main() -> int:
            time_cuda(lambda: M.accumulate(niels, digits), 5),
            time_cuda(lambda: M.accumulate_plain(niels, digits), 1),
            NP * 120 + digits.numel() + slab.numel() * 4,
-           nonzero * 7 * FMUL_PRODUCTS, verify_launches)
+           nonzero * 7 * FMUL_MADS, verify_launches)
     sums = M.reduce(slab)
     record("msm_reduce", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:178",
@@ -625,7 +1043,7 @@ def main() -> int:
            time_cuda(lambda: M.reduce(slab), 20),
            time_cuda(lambda: M.reduce_plain(slab), 1),
            slab.numel() * 4 + sums.numel() * 4,
-           64 * 8 * (lanes - 1) * 9 * FMUL_PRODUCTS, verify_launches)
+           64 * 8 * (lanes - 1) * 9 * FMUL_MADS, verify_launches)
     out = M.horner(sums)
     record("msm_horner", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:214",
@@ -633,7 +1051,7 @@ def main() -> int:
            time_cuda(lambda: M.horner(sums), 20),
            time_cuda(lambda: M.horner_plain(sums), 1),
            sums.numel() * 4 + 160 + 4,
-           (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_PRODUCTS, verify_launches)
+           (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_MADS, verify_launches)
     if not bool(out[1].all()) or not bool(valid.all()):
         failures.append("sub-batch MSM is not the identity")
 
@@ -668,7 +1086,7 @@ def main() -> int:
                time_cuda(lambda: C.compress(cpts), 20),
                time_cuda(lambda: C.compress_plain(cpts), 1),
                cpts.numel() * 4 + got.numel(),
-               cpts.shape[-1] * fm * FMUL_PRODUCTS, prove_launches)
+               cpts.shape[-1] * fm * FMUL_MADS, prove_launches)
         rows, q = rdig.shape
         fslab = FM.accumulate(rniels, rdig)
         splits = fslab.shape[0]
@@ -678,7 +1096,7 @@ def main() -> int:
                max_abs_err(fslab, fplain),
                time_cuda(lambda: FM.accumulate(rniels, rdig), 5), fplain_ms,
                rniels.numel() * 4 + rdig.numel() + fslab.numel() * 4,
-               rows * q * madd * FMUL_PRODUCTS, prove_launches)
+               rows * q * madd * FMUL_MADS, prove_launches)
         fout = FM.reduce(fslab)
         record("fixed_reduce", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:346",
@@ -687,7 +1105,7 @@ def main() -> int:
                time_cuda(lambda: FM.reduce_plain(fslab), 1),
                fslab.numel() * 4 + fout.numel() * 4,
                q * ((splits - 1) * FM.NUM_BUCKETS + 2 * (FM.NUM_BUCKETS - 1))
-               * add * FMUL_PRODUCTS, prove_launches)
+               * add * FMUL_MADS, prove_launches)
         log(f"  (fixed-base split {splits}; {madd} multiplications per mixed "
             f"addition, {add} per addition)")
         k12_against_k6(rniels, rdig, "the m=1 IPP L stream")
@@ -708,7 +1126,7 @@ def main() -> int:
                "bulletproofs_tpu/ops/vec_scalar.py:207",
                max_abs_err(got, plain), time_cuda(lambda: S.sinv(sx), 20),
                plain_ms, 2 * 8 * sx.numel(),
-               mont * MONT_PRODUCTS * sx.shape[1], prove_launches)
+               mont * MONT_MADS * sx.shape[1], prove_launches)
         log(f"  (keccak_f1600 on {kst.shape[1]} states and sinv on "
             f"{sx.shape[1]} challenges ({mont} Montgomery multiplications "
             f"each): no Pallas counterpart, the JAX package runs both in "
@@ -964,7 +1382,7 @@ def main() -> int:
                max_abs_err(got, FO.fold_plain(x, y, u, v)),
                time_cuda(lambda: FO.fold_lanes(x, y, u, v), 20),
                time_cuda(lambda: FO.fold_plain(x, y, u, v), 1),
-               (3 * R + 2) * 9 * P * 8, 3 * MONT_PRODUCTS * R * P,
+               (3 * R + 2) * 9 * P * 8, 3 * MONT_MADS * R * P,
                prove16_launches)
         gx, mask, m1, m0 = pcaps[1].args
         R = gx.shape[0]
@@ -974,18 +1392,19 @@ def main() -> int:
                max_abs_err(got, FO.smul_plain(gx, mask, m1, m0)),
                time_cuda(lambda: FO.smul_lanes(gx, mask, m1, m0), 20),
                time_cuda(lambda: FO.smul_plain(gx, mask, m1, m0), 1),
-               (2 * R + 2) * 9 * P * 8 + R, 2 * MONT_PRODUCTS * R * P,
+               (2 * R + 2) * 9 * P * 8 + R, 2 * MONT_MADS * R * P,
                prove16_launches)
         (coef,) = pcaps[2].args
         nb = coef.shape[0]
         got = FO.digits_lanes(coef)
-        # the guard's reduction: 9 small limb products per scalar
+        # the guard's reduction: 9 small limb products (18 multiply-adds)
+        # per scalar
         record("digits", "bulletproofs_tpu_torch/csrc/fold.cu",
                "bulletproofs_tpu/ops/fold_pallas.py:115",
                max_abs_err(got, FO.digits_plain(coef)),
                time_cuda(lambda: FO.digits_lanes(coef), 20),
                time_cuda(lambda: FO.digits_plain(coef), 1),
-               nb * P * (9 * 8 + 64), 9 * nb * P, prove16_launches)
+               nb * P * (9 * 8 + 64), 18 * nb * P, prove16_launches)
         add9 = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
                                          * 2))
         for cap, what in ((vcaps[0], "chunk"), (vcaps[1], "final MSM")):
@@ -995,24 +1414,27 @@ def main() -> int:
             ms = time_cuda(lambda: M.accumulate_z(zp, zd), 10)
             plain_ms = time_cuda(lambda: M.accumulate_z_plain(zp, zd), 1)
             nbytes = zp.numel() * 4 + zd.numel() + zs.numel() * 4
-            products = int((zd != 0).sum()) * add9 * FMUL_PRODUCTS
+            mads = int((zd != 0).sum()) * add9 * FMUL_MADS
             if what == "chunk":
                 record("msm_accumulate_z", "bulletproofs_tpu_torch/csrc/msm.cu",
                        "bulletproofs_tpu/ops/msm_pallas.py:121", err, ms,
-                       plain_ms, nbytes, products, verify16_launches)
+                       plain_ms, nbytes, mads, verify16_launches)
             else:
-                b_ms, b_by = bound(nbytes, products, imads)
+                b_ms, b_by = bound(nbytes, mads, imads)
                 log(f"  msm_accumulate_z on the {what} ({zp.shape[-1]} "
                     f"points): max_abs_err {err}; {ms:.4f} ms kernel, "
                     f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
                 if err != 0:
                     failures.append("msm_accumulate_z on the final MSM")
         sniels, sdig = pcaps[3].args
-        err, ms, plain_ms, nbytes, products = k12_against_k6(
+        err, ms, plain_ms, nbytes, mads = k12_against_k6(
             sniels, sdig, f"the m={m16} S stream")
         record("fixed_accumulate2", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:206", err, ms, plain_ms,
-               nbytes, products, ilp2_launches)
+               nbytes, mads, ilp2_launches)
+    probe_phase(args, dev, smi, record, failures)
+    r1cs_phase(args, smi, imads, failures)
+    linear_phase(args, smi, imads, failures)
     if failures:
         log("FAILED:", failures)
         return 1

@@ -167,8 +167,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: import the port, make 3 proofs and verify
     them on the CPU, prove 2 with the batch prover's device-transcript
     route, then 3 aggregated m = 2 proofs on that route, verified on the
-    chunked route over two chunks; neither jax nor
-    bulletproofs_tpu gets imported."""
+    chunked route over two chunks; verify an R1CS shuffle on the device
+    route, batch-verify two linear proofs on theirs and run the MXU
+    probe's chains (plain versions); neither jax nor bulletproofs_tpu
+    gets imported."""
     code = """
 import random, sys
 import bulletproofs_tpu_torch as T
@@ -202,6 +204,36 @@ ps, vs = p2.prove_batch(
 settings.fused_verify_max_nm, settings.verify_chunk_pts = 8, 28
 BatchVerifier(bp2, pc, n=8, m=2, device="cpu").verify_batch(
     ps, vs, [T.Transcript(b"iso2 %d" % i) for i in range(3)], rng=rng)
+# R1CS: a k = 5 shuffle (8 multipliers) on the device mega-MSM route
+from bulletproofs_tpu_torch.benches import shuffle as SH
+from bulletproofs_tpu_torch.proofs.r1cs import verifier as VM
+VM._NATIVE_MIN_N = settings.r1cs_device_msm_floor = 8
+bpr = T.BulletproofGens(16, 1)
+ins, outs, proof = SH.prove_shuffle(pc, bpr, b"iso r1cs",
+                                    *SH.shuffle_values(5, 1), rng)
+SH.shuffle_verifier(b"iso r1cs", ins, outs).verify(proof, pc, bpr, rng=rng,
+                                                   device="cpu")
+# linear proofs: a batch of two on the device route
+from bulletproofs_tpu_torch.core.ristretto import multiscalar_mul
+from bulletproofs_tpu_torch.utils.util import inner_product
+G = T.BulletproofGens(4, 1).share(0).G(4)
+items = []
+for i in range(2):
+    a = [T.Scalar.random(rng) for _ in range(4)]
+    b = [T.Scalar.random(rng) for _ in range(4)]
+    r = T.Scalar.random(rng)
+    C = multiscalar_mul(a + [r, inner_product(a, b)],
+                        G + [pc.B_blinding, pc.B]).compress()
+    items.append((T.LinearProof.create(T.Transcript(b"iso lin"), rng, C, r,
+                                       a, b, list(G), pc.B, pc.B_blinding),
+                  C, b))
+T.LinearProof.batch_verify([(p, T.Transcript(b"iso lin"), C, b)
+                            for p, C, b in items], G, pc.B, pc.B_blinding,
+                           rng=rng, use_device=True, device="cpu")
+# the MXU probe's chains
+from bulletproofs_tpu_torch.benches import mxu_fmul_probe as PR
+res = PR.run("cpu", lanes=4, steps=2, reps=1, log=lambda *a: None)
+assert res["oracle_ok"] and bool((res["vpu_out"] == res["mxu_out"]).all())
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "bulletproofs_tpu"
        or k.startswith("bulletproofs_tpu.")]

@@ -325,3 +325,63 @@ def test_fused_route_equals_per_stage_on_card(cuda, m):
         out.append(([p.to_bytes() for p in ps], vs,
                     [t.strobe.buf.raw for t in ts]))
     assert out[0] == out[1] == out[2]
+
+
+def _chain_inputs(q, t, seed):
+    from bulletproofs_tpu_torch.ops import fmul13 as F
+    g = np.random.RandomState(seed)
+    vals = [int.from_bytes(g.bytes(31), "little") % F.P25519
+            for _ in range(q + 3 * t)]
+    a = torch.as_tensor(F.ints_to_limbs(vals[:q]))
+    bl = np.stack([F.to_limbs(v) for v in vals[q:]])            # (3 t, 20)
+    b3 = torch.as_tensor(bl.reshape(3, t, 20).transpose(0, 2, 1)
+                         .astype(np.int32).copy())
+    m3 = torch.as_tensor(F.band_matrices(bl).reshape(3, t, 156, 40))
+    return a, b3, m3
+
+
+def test_fmul13_kernels_match_plain(cuda):
+    """K15 and K16 against their plain versions on the card and against
+    each other, limb for limb, T = 16, at Q = 64 and at Q = 70 (a ragged
+    last block for both: K15 takes 32 lanes a block, K16 8)."""
+    from bulletproofs_tpu_torch.ops import fmul13 as F
+    for q in (64, 70):
+        a, b3, m3 = (x.to(cuda) for x in _chain_inputs(q, 16, 86))
+        before = dict(_cuda.LAUNCHES)
+        v = F.chain_vpu(a, b3)
+        m = F.chain_mxu(a, m3)
+        pv = F.chain_vpu_plain(a, b3)
+        pm = F.chain_mxu_plain(a, m3)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["fmul13_chain"] == before["fmul13_chain"] + 1
+        assert _cuda.LAUNCHES["fmul13_chain_mma"] == \
+            before["fmul13_chain_mma"] + 1
+        assert torch.equal(v, pv) and torch.equal(m, pm)
+        assert torch.equal(v, m)
+
+
+def test_r1cs_device_route_on_card(cuda, monkeypatch):
+    """The R1CS verifier's device mega-MSM at k = 9 on the card accepts,
+    a tampered proof is rejected, and the launches of K1, K10, K11, K4a
+    and K4b show the route."""
+    from bulletproofs_tpu_torch import R1CSError
+    from bulletproofs_tpu_torch.config import settings
+    from bulletproofs_tpu_torch.proofs.r1cs import verifier as VM
+    from bulletproofs_tpu_torch.benches import shuffle as SH
+    monkeypatch.setattr(VM, "_NATIVE_MIN_N", 8)
+    monkeypatch.setattr(settings, "r1cs_device_msm_floor", 8)
+    pc, bp = PedersenGens(), BulletproofGens(128, 1)
+    for tamper, want in ((False, None), (True, R1CSError)):
+        ins, outs, proof = SH.prove_shuffle(pc, bp, b"gpu shuffle",
+                                            *SH.shuffle_values(9, 87, tamper),
+                                            Rng(88))
+        v = SH.shuffle_verifier(b"gpu shuffle", ins, outs)
+        _cuda.reset_counts()
+        if want is None:
+            v.verify(proof, pc, bp, rng=Rng(89), device=cuda)
+        else:
+            with pytest.raises(want):
+                v.verify(proof, pc, bp, rng=Rng(89), device=cuda)
+        for k in ("decompress", "digits", "msm_accumulate_z", "msm_reduce",
+                  "msm_horner"):
+            assert _cuda.LAUNCHES[k] == 1, k
