@@ -14,27 +14,44 @@
 // row, one broadcast load.  Bound: operations, one 7-multiplication mixed
 // addition (~700 IMAD.WIDE) per (row, lane) against 1 byte of digit.
 //
-// The V/A/S and T rows carry the prover's witness, so the bucket access
-// must not depend on the digit (docs/architecture.md, "Determinism,
-// security notes": the prover MSMs are uniform-time).  At every row the
-// thread reads all 8 buckets and ORs each under an all-ones / all-zeros
-// mask (exactly one mask is set, none for digit 0), adds, and writes all
-// 8 back, each as (new & m) | (old & ~m).
-// Negating the Niels point (Y+X <-> Y-X, 2dT -> -2dT) is a select too.
-// This is the one-hot mux of the TPU kernel; unlike the verifier's K3
-// (public data), nothing is indexed by the digit.
+// K6 has two forms, one kernel body over two bucket sets (OneHotSet,
+// DirectSet), the same additions in the same order, so their slabs are
+// equal limb for limb:
+// * one-hot (fixed_accumulate, consttime): the V/A/S and T rows carry the
+//   prover's witness, so the bucket access must not depend on the digit
+//   (docs/architecture.md, "Determinism, security notes": the prover MSMs
+//   are uniform-time).  At every row the thread reads all 8 buckets and
+//   ORs each under an all-ones / all-zeros mask (exactly one mask is set,
+//   none for digit 0), adds, and writes all 8 back, each as (new & m) |
+//   (old & ~m).  Negating the Niels point (Y+X <-> Y-X, 2dT -> -2dT) is a
+//   select too.  This is the one-hot mux of the TPU kernel; its buckets
+//   are laid out so that a thread's 8 copies of a word take two 16-byte
+//   accesses (OneHotSet).
+// * direct (fixed_accumulate_vt, public rows only): the IPP rounds' L / R
+//   coefficients are public, as the reference's vartime MSM treats them
+//   (the JAX host route's rist_msm_rows), so the thread reads bucket
+//   |digit| alone, 40 loads, adds, and stores 40 words; a zero digit skips
+//   the row.  Its buckets are [bucket][word][thread], so a warp's accesses
+//   hit 32 different banks whatever the digits are.
+// Both keep 1,280 B of buckets per lane in shared memory, 40 KB per block
+// of 32 lanes: five blocks per SM on an H100 (228 KB of shared memory per
+// SM; bp_fixed_blocks_per_sm asks the runtime).  The TPU ran one serial
+// stream per lane; here each lane's S rows are split into `splits`
+// contiguous chunks (grid.y), each with its own buckets, so Q * splits
+// threads fill the 132 SMs at any lane count (ops/fixed_msm.pick_splits).
+// The slab (splits, 8, 4, 10, Q) leaves the kernel once.
 //
-// Occupancy: the buckets live in shared memory, [bucket][coord][limb]
-// [thread] so a warp's accesses hit 32 banks, 40 KB per block of 32 lanes,
-// five blocks per SM.  The TPU ran one serial stream per lane; here each
-// lane's S rows are split into `splits` contiguous chunks (grid.y), each
-// with its own buckets, so Q * splits threads fill the 132 SMs.  The slab
-// (splits, 8, 4, 10, Q) leaves the kernel once.
-//
-// K7: one thread per lane merges the chunks' buckets in order with
-// complete additions and forms sum_b b B_b by the running double sum
-// (14 additions; the TPU kernel's two suffix scans were its lane-parallel
-// form of the same sum).  Bound: operations, small beside K6.
+// K7: 8 G threads per lane, thread 8 g + b of the lane's span: bucket b
+// (0..7) of chunk group g (0..G-1), G = 1, 2 or 4 by the split (about one
+// group per 16 chunks; ops/fixed_msm.red_groups).  Group g sums chunks g,
+// g + G, g + 2G, ... in order with complete additions; the groups fold by
+// a shuffle tree (g += g + h, h = G/2 .. 1); then the 8 bucket threads of
+// group 0 form sum_b (b + 1) B_b as sum_b S_b with S_b = sum_{c >= b} B_c:
+// a suffix scan (3 steps) and a tree sum (3 steps) by warp shuffles, the
+// TPU kernel's two suffix scans done lane-parallel.  So a lane's chain is
+// ceil(splits / G) - 1 + log2 G + 6 additions (was (splits - 1) * 8 + 14
+// in one thread); at a small split (the m=1 prover's 5) G = 1 keeps the
+// warp's 32 threads on 4 lanes' work.  Bound: operations, small beside K6.
 //
 // K12: K6's work per (row, lane) with the same one-hot access to both sets
 // at every row, plus 8 complete additions per thread at the end.  Two sets
@@ -53,7 +70,7 @@
 
 #define NBUCKET 8
 #define FX_THREADS 32
-#define RED_THREADS 128
+#define RED_THREADS 128                  // K7: 4 warps
 
 __device__ __forceinline__ ge ge_from_words(const int32_t w[40]) {
   ge p;
@@ -77,18 +94,6 @@ __device__ __forceinline__ void ge_to_words(const ge& p, int32_t w[40]) {
   }
 }
 
-// Bucket word w of bucket b of a thread's set sits at set[(b * 40 + w) *
-// FX_THREADS] (the set pointer is offset by the thread's index).  The
-// pointer is volatile, so that every masked load and store below is issued
-// as written and none is turned into a predicated (digit-dependent) access.
-__device__ __forceinline__ void init_buckets(volatile int32_t* set) {
-#pragma unroll
-  for (int b = 0; b < NBUCKET; ++b)
-#pragma unroll
-    for (int w = 0; w < 40; ++w)                   // identity (0 : 1 : 1 : 0)
-      set[(b * 40 + w) * FX_THREADS] = (w == 10 || w == 20) ? 1 : 0;
-}
-
 // the Niels table point of stream row s, negated for a negative digit
 __device__ __forceinline__ ge_niels signed_point(const int32_t* niels,
                                                  int64_t S, int64_t s,
@@ -101,6 +106,23 @@ __device__ __forceinline__ ge_niels signed_point(const int32_t* niels,
   pt.ymx = fe_select(neg, ypx, ymx);
   pt.t2d = fe_select(neg, fe_neg(t2d), t2d);
   return pt;
+}
+
+// -- the direct form's and K12's bucket sets: [bucket][word][thread] --------
+//
+// Bucket word w of bucket b of a thread's set sits at set[(b * 40 + w) *
+// FX_THREADS] (the set pointer is offset by the thread's index).  The
+// pointer is volatile, so that every masked load and store of K12 is
+// issued as written and none is turned into a predicated (digit-dependent)
+// access.  The direct form takes it volatile too: so ptxas keeps it in 254
+// registers with no spills (non-volatile, it spilled 632 B per thread;
+// both ran at the same speed on an H100).
+__device__ __forceinline__ void init_buckets(volatile int32_t* set) {
+#pragma unroll
+  for (int b = 0; b < NBUCKET; ++b)
+#pragma unroll
+    for (int w = 0; w < 40; ++w)                   // identity (0 : 1 : 1 : 0)
+      set[(b * 40 + w) * FX_THREADS] = (w == 10 || w == 20) ? 1 : 0;
 }
 
 // word w of bucket b ORed into cur (read) or replaced by nw (write) under
@@ -120,62 +142,157 @@ __device__ __forceinline__ void write_bucket(volatile int32_t* set, int b,
   }
 }
 
-// bucket `mag` of the set (the identity's words are never all zero, so
-// digit 0 reads zeros), read under one-hot masks.  ROLLED keeps the loop
-// over the 8 buckets a loop: with two chains live (K12) the unrolled form
-// runs out of registers and spills.
-template <bool ROLLED>
+// K12: bucket `mag` of the set (the identity's words are never all zero,
+// so digit 0 reads zeros), read under one-hot masks.  The loop over the 8
+// buckets stays a loop: with two chains live the unrolled form runs out
+// of registers and spills.
 __device__ __forceinline__ ge select_bucket(volatile int32_t* set, int mag) {
   int32_t cur[40];
 #pragma unroll
   for (int w = 0; w < 40; ++w) cur[w] = 0;
-  if (ROLLED) {
 #pragma unroll 1
-    for (int b = 0; b < NBUCKET; ++b)
-      or_bucket(set, b, -(int32_t)(mag == b + 1), cur);
-  } else {
-#pragma unroll
-    for (int b = 0; b < NBUCKET; ++b)
-      or_bucket(set, b, -(int32_t)(mag == b + 1), cur);
-  }
+  for (int b = 0; b < NBUCKET; ++b)
+    or_bucket(set, b, -(int32_t)(mag == b + 1), cur);
   return ge_from_words(cur);
 }
 
-// every bucket written back, bucket `mag` with the new point
-template <bool ROLLED>
+// K12: every bucket written back, bucket `mag` with the new point
 __device__ __forceinline__ void update_buckets(volatile int32_t* set, int mag,
                                                const ge& pt) {
   int32_t nw[40];
   ge_to_words(pt, nw);
-  if (ROLLED) {
 #pragma unroll 1
-    for (int b = 0; b < NBUCKET; ++b)
-      write_bucket(set, b, -(int32_t)(mag == b + 1), nw);
-  } else {
-#pragma unroll
-    for (int b = 0; b < NBUCKET; ++b)
-      write_bucket(set, b, -(int32_t)(mag == b + 1), nw);
-  }
+  for (int b = 0; b < NBUCKET; ++b)
+    write_bucket(set, b, -(int32_t)(mag == b + 1), nw);
 }
 
+// K6's direct form (public rows): bucket |digit| read and written alone
+struct DirectSet {
+  static constexpr bool kSkipZero = true;
+  volatile int32_t* my;
+
+  __device__ DirectSet(int32_t* buckets, int tid) : my(buckets + tid) {
+    init_buckets(my);
+  }
+  __device__ __forceinline__ void add(int mag, const ge_niels& pt) {
+    volatile int32_t* bk = my + (mag - 1) * 40 * FX_THREADS;
+    int32_t w[40];
+#pragma unroll
+    for (int k = 0; k < 40; ++k) w[k] = bk[k * FX_THREADS];
+    ge_to_words(ge_madd(ge_from_words(w), pt), w);
+#pragma unroll
+    for (int k = 0; k < 40; ++k) bk[k * FX_THREADS] = w[k];
+  }
+  __device__ __forceinline__ int32_t word(int b, int w) const {
+    return my[(b * 40 + w) * FX_THREADS];
+  }
+};
+
+// -- K6's one-hot form (witness rows): [word][half][thread][4 buckets] -------
+//
+// A thread's 8 copies of bucket word w sit side by side, buckets 4h..4h+3
+// in 16 bytes at ((w * 2 + h) * FX_THREADS + thread) * 16: consecutive
+// threads on consecutive 16 bytes, so a warp's 16-byte access has no bank
+// conflict.  Per row and word two 16-byte loads fetch all 8 copies to
+// select, and two 16-byte read-modify-writes put them back: 240
+// shared-memory instructions a row where the [bucket][word][thread]
+// layout took 960, the same bytes (1.3-1.4x faster on an H100).  Every
+// access is an `asm volatile` ld / st.shared.v4, issued as written, at an
+// address that does not depend on the digit; the digit only forms the
+// masks.
+__device__ __forceinline__ void lds4(uint32_t addr, int32_t* v) {
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void sts4(uint32_t addr, const int32_t* v) {
+  asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
+}
+
+struct OneHotSet {
+  static constexpr bool kSkipZero = false;
+  uint32_t base;                                 // shared address, this thread
+
+  // the 8 copies of word w: v[b], bucket b
+  __device__ __forceinline__ void load8(int w, int32_t v[8]) const {
+    lds4(base + (uint32_t)(2 * w * FX_THREADS * 16), v);
+    lds4(base + (uint32_t)((2 * w + 1) * FX_THREADS * 16), v + 4);
+  }
+  __device__ __forceinline__ void store8(int w, const int32_t v[8]) const {
+    sts4(base + (uint32_t)(2 * w * FX_THREADS * 16), v);
+    sts4(base + (uint32_t)((2 * w + 1) * FX_THREADS * 16), v + 4);
+  }
+
+  __device__ OneHotSet(int32_t* buckets, int tid)
+      : base((uint32_t)__cvta_generic_to_shared(buckets) + tid * 16) {
+#pragma unroll
+    for (int w = 0; w < 40; ++w) {               // identity (0 : 1 : 1 : 0)
+      const int32_t one = (w == 10 || w == 20) ? 1 : 0;
+      const int32_t v[8] = {one, one, one, one, one, one, one, one};
+      store8(w, v);
+    }
+  }
+  // every copy of every word read, ORed under the all-ones / all-zeros
+  // masks (exactly one set, none for digit 0: its sum is dropped), added
+  // to, and written back as (new & m) | (old & ~m)
+  __device__ __forceinline__ void add(int mag, const ge_niels& pt) {
+    int32_t m[NBUCKET];
+#pragma unroll
+    for (int b = 0; b < NBUCKET; ++b) m[b] = -(int32_t)(mag == b + 1);
+    int32_t cur[40];
+#pragma unroll
+    for (int w = 0; w < 40; ++w) {
+      int32_t v[8];
+      load8(w, v);
+      int32_t x = 0;
+#pragma unroll
+      for (int b = 0; b < NBUCKET; ++b) x |= v[b] & m[b];
+      cur[w] = x;
+    }
+    int32_t nw[40];
+    ge_to_words(ge_madd(ge_from_words(cur), pt), nw);
+#pragma unroll
+    for (int w = 0; w < 40; ++w) {
+      int32_t v[8];
+      load8(w, v);
+#pragma unroll
+      for (int b = 0; b < NBUCKET; ++b) v[b] = (nw[w] & m[b]) | (v[b] & ~m[b]);
+      store8(w, v);
+    }
+  }
+  __device__ __forceinline__ int32_t word(int b, int w) const {
+    int32_t v;
+    asm volatile("ld.shared.s32 %0, [%1];"
+                 : "=r"(v)
+                 : "r"(base + (uint32_t)(((2 * w + b / 4) * FX_THREADS) * 16 +
+                                         (b % 4) * 4)));
+    return v;
+  }
+};
+
+// One body for both K6 forms: SET = OneHotSet (fixed_accumulate) or
+// DirectSet (fixed_accumulate_vt).  The same additions in the same order;
+// the direct form skips a zero digit's row, whose sum the one-hot form
+// computes and drops.
+template <class SET>
 __global__ void __launch_bounds__(FX_THREADS)
 fixed_accumulate_kernel(const int32_t* __restrict__ niels,
                         const int8_t* __restrict__ digits,
                         int32_t* __restrict__ slab, int64_t S, int64_t Q,
                         int64_t rows) {
-  __shared__ int32_t buckets[NBUCKET * 40 * FX_THREADS];
+  __shared__ __align__(16) int32_t buckets[NBUCKET * 40 * FX_THREADS];
   const int tid = threadIdx.x;
   const int64_t q = (int64_t)blockIdx.x * FX_THREADS + tid;
   const int c = blockIdx.y;
   if (q >= Q) return;
-  volatile int32_t* my = buckets + tid;
-  init_buckets(my);
+  SET set(buckets, tid);
 
   for (int64_t s = c * rows; s < (c + 1) * rows; ++s) {
     const int d = digits[s * Q + q];
-    const int mag = d < 0 ? -d : d;
-    const ge_niels pt = signed_point(niels, S, s, d < 0);
-    update_buckets<false>(my, mag, ge_madd(select_bucket<false>(my, mag), pt));
+    if (SET::kSkipZero && d == 0) continue;
+    set.add(d < 0 ? -d : d, signed_point(niels, S, s, d < 0));
   }
 
   // slab[c][b][coord][limb][q]
@@ -183,8 +300,7 @@ fixed_accumulate_kernel(const int32_t* __restrict__ niels,
   for (int b = 0; b < NBUCKET; ++b) {
     int32_t* dst = slab + ((int64_t)(c * NBUCKET + b) * 40) * Q + q;
 #pragma unroll
-    for (int w = 0; w < 40; ++w)
-      dst[(int64_t)w * Q] = my[(b * 40 + w) * FX_THREADS];
+    for (int w = 0; w < 40; ++w) dst[(int64_t)w * Q] = set.word(b, w);
   }
 }
 
@@ -215,12 +331,12 @@ fixed_accumulate2_kernel(const int32_t* __restrict__ niels,
     const int d1 = digits[(s + 1) * Q + q];
     const int mag0 = d0 < 0 ? -d0 : d0;
     const int mag1 = d1 < 0 ? -d1 : d1;
-    const ge new0 = ge_madd(select_bucket<true>(set0, mag0),
+    const ge new0 = ge_madd(select_bucket(set0, mag0),
                             signed_point(niels, S, s, d0 < 0));
-    const ge cur1 = select_bucket<true>(set1, mag1);
-    update_buckets<true>(set0, mag0, new0);
+    const ge cur1 = select_bucket(set1, mag1);
+    update_buckets(set0, mag0, new0);
     const ge new1 = ge_madd(cur1, signed_point(niels, S, s + 1, d1 < 0));
-    update_buckets<true>(set1, mag1, new1);
+    update_buckets(set1, mag1, new1);
   }
 
 #pragma unroll 1
@@ -236,25 +352,53 @@ fixed_accumulate2_kernel(const int32_t* __restrict__ niels,
   }
 }
 
+// lane i of the warp gets p of lane i + delta (its own p where i + delta
+// is past the warp); every lane of the warp must take part
+__device__ __forceinline__ ge ge_shfl_down(const ge& p, int delta) {
+  int32_t w[40];
+  ge_to_words(p, w);
+#pragma unroll
+  for (int k = 0; k < 40; ++k) w[k] = __shfl_down_sync(0xffffffffu, w[k], delta);
+  return ge_from_words(w);
+}
+
+// groups G = 1, 2 or 4 (ops/fixed_msm.red_groups): lane q's 8 G threads
+// are t = 8 G j + 8 g + b of a warp holding 4 / G lanes
 __global__ void __launch_bounds__(RED_THREADS)
 fixed_reduce_kernel(const int32_t* __restrict__ slab, int32_t* __restrict__ out,
-                    int64_t Q, int splits) {
-  const int64_t q = (int64_t)blockIdx.x * RED_THREADS + threadIdx.x;
-  if (q >= Q) return;
-  ge running, total;
-  for (int b = NBUCKET - 1; b >= 0; --b) {
-    ge m = ge_load(slab + ((int64_t)b * 40) * Q + q, Q);
-    for (int k = 1; k < splits; ++k)
-      m = ge_add(m, ge_load(slab + ((int64_t)(k * NBUCKET + b) * 40) * Q + q, Q));
-    if (b == NBUCKET - 1) {
-      running = m;
-      total = m;
-    } else {
-      running = ge_add(running, m);
-      total = ge_add(total, running);
-    }
+                    int64_t Q, int splits, int groups) {
+  const int t = threadIdx.x % 32, b = t % NBUCKET, g = t / NBUCKET % groups;
+  const int span = NBUCKET * groups;                   // threads per lane
+  int64_t q = ((int64_t)blockIdx.x * (RED_THREADS / 32) + threadIdx.x / 32)
+                  * (32 / span) + t / span;
+  // a lane past Q repeats lane Q - 1's work and stores nothing: every
+  // thread of the warp takes part in the shuffles
+  const bool store = q < Q;
+  if (!store) q = Q - 1;
+  const int64_t chunk = (int64_t)NBUCKET * 40 * Q;     // slab[k] stride
+  const int32_t* src = slab + (int64_t)b * 40 * Q + q;
+  ge m = ge_identity();
+  if (g < splits) {
+    m = ge_load(src + g * chunk, Q);
+    for (int k = g + groups; k < splits; k += groups)
+      m = ge_add(m, ge_load(src + k * chunk, Q));
   }
-  ge_store(out + q, Q, total);
+  const int live = splits < groups ? splits : groups;
+  for (int h = groups / 2; h >= 1; h /= 2) {           // groups: g += g + h
+    const ge o = ge_shfl_down(m, NBUCKET * h);
+    if (g < h && g + h < live) m = ge_add(m, o);
+  }
+#pragma unroll
+  for (int d = 1; d < NBUCKET; d *= 2) {               // S_b += S_{b + d}
+    const ge o = ge_shfl_down(m, d);
+    if (g == 0 && b + d < NBUCKET) m = ge_add(m, o);
+  }
+#pragma unroll
+  for (int h = NBUCKET / 2; h >= 1; h /= 2) {          // sum_b S_b
+    const ge o = ge_shfl_down(m, h);
+    if (g == 0 && b < h) m = ge_add(m, o);
+  }
+  if (store && g == 0 && b == 0) ge_store(out + q, Q, m);
 }
 
 // niels (3, 10, S) int32, digits (S, Q) int8 -> slab (splits, 8, 4, 10, Q)
@@ -262,7 +406,17 @@ BP_EXPORT int bp_fixed_accumulate(const int32_t* niels, const int8_t* digits,
                                   int32_t* slab, int64_t S, int64_t Q,
                                   int64_t splits, cudaStream_t stream) {
   dim3 grid((unsigned)((Q + FX_THREADS - 1) / FX_THREADS), (unsigned)splits);
-  fixed_accumulate_kernel<<<grid, FX_THREADS, 0, stream>>>(
+  fixed_accumulate_kernel<OneHotSet><<<grid, FX_THREADS, 0, stream>>>(
+      niels, digits, slab, S, Q, S / splits);
+  return (int)cudaGetLastError();
+}
+
+// the direct form, public rows only: the same arguments and slab
+BP_EXPORT int bp_fixed_accumulate_vt(const int32_t* niels, const int8_t* digits,
+                                     int32_t* slab, int64_t S, int64_t Q,
+                                     int64_t splits, cudaStream_t stream) {
+  dim3 grid((unsigned)((Q + FX_THREADS - 1) / FX_THREADS), (unsigned)splits);
+  fixed_accumulate_kernel<DirectSet><<<grid, FX_THREADS, 0, stream>>>(
       niels, digits, slab, S, Q, S / splits);
   return (int)cudaGetLastError();
 }
@@ -284,11 +438,36 @@ BP_EXPORT int bp_fixed_accumulate2(const int32_t* niels, const int8_t* digits,
   return (int)cudaGetLastError();
 }
 
-// slab (splits, 8, 4, 10, Q) -> out (4, 10, Q)
+// slab (splits, 8, 4, 10, Q) -> out (4, 10, Q); groups 1, 2 or 4
 BP_EXPORT int bp_fixed_reduce(const int32_t* slab, int32_t* out, int64_t Q,
-                              int64_t splits, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((Q + RED_THREADS - 1) / RED_THREADS);
-  fixed_reduce_kernel<<<blocks, RED_THREADS, 0, stream>>>(slab, out, Q,
-                                                          (int)splits);
+                              int64_t splits, int64_t groups,
+                              cudaStream_t stream) {
+  const int64_t lanes = RED_THREADS / (NBUCKET * groups);   // per block
+  const unsigned blocks = (unsigned)((Q + lanes - 1) / lanes);
+  fixed_reduce_kernel<<<blocks, RED_THREADS, 0, stream>>>(
+      slab, out, Q, (int)splits, (int)groups);
   return (int)cudaGetLastError();
+}
+
+// blocks that one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out[0] K6 one-hot,
+// out[1] K6 direct, out[2] K12, out[3] K7
+BP_EXPORT int bp_fixed_blocks_per_sm(int* out) {
+  const int smem2 = 2 * NBUCKET * 40 * FX_THREADS * (int)sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      fixed_accumulate2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem2);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, fixed_accumulate_kernel<OneHotSet>, FX_THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, fixed_accumulate_kernel<DirectSet>, FX_THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, fixed_accumulate2_kernel, FX_THREADS, smem2);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 3, fixed_reduce_kernel, RED_THREADS, 0);
+  return (int)err;
 }

@@ -1,6 +1,6 @@
 """Batched fixed-base MSM, the prover's point engine: kernels K6 (bucket
-accumulation), K12 (its two-set form) and K7 (bucket reduction),
-csrc/fixed_msm.cu.
+accumulation, a one-hot and a direct form), K12 (its two-set form) and K7
+(bucket reduction), csrc/fixed_msm.cu.
 
 The JAX package's ops/fixed_msm.py.  out[q] = sum_j coef[j, q] Base_j for
 Q output lanes over NB shared bases:
@@ -15,26 +15,35 @@ Q output lanes over NB shared bases:
 * K6 `accumulate`: every lane streams its S (table point, digit) rows in
   order and adds +-point into bucket |digit|, 8 buckets per lane.  The
   rows of one lane are split into `pick_splits(S, Q)` contiguous chunks,
-  each with its own buckets, so Q * splits threads fill the card (the TPU
-  kernel ran one serial stream per lane);
+  each with its own buckets, so Q * splits threads fill the card at any
+  lane count (the TPU kernel ran one serial stream per lane).  Two forms,
+  equal limb for limb: one-hot (`consttime=True`, the default) and direct
+  (`consttime=False`, public rows only);
 * K12 `accumulate2` (under `_ILP2`): K6 with two bucket sets per chunk,
   fed by alternate rows (two independent mixed-addition chains), merged
   bucket by bucket at the end into K6's slab layout;
 * K7 `reduce`: per lane, merge the chunks' buckets with complete additions
-  and form sum_b b B_b by the running double sum.
+  (`red_groups` chunk groups, then a tree) and form sum_b b B_b by a
+  suffix scan and a tree sum over the 8 buckets, 8 threads per group.
 
 The V/A/S and T rows carry the witness (values, bits, blindings, the
-t-polynomial), so K6 reads and writes ALL buckets at every row and picks
-with a one-hot mask (fixed_msm._fixed_accum_kernel's select): the memory
-pattern does not depend on a digit.  A zero digit selects no bucket; its
-sum is computed and dropped (the TPU kernel's ninth bucket was the sink).
+t-polynomial), so the one-hot K6 reads and writes ALL buckets at every row
+and picks with a one-hot mask (fixed_msm._fixed_accum_kernel's select):
+the memory pattern does not depend on a digit.  A zero digit selects no
+bucket; its sum is computed and dropped (the TPU kernel's ninth bucket was
+the sink).  The IPP rounds' L / R rows are public (the JAX package's host
+route sends them to the vartime `rist_msm_rows`), so they alone pass
+`consttime=False` and take the direct form: bucket |digit| read and
+written alone, zero digits skipped.  The same additions in the same order,
+so both forms' slabs equal `accumulate_plain`'s.
 The plain versions here repeat each kernel's arithmetic step for step, so
 a kernel's output equals its plain version's limb for limb.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -48,13 +57,18 @@ L = FE_LIMBS
 WINDOW_BITS = 4
 NUM_WINDOWS = 64
 NUM_BUCKETS = 8                 # digit magnitudes 1..8
-# K6 keeps its buckets in shared memory, 5 blocks of 32 lanes per SM on an
-# H100 (40 KB each): 132 * 5 * 32 threads fill the card in one wave
+# K6 (both forms) keeps its buckets in shared memory, 40 KB per block of 32
+# lanes: 5 blocks per SM on an H100 (228 KB of shared memory per SM; the
+# runtime's cudaOccupancyMaxActiveBlocksPerMultiprocessor, `blocks_per_sm`,
+# gives 5 there; chip_smoke.py logs it), so 132 * 5 * 32 threads fill the
+# card in one wave
 TARGET_THREADS = 21120
 # K12 keeps two bucket sets, 80 KB per block: 2 blocks per SM
 TARGET_THREADS2 = 8448
 MIN_ROWS_PER_SPLIT = 32
-MAX_SPLITS = 16
+# K7 sums each bucket's chunks in at most this many groups, one thread
+# per (bucket, group)
+MAX_RED_GROUPS = 4
 
 # `accumulate` takes the two-set kernel K12 in place of K6 (the JAX
 # package's flag of the same name, off there: measured even with the
@@ -122,10 +136,10 @@ class SubsetTables(StreamSubsetTables):
 # -- K6: bucket accumulation --------------------------------------------------------
 
 def pick_splits(rows: int, lanes: int, target: int = TARGET_THREADS) -> int:
-    """Chunks per lane's stream: about target / lanes (the kernel's thread
-    count that fills the card), each chunk at least MIN_ROWS_PER_SPLIT
-    rows, at most MAX_SPLITS."""
-    cap = max(1, min(MAX_SPLITS, rows // MIN_ROWS_PER_SPLIT))
+    """Chunks per lane's stream: target // lanes (the kernel's thread count
+    that fills the card in one wave, at any lane count), each chunk at
+    least MIN_ROWS_PER_SPLIT rows."""
+    cap = max(1, rows // MIN_ROWS_PER_SPLIT)
     return max(1, min(cap, target // max(lanes, 1)))
 
 
@@ -180,13 +194,16 @@ def accumulate_plain(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """niels (3, 10, S) int32, digits (S, Q) int8 in [-7, 8] -> slab
     (splits, 8, 4, 10, Q) int32, splits = pick_splits(S, Q): bucket b of
     chunk c holds the sum of digit * point over the chunk's rows with
-    |digit| = b + 1."""
+    |digit| = b + 1.  The plain version of both K6 forms."""
     return _accumulate_plain(*_split(niels, digits))
 
 
-def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Kernel K6 on CUDA tensors, the plain version on CPU tensors; K12
-    (`accumulate2`) in its place when _ILP2 is set."""
+def accumulate(niels: torch.Tensor, digits: torch.Tensor,
+               consttime: bool = True) -> torch.Tensor:
+    """Kernel K6 on CUDA tensors: the one-hot form, or with
+    `consttime=False` (public rows only: the IPP rounds' L / R) the direct
+    form; the plain version on CPU tensors, whatever `consttime`.  K12
+    (`accumulate2`, one-hot) takes every row when _ILP2 is set."""
     if _ILP2:
         return accumulate2(niels, digits)
     if niels.device.type == "cpu":
@@ -198,9 +215,29 @@ def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     slab = torch.empty((splits, NUM_BUCKETS, 4, L, Q), dtype=torch.int32,
                        device=niels.device)
     if Q:
-        _cuda.launch("fixed_accumulate", "fixed_msm", "bp_fixed_accumulate",
-                     niels, digits, slab, S, Q, splits)
+        if consttime:
+            _cuda.launch("fixed_accumulate", "fixed_msm",
+                         "bp_fixed_accumulate", niels, digits, slab, S, Q,
+                         splits)
+        else:
+            _cuda.launch("fixed_accumulate_vt", "fixed_msm",
+                         "bp_fixed_accumulate_vt", niels, digits, slab, S, Q,
+                         splits)
     return slab
+
+
+def blocks_per_sm() -> Dict[str, int]:
+    """Blocks that one SM of the current CUDA device holds at once, per
+    kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor): K6's blocks of
+    32 lanes (both forms), K12's, and K7's of 128 threads."""
+    out = (ctypes.c_int * 4)()
+    f = _cuda._lib("fixed_msm").bp_fixed_blocks_per_sm
+    f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    err = f(out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return dict(zip(("fixed_accumulate", "fixed_accumulate_vt",
+                     "fixed_accumulate2", "fixed_reduce"), out))
 
 
 # -- K12: two-set accumulation ----------------------------------------------------------
@@ -249,21 +286,55 @@ def _check_slab(slab):
         raise ValueError("reduce takes a (splits, 8, 4, 10, Q) slab")
 
 
+def _add_prefix(p, q, cnt: int):
+    """p with its first cnt entries (dim 0) replaced by p[:cnt] + q[:cnt]
+    (complete addition, p first)."""
+    s = C.add(tuple(a[:cnt] for a in p), tuple(b[:cnt] for b in q))
+    return tuple(torch.cat([x, a[cnt:]]) for x, a in zip(s, p))
+
+
+def red_groups(splits: int) -> int:
+    """K7's chunk groups per bucket: 1 below 16 chunks, 2 below 32, else
+    MAX_RED_GROUPS (4).  A small split keeps a warp on several lanes'
+    work; a large one shortens each lane's serial merge."""
+    g = 1
+    while g < MAX_RED_GROUPS and 16 * g <= splits:
+        g *= 2
+    return g
+
+
 def reduce_plain(slab: torch.Tensor) -> torch.Tensor:
-    """(splits, 8, 4, 10, Q) -> (4, 10, Q) int32: per lane and bucket the
-    chunks summed in order, then sum_b (b + 1) B_b by the running double
-    sum from the top bucket down."""
+    """(splits, 8, 4, 10, Q) -> (4, 10, Q) int32, K7's order: per lane and
+    bucket, group g < G = red_groups(splits) sums chunks g, g + G, g + 2G,
+    ... in order; the groups fold as g += g + h for h = G/2, ..., 1
+    (partners past the last chunk skipped); then S_b += S_{b + d} for d =
+    1, 2, 4 (a suffix scan, S_b = sum_{c >= b} B_c) and sum_b S_b =
+    sum_b (b + 1) B_b by the tree b += b + h for h = 4, 2, 1."""
     _check_slab(slab)
     v = slab.to(torch.int64)
-    merged = tuple(v[0, :, c] for c in range(4))        # (8, 10, Q) each
-    for k in range(1, v.shape[0]):
-        merged = C.add(merged, tuple(v[k, :, c] for c in range(4)))
-    running = tuple(c[NUM_BUCKETS - 1] for c in merged)
-    total = running
-    for b in range(NUM_BUCKETS - 2, -1, -1):
-        running = C.add(running, tuple(c[b] for c in merged))
-        total = C.add(total, running)
-    return torch.stack(total).to(torch.int32)
+    K = v.shape[0]
+    G = red_groups(K)
+    live = min(K, G)
+    acc = tuple(v[:live, :, c] for c in range(4))     # (live, 8, 10, Q) each
+    for lo in range(G, K, G):
+        acc = _add_prefix(acc, tuple(v[lo:, :, c] for c in range(4)),
+                          min(G, K - lo))
+    h = G // 2
+    while h:
+        if live - h > 0:
+            acc = _add_prefix(acc, tuple(a[h:] for a in acc),
+                              min(h, live - h))
+        h //= 2
+    s = tuple(a[0] for a in acc)                      # (8, 10, Q) each
+    d = 1
+    while d < NUM_BUCKETS:
+        s = _add_prefix(s, tuple(x[d:] for x in s), NUM_BUCKETS - d)
+        d *= 2
+    h = NUM_BUCKETS // 2
+    while h:
+        s = _add_prefix(s, tuple(x[h:] for x in s), h)
+        h //= 2
+    return torch.stack([x[0] for x in s]).to(torch.int32)
 
 
 def reduce(slab: torch.Tensor) -> torch.Tensor:
@@ -276,14 +347,16 @@ def reduce(slab: torch.Tensor) -> torch.Tensor:
     out = torch.empty((4, L, Q), dtype=torch.int32, device=slab.device)
     if Q:
         _cuda.launch("fixed_reduce", "fixed_msm", "bp_fixed_reduce", slab,
-                     out, Q, K)
+                     out, Q, K, red_groups(K))
     return out
 
 
 # -- the MSM -------------------------------------------------------------------------
 
-def msm_digits_niels(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+def msm_digits_niels(niels: torch.Tensor, digits: torch.Tensor,
+                     consttime: bool = True) -> torch.Tensor:
     """Niels stream (3, 10, S) int32 (a FixedBaseTables' or a subset's
     `.niels`) and signed digits (S, Q) int8 -> (4, 10, Q) int32 points, on
-    the inputs' device."""
-    return reduce(accumulate(niels, digits))
+    the inputs' device.  `consttime=False` only for public rows (K6's
+    direct form; the JAX package's keyword of the same name)."""
+    return reduce(accumulate(niels, digits, consttime))

@@ -10,6 +10,10 @@ device-transcript route (the section at the end) the host draws only y
 and z; the transcripts, every later challenge and the IPP rounds stay on
 the device.  Points go through the fixed-base MSM (ops/fixed_msm.py,
 kernels K6 and K7) and compression (ops/curve.compress, kernel K5).  The
+witness rows (V, A, S, T_1 / T_2) take K6's one-hot form (the default
+`consttime=True`); the IPP rounds' L / R rows are public and alone pass
+`consttime=False`, K6's direct form (the JAX package's host route sends
+them to the vartime `rist_msm_rows`).  The
 mod-l vector math runs on canonical scalars: every digit stream through
 kernel K10 and the IPP fold through K8 / K9 (ops/fold.py, where the JAX
 package calls ops/fold_pallas.py), the rest in plain PyTorch
@@ -286,8 +290,9 @@ def round_emit(N, nk, niels_l, niels_r, a, b, gw, hw, w_bytes):
     alone: round_first_fused)."""
     w = S.from_bytes32(w_bytes)
     dig_l, dig_r = round_digits_compact(N, nk, a, b, gw, hw, w)
-    pts = torch.cat([FM.msm_digits_niels(niels_l, dig_l),
-                     FM.msm_digits_niels(niels_r, dig_r)], dim=-1)
+    pts = torch.cat([FM.msm_digits_niels(niels_l, dig_l, consttime=False),
+                     FM.msm_digits_niels(niels_r, dig_r, consttime=False)],
+                    dim=-1)
     return C.compress(pts)
 
 
@@ -430,8 +435,10 @@ def _emit_lr(niels, em, a, b, gw, hw, w) -> torch.Tensor:
     em["sel_r"] -> (2P, 32) compressed rows [L | R]."""
     dig_l, dig_r = round_emit_dyn(a, b, gw, hw, w, em)
     pts = torch.cat([
-        FM.msm_digits_niels(niels.index_select(2, em["sel_l"]), dig_l),
-        FM.msm_digits_niels(niels.index_select(2, em["sel_r"]), dig_r)], dim=-1)
+        FM.msm_digits_niels(niels.index_select(2, em["sel_l"]), dig_l,
+                            consttime=False),
+        FM.msm_digits_niels(niels.index_select(2, em["sel_r"]), dig_r,
+                            consttime=False)], dim=-1)
     return C.compress(pts)
 
 

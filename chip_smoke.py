@@ -22,9 +22,14 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      byte for byte;
   3. holds every kernel against its plain PyTorch version on the card, on
      main-path inputs (one 2048-proof verifier sub-batch; one IPP round's
-     L stream, one 8192-point compression, one half's transcript states
-     and IPP challenges of the prover; K12 beside K6 on the L stream), and
-     the verifier MSM against the host curve library on a small input;
+     L stream and the S stream, one 8192-point compression, one half's
+     transcript states and IPP challenges of the prover; K12 beside K6 on
+     the L stream), and the verifier MSM against the host curve library on
+     a small input.  At each of the prover's fixed-base shapes (m=1 and
+     m=16, IPP L and S streams) each K6 form that serves it (one-hot for
+     the witness rows, also direct for the public IPP rows) and K7 are
+     timed and held against their plain versions, the two forms against
+     each other; launches per form are checked;
   4. times the verifier's main path (best of `--runs` after a warm-up);
   5. drives the aggregated path at full width: BatchProver(m=16) of
      `--agg-total` n=64 proofs on the device-transcript route (one
@@ -40,7 +45,8 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   6. holds kernels K8-K12 against their plain versions on the aggregated
      path's inputs (one fold, one gw update, the S coefficients' digits,
      one verifier chunk's and the final MSM's accumulation, the S
-     commitment's stream for K12, timed beside K6);
+     commitment's stream for K12, timed beside K6), and K6 / K7 at the
+     m=16 IPP L and S streams as in 3;
   9. drives the MXU probe (benches/mxu_fmul_probe.run, Q = 512 lanes,
      `--probe-steps` chained steps): its oracle check, then K15 and K16
      timed; both against their plain versions and each other limb for
@@ -87,6 +93,13 @@ IMAD_PER_CLOCK_SM = 64
 # dense int8 tensor-core peak of one H100 SXM: 1,979 TOPS (NVIDIA data
 # sheet), two operations to a multiply-add
 PEAK_INT8_MACS = 1979e12 / 2
+# shared-memory bytes per clock per SM (32 banks of 4 bytes)
+SMEM_BYTES_PER_CLOCK_SM = 128
+# shared-memory bytes per (row, lane) of K6: the one-hot form reads all 8
+# buckets (40 words each) to select, then reads and writes all 8 to update;
+# the direct form reads and writes one bucket, and only for a non-zero digit
+ONE_HOT_SMEM_BYTES = 3 * 8 * 40 * 4
+DIRECT_SMEM_BYTES = 2 * 40 * 4
 # multiply-adds of one field multiplication (10 x 10 limb products) and of
 # one Montgomery multiplication (9 x (9 + 1 + 9) limb products)
 FMUL_MADS = 100 * 2
@@ -707,6 +720,7 @@ def main() -> int:
     from bulletproofs_tpu_torch.ops import curve as C
     from bulletproofs_tpu_torch.config import settings
     from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    from bulletproofs_tpu_torch.benches import fixed_msm_shapes as FS
     from bulletproofs_tpu_torch.ops import fold as FO
     from bulletproofs_tpu_torch.ops import msm as M
     from bulletproofs_tpu_torch.ops import prover_stages as PS
@@ -720,6 +734,8 @@ def main() -> int:
     dev = torch.device(DEVICE)
     smi = card_line()
     imads = peak_imads()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem_rate = imads / IMAD_PER_CLOCK_SM * SMEM_BYTES_PER_CLOCK_SM
     log("torch", torch.__version__, "cuda", torch.version.cuda, "|", smi,
         f"| peak {imads:.4g} int32 multiply-adds/s")
 
@@ -729,14 +745,34 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f} s")
     for lib, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "registers" in line or "spill" in line or "error" in line \
+                    or (lib == "fixed_msm" and "Compiling entry" in line):
                 log(f"  [{lib}] {line.strip()}")
+    per_sm = FM.blocks_per_sm()
+    log(f"fixed_msm blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+        f"{per_sm}; K6's split assumes {FM.TARGET_THREADS // (sms * 32)} "
+        f"blocks of 32 lanes per SM")
+    if per_sm["fixed_accumulate"] * sms * 32 != FM.TARGET_THREADS \
+            or per_sm["fixed_accumulate_vt"] != per_sm["fixed_accumulate"]:
+        log("  NOTE: K6's occupancy differs from fixed_msm.TARGET_THREADS")
 
     n, m = 64, 1
     lg, nblk, n_dyn = V.shape(n, m)
     bp, pc = BulletproofGens(n, m), PedersenGens()
     failures = []
     kernels = []
+
+    def check_k6_forms(launches, N, halves, what):
+        """K6 launches per form, per half: 4 one-hot (V, A, S, T) and
+        2 log2 N direct (each IPP round's L and R), one K7 per K6."""
+        rounds = N.bit_length() - 1
+        want = {"fixed_accumulate": 4 * halves,
+                "fixed_accumulate_vt": 2 * rounds * halves,
+                "fixed_reduce": (4 + 2 * rounds) * halves}
+        got = {k: launches[k] for k in want}
+        log(f"  {what}: K6 / K7 launches {got} (expected {want})")
+        if got != want:
+            failures.append(f"{what}: K6 / K7 launches {got}, expected {want}")
 
     # -- 2. the prover's main path: the device-transcript route ---------------------
     t0 = time.time()
@@ -763,14 +799,11 @@ def main() -> int:
         return [p.to_bytes() for p in out[0]], out[1], out[2]
 
     # the warm-up keeps the main-path inputs of the kernel checks: one IPP
-    # round's L stream, one 8192-point compression, one half's transcript
-    # states and challenges, and the inputs and outputs of one half's
-    # device rest
-    round_rows = (n + 1) * FM.NUM_WINDOWS
+    # round's L stream and the S stream, one 8192-point compression, one
+    # half's transcript states and challenges, and the inputs and outputs
+    # of one half's device rest
+    shapes1 = FS.ShapeCapture(FS.shape_specs(n, m, half))
     caps1 = {
-        "msm": Capture(PS.FM, "msm_digits_niels",
-                       lambda niels, digits: niels.shape[-1] == round_rows
-                       and digits.shape[1] == half),
         "compress": Capture(PS.C, "compress",
                             lambda pts: pts.shape[-1] == min(2 * half, 8192)),
         "keccak": Capture(TD, "f1600_state_bytes",
@@ -783,6 +816,7 @@ def main() -> int:
     finally:
         for c in caps1.values():
             c.restore()
+        shapes1.close()
     log(f"prove_batch warm-up ({args.total} proofs, device-transcript "
         f"route): {time.time() - t0:.2f} s")
 
@@ -794,16 +828,21 @@ def main() -> int:
     proofs, vcs = fused_out[0], fused_out[1]
     log(f"prove_batch launches (device-transcript route): {prove_launches}")
     for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
-              "fixed_accumulate", "fixed_reduce", "compress"):
+              "fixed_accumulate", "fixed_accumulate_vt", "fixed_reduce",
+              "compress"):
         if prove_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 prover")
+    halves = 2 if args.total >= prover.FUSED_HALVES_FROM \
+        and args.total % 2 == 0 else 1
+    check_k6_forms(prove_launches, n * m, halves, "m=1 prove")
     for r in range(args.prove_runs - 1):
         t0 = time.time()
         prove(102 + r)
         times.append(time.time() - t0)
     best = min(times)
     log(f"prove_batch {args.total} proofs of n={n} (device-transcript "
-        f"route): best {best * 1e3:.1f} ms of {len(times)} -> "
+        f"route): best {best * 1e3:.1f} ms, median "
+        f"{statistics.median(times) * 1e3:.1f} ms of {len(times)} -> "
         f"{args.total / best:.0f} proofs/s (runs "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
     wall, per, host_ms = instrumented(lambda: prove(110))
@@ -868,6 +907,9 @@ def main() -> int:
     for k in ("fold", "smul", "digits"):
         if stage_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 per-stage prover")
+    check_k6_forms(stage_launches, n * m,
+                   2 if args.total >= prover.HALVES_FROM
+                   and args.total % 2 == 0 else 1, "m=1 per-stage prove")
 
     # -- 3. the proofs are right -------------------------------------------------------
     bv = BatchVerifier(bp, pc, n=n, m=m, device=DEVICE)
@@ -970,10 +1012,68 @@ def main() -> int:
             f"points {'equal to' if same else 'DIFFERENT from'} K6's")
         if err != 0 or not same:
             failures.append(f"fixed_accumulate2 on {what}")
+        if what in shape_ms:
+            log(f"    K6's direct form there: {shape_ms[what]:.4f} ms")
         return (err, ms2, plain_ms,
                 niels.numel() * 4 + dig.numel() + slab2.numel() * 4,
                 (rows * q * madd + k2 * q * FM.NUM_BUCKETS * add)
                 * FMUL_MADS)
+
+    shape_ms = {}           # shape -> the direct K6's ms, for k12_against_k6
+
+    def fixed_shape_checks(what, niels, dig, public):
+        """At one main-path shape: each K6 form that serves it (the one-hot
+        form everywhere, the direct form on public rows) and K7 on its slab
+        against their plain versions (exact) and timed; the two forms
+        against each other -> {kernel: (max_abs_err, ms, plain ms, bytes,
+        multiply-adds)}."""
+        rows, q = dig.shape
+        nonzero = int((dig != 0).sum())
+        plain, plain_ms = time_once(lambda: FM.accumulate_plain(niels, dig))
+        K = plain.shape[0]
+        log(f"  {what}: {rows} rows x {q} lanes, split {K} ({K * q} "
+            f"threads), {nonzero / (rows * q):.2%} non-zero digits; "
+            f"plain K6 {plain_ms:.2f} ms")
+        nbytes = niels.numel() * 4 + dig.numel() + plain.numel() * 4
+        mads = nonzero * madd * FMUL_MADS
+        b_ms, b_by = bound(nbytes, mads, imads)
+        out, slabs = {}, {}
+        for name, ct in (("fixed_accumulate", True),
+                         ("fixed_accumulate_vt", False))[:1 + public]:
+            slabs[name] = FM.accumulate(niels, dig, consttime=ct)
+            err = max_abs_err(slabs[name], plain)
+            ms = time_cuda(lambda: FM.accumulate(niels, dig, consttime=ct), 3)
+            floor = (rows * q * ONE_HOT_SMEM_BYTES if ct
+                     else nonzero * DIRECT_SMEM_BYTES) / smem_rate * 1e3
+            log(f"    {name}: max_abs_err {err}; {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), shared-memory floor {floor:.4f} ms "
+                f"on {smi}")
+            if err != 0:
+                failures.append(f"{name} on {what}")
+            out[name] = (err, ms, plain_ms, nbytes, mads)
+        if public:
+            shape_ms[what] = out["fixed_accumulate_vt"][1]
+            same = torch.equal(slabs["fixed_accumulate"],
+                               slabs["fixed_accumulate_vt"])
+            log(f"    the two K6 forms' slabs {'equal' if same else 'DIFFER'}")
+            if not same:
+                failures.append(f"K6's two forms differ on {what}")
+        slab = slabs["fixed_accumulate_vt" if public else "fixed_accumulate"]
+        pts = FM.reduce(slab)
+        rplain, rplain_ms = time_once(lambda: FM.reduce_plain(slab))
+        err = max_abs_err(pts, rplain)
+        ms = time_cuda(lambda: FM.reduce(slab), 20)
+        nbytes = slab.numel() * 4 + pts.numel() * 4
+        mads = q * ((K - 1) * FM.NUM_BUCKETS + 2 * (FM.NUM_BUCKETS - 1)) \
+            * add * FMUL_MADS
+        b_ms, b_by = bound(nbytes, mads, imads)
+        log(f"    fixed_reduce ({FM.red_groups(K)} chunk groups): max_abs_err "
+            f"{err}; {ms:.4f} ms, plain {rplain_ms:.2f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        if err != 0:
+            failures.append(f"fixed_reduce on {what}")
+        out["fixed_reduce"] = (err, ms, rplain_ms, nbytes, mads)
+        return out
 
     # -- 4. verifier kernels against their plain versions (exact: integer
     #       arithmetic repeated step for step, so the tolerance is 0) ----------------
@@ -1071,11 +1171,15 @@ def main() -> int:
         failures.append("msm vs host")
 
     # -- 5. prover kernels against their plain versions, on main-path inputs ---------
-    if any(c.args is None for c in caps1.values()):
+    if any(c.args is None for c in caps1.values()) \
+            or len(shapes1.got) != 2:
         failures.append("prover kernel inputs not captured")
     else:
         (cpts,) = caps1["compress"].args
-        rniels, rdig = caps1["msm"].args
+        l_name, s_name = (name for name, _, _ in FS.shape_specs(n, m, half))
+        rniels, rdig, rkw = shapes1.got[l_name]
+        if rkw.get("consttime", True):
+            failures.append("the m=1 IPP L stream was sent to the one-hot K6")
         log(f"prover kernel phases (compress of {cpts.shape[-1]} points; IPP "
             f"L stream of {rdig.shape[0]} rows x {rdig.shape[1]} lanes):")
         got = C.compress(cpts)
@@ -1087,28 +1191,22 @@ def main() -> int:
                time_cuda(lambda: C.compress_plain(cpts), 1),
                cpts.numel() * 4 + got.numel(),
                cpts.shape[-1] * fm * FMUL_MADS, prove_launches)
-        rows, q = rdig.shape
-        fslab = FM.accumulate(rniels, rdig)
-        splits = fslab.shape[0]
-        fplain, fplain_ms = time_once(lambda: FM.accumulate_plain(rniels, rdig))
-        record("fixed_accumulate", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
-               "bulletproofs_tpu/ops/fixed_msm.py:274",
-               max_abs_err(fslab, fplain),
-               time_cuda(lambda: FM.accumulate(rniels, rdig), 5), fplain_ms,
-               rniels.numel() * 4 + rdig.numel() + fslab.numel() * 4,
-               rows * q * madd * FMUL_MADS, prove_launches)
-        fout = FM.reduce(fslab)
-        record("fixed_reduce", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
-               "bulletproofs_tpu/ops/fixed_msm.py:346",
-               max_abs_err(fout, FM.reduce_plain(fslab)),
-               time_cuda(lambda: FM.reduce(fslab), 20),
-               time_cuda(lambda: FM.reduce_plain(fslab), 1),
-               fslab.numel() * 4 + fout.numel() * 4,
-               q * ((splits - 1) * FM.NUM_BUCKETS + 2 * (FM.NUM_BUCKETS - 1))
-               * add * FMUL_MADS, prove_launches)
-        log(f"  (fixed-base split {splits}; {madd} multiplications per mixed "
-            f"addition, {add} per addition)")
-        k12_against_k6(rniels, rdig, "the m=1 IPP L stream")
+        log(f"  fixed-base MSM at the m=1 shapes ({madd} multiplications per "
+            f"mixed addition, {add} per addition):")
+        at_l = fixed_shape_checks(l_name, rniels, rdig, True)
+        sniels1, sdig1, skw1 = shapes1.got[s_name]
+        if not skw1.get("consttime", True):
+            failures.append("the m=1 S stream was sent to the direct K6")
+        at_s = fixed_shape_checks(s_name, sniels1, sdig1, False)
+        src, tpu = ("bulletproofs_tpu_torch/csrc/fixed_msm.cu",
+                    "bulletproofs_tpu/ops/fixed_msm.py:")
+        record("fixed_accumulate", src, tpu + "274",
+               *at_s["fixed_accumulate"], prove_launches)
+        record("fixed_accumulate_vt", src, tpu + "274",
+               *at_l["fixed_accumulate_vt"], prove_launches)
+        record("fixed_reduce", src, tpu + "346", *at_l["fixed_reduce"],
+               prove_launches)
+        k12_against_k6(rniels, rdig, l_name)
 
         (kst,) = caps1["keccak"].args
         got = K.f1600_state_bytes(kst)
@@ -1185,15 +1283,16 @@ def main() -> int:
     # aggregated path's kernel inputs: the first fold and the first gw
     # update (all N = 1024 rows: the rest's folds are full width), the S
     # coefficients' digits (2N + 1 = 2049 rows), the S commitment's stream
-    # (131,136 rows), and the inputs and outputs of one device rest
+    # (131,136 rows) and one IPP round's L stream (65,600 rows), and the
+    # inputs and outputs of one device rest
     N16 = n * m16
-    s_rows = (2 * N16 + 1) * FM.NUM_WINDOWS
+    lanes16 = agg // 2 if agg >= prover16.FUSED_HALVES_FROM and agg % 2 == 0 \
+        else agg
+    shapes16 = FS.ShapeCapture(FS.shape_specs(n, m16, lanes16))
     pcaps = [Capture(PS.FO, "fold_lanes", lambda x, *a: x.shape[0] == N16),
              Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
              Capture(PS.FO, "digits_lanes",
                      lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1),
-             Capture(PS.FM, "msm_digits_niels",
-                     lambda niels, digits: niels.shape[-1] == s_rows),
              Capture(PS, "prove_rest")]
     t0 = time.time()
     try:
@@ -1201,6 +1300,7 @@ def main() -> int:
     finally:
         for c in reversed(pcaps):
             c.restore()
+        shapes16.close()
     log(f"prove_batch m={m16} warm-up ({agg} proofs, device-transcript "
         f"route): {time.time() - t0:.2f} s")
     _cuda.reset_counts()
@@ -1217,7 +1317,8 @@ def main() -> int:
         times.append(time.time() - t0)
     best = min(times)
     log(f"prove_batch {agg} proofs of n={n}, m={m16} (device-transcript "
-        f"route): best {best * 1e3:.1f} ms of {len(times)} -> "
+        f"route): best {best * 1e3:.1f} ms, median "
+        f"{statistics.median(times) * 1e3:.1f} ms of {len(times)} -> "
         f"{agg / best:.1f} proofs/s, {best * 1e3 / agg:.3f} ms/proof (runs "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}")
     wall, per, host_ms = instrumented(lambda: prove16(210))
@@ -1235,10 +1336,12 @@ def main() -> int:
             f"{busy / (best * 1e3):.1%} of the best call; largest: "
             + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}" for ms, c, k in rows[:6]))
     for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
-              "fixed_accumulate", "compress"):
+              "fixed_accumulate", "fixed_accumulate_vt", "compress"):
         if prove16_launches[k] == 0:
             failures.append(f"{k} not launched by the m={m16} prover")
-    no_host_sync(pcaps[4], f"prove_rest (m={m16})")
+    halves16 = 2 if lanes16 != agg else 1
+    check_k6_forms(prove16_launches, N16, halves16, f"m={m16} prove")
+    no_host_sync(pcaps[3], f"prove_rest (m={m16})")
 
     _cuda.reset_counts()
     t0 = time.time()
@@ -1251,6 +1354,9 @@ def main() -> int:
         if stage16_launches[k] == 0:
             failures.append(f"{k} not launched by the m={m16} per-stage "
                             f"prover")
+    check_k6_forms(stage16_launches, N16,
+                   2 if agg >= prover16.HALVES_FROM and agg % 2 == 0 else 1,
+                   f"m={m16} per-stage prove")
     FM._ILP2 = True
     try:
         _cuda.reset_counts()
@@ -1268,9 +1374,12 @@ def main() -> int:
         f"{min(times) * 1e3:.1f} ms of {len(times)} (runs "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}; launches "
         f"{ilp2_launches}")
-    if ilp2_launches["fixed_accumulate2"] == 0 \
-            or ilp2_launches["fixed_accumulate"] != 0:
-        failures.append("_ILP2 did not route the m=16 prover through K12")
+    rounds16 = N16.bit_length() - 1
+    if ilp2_launches["fixed_accumulate2"] != (4 + 2 * rounds16) * halves16 \
+            or ilp2_launches["fixed_accumulate"] \
+            or ilp2_launches["fixed_accumulate_vt"]:
+        failures.append(f"_ILP2 did not route every m={m16} K6 row through "
+                        f"K12")
     same = wire(stage16) == wire(fused16) == wire(ilp16)
     log(f"m={m16} proofs, commitments and transcripts: per-stage, "
         f"device-transcript and device-transcript with K12 "
@@ -1367,7 +1476,7 @@ def main() -> int:
         failures.append("card and cpu m=2 proofs differ")
 
     # -- 8. K8-K11 against their plain versions, on the aggregated path's inputs --------
-    if any(c.args is None for c in pcaps + vcaps):
+    if any(c.args is None for c in pcaps + vcaps) or len(shapes16.got) != 2:
         failures.append("aggregated-path kernel inputs not captured")
     else:
         x, y, u, v = pcaps[0].args
@@ -1426,9 +1535,15 @@ def main() -> int:
                     f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
                 if err != 0:
                     failures.append("msm_accumulate_z on the final MSM")
-        sniels, sdig = pcaps[3].args
-        err, ms, plain_ms, nbytes, mads = k12_against_k6(
-            sniels, sdig, f"the m={m16} S stream")
+        l16, s16 = (name for name, _, _ in FS.shape_specs(n, m16, lanes16))
+        log(f"  fixed-base MSM at the m={m16} shapes:")
+        lniels, ldig, lkw = shapes16.got[l16]
+        sniels, sdig, skw = shapes16.got[s16]
+        if lkw.get("consttime", True) or not skw.get("consttime", True):
+            failures.append(f"m={m16}: K6 forms not routed by row kind")
+        fixed_shape_checks(l16, lniels, ldig, True)
+        fixed_shape_checks(s16, sniels, sdig, False)
+        err, ms, plain_ms, nbytes, mads = k12_against_k6(sniels, sdig, s16)
         record("fixed_accumulate2", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:206", err, ms, plain_ms,
                nbytes, mads, ilp2_launches)

@@ -112,29 +112,80 @@ def test_plain_msm_matches_jax_pallas_interpret(small_stream):
     assert _compressed(out) == _jax_compressed(j)
 
 
-def test_plain_msm_matches_host(small_stream):
-    """Row s = j * 64 + w holds 16^w Base_j: lane q is
-    sum_s digit[s, q] 16^w_s Base_j_s."""
-    sel, digits, _, out = small_stream
+def _host_lanes(sel, digits):
+    """Host multiscalar_mul of each lane: row s = j * 64 + w holds 16^w
+    Base_j, so lane q is sum_s digit[s, q] 16^w_s Base_j_s."""
     bases = _bases()
-    got = _compressed(out)
-    for q in (0, 7, 128, 255):
+    out = []
+    for q in range(digits.shape[1]):
         acc = [0] * NB
-        for s, row in enumerate(sel):
+        for s, row in enumerate(map(int, sel)):
             acc[row // 64] += int(digits[s, q]) * 16 ** (row % 64)
-        ref = multiscalar_mul([Scalar(a % ELL) for a in acc], bases)
-        assert got[q] == ref.compress()
+        out.append(multiscalar_mul([Scalar(a % ELL) for a in acc],
+                                   bases).compress())
+    return out
 
 
-@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_plain_msm_matches_host(small_stream):
+    sel, digits, _, out = small_stream
+    lanes = [0, 7, 128, 255]
+    assert [_compressed(out)[q] for q in lanes] == _host_lanes(
+        sel, digits[:, lanes])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 40])
 def test_splits_give_the_same_point(small_stream, tables, splits):
     """Any split of the stream into chunks sums to the same point (16
-    lanes, so that pick_splits alone would choose a split of 1)."""
+    lanes, so that pick_splits alone would choose a split of 1).  40: a
+    stream of 40 x 32 rows over 2 lanes, where pick_splits itself takes
+    40 chunks (above the old cap of 16) and reduce_plain folds them in four
+    groups, through the direct form's wrapper, against the host MSM."""
+    if splits == 40:
+        sel = np.random.default_rng(58).integers(0, NB * 64, 40 * 32)
+        digits = np.random.default_rng(59).integers(
+            -7, 9, (40 * 32, 2)).astype(np.int8)
+        digits[:64] = 0
+        assert FM.pick_splits(40 * 32, 2) == 40
+        slab = FM.accumulate(FM.StreamSubsetTables(tables[0], sel).niels,
+                             torch.as_tensor(digits), consttime=False)
+        assert slab.shape == (40, 8, 4, 10, 2)
+        assert _compressed(FM.reduce(slab)) == _host_lanes(sel, digits)
+        return
     sel, digits, _, out = small_stream
     niels = FM.StreamSubsetTables(tables[0], sel).niels
     slab = FM._accumulate_plain(niels, torch.as_tensor(digits[:, :16]), splits)
     assert slab.shape == (splits, 8, 4, 10, 16)
     assert _compressed(FM.reduce(slab)) == _compressed(out[..., :16])
+
+
+def _reduce_sequential(slab):
+    """K7's order before the grouped merge: per bucket the chunks summed in
+    order, then the running double sum from the top bucket down."""
+    v = slab.to(torch.int64)
+    merged = tuple(v[0, :, c] for c in range(4))
+    for k in range(1, v.shape[0]):
+        merged = C.add(merged, tuple(v[k, :, c] for c in range(4)))
+    running = total = tuple(c[7] for c in merged)
+    for b in range(6, -1, -1):
+        running = C.add(running, tuple(c[b] for c in merged))
+        total = C.add(total, running)
+    return torch.stack(total).to(torch.int32)
+
+
+@pytest.mark.parametrize("splits, rows", [(1, 30), (6, 30), (20, 40),
+                                         (34, 68)])
+def test_reduce_order_gives_the_sequential_points(tables, splits, rows):
+    """reduce_plain (red_groups chunk groups, a tree, a suffix scan and a
+    tree over the buckets) and the sequential merge and running double sum
+    give the same compressed points: one group (1, 6 chunks), two (20) and
+    four with partial groups (34)."""
+    niels = FM.StreamSubsetTables(tables[0], range(rows)).niels
+    digits = torch.as_tensor(np.random.default_rng(61).integers(
+        -7, 9, (rows, 16)).astype(np.int8))
+    assert FM.red_groups(splits) == {1: 1, 6: 1, 20: 2, 34: 4}[splits]
+    slab = FM._accumulate_plain(niels, digits, splits)
+    assert _compressed(FM.reduce_plain(slab)) == _compressed(
+        _reduce_sequential(slab))
 
 
 def test_padded_split_gives_the_same_point(tables):
@@ -282,3 +333,45 @@ def test_ilp2_switches_accumulate_to_k12(tables, monkeypatch):
     monkeypatch.setattr(FM, "_ILP2", False)
     assert torch.equal(FM.accumulate(niels, digits),
                        FM.accumulate_plain(niels, digits))
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_prover_sends_only_ipp_rows_to_the_direct_form(monkeypatch, m):
+    """One proof at n = 8 on the device-transcript route (m = 1, 2) and, at
+    m = 1, on the per-stage route: every IPP round's L / R MSM passes
+    consttime=False (K6's direct form), every V / A / S / T MSM
+    consttime=True; the proofs verify on the host, and at m = 1 both
+    routes give the same bytes."""
+    import sys
+    from bulletproofs_tpu_torch import (BatchProver, BulletproofGens,
+                                        PedersenGens, Transcript)
+    bp, pc = BulletproofGens(8, m), PedersenGens()
+    prover = BatchProver(bp, pc, 8, m, device="cpu")
+    values, blinds = [[3, 250][:m]], [[Scalar(5), Scalar(6)][:m]]
+    if m == 1:
+        values, blinds = [values[0][0]], [blinds[0][0]]
+    calls, real = [], FM.accumulate
+
+    def recording(niels, digits, consttime=True):
+        calls.append((sys._getframe(2).f_code.co_name, consttime))
+        return real(niels, digits, consttime)
+
+    monkeypatch.setattr(FM, "accumulate", recording)
+    out = []
+    for fused in (True, False)[:3 - m]:
+        calls.clear()
+        prover.fused = fused
+        ts = [Transcript(b"routing")]
+        ps, vs = prover.prove_batch(values, blinds, ts, rng=random.Random(60))
+        out.append(([p.to_bytes() for p in ps], vs, ts[0].strobe.buf.raw))
+        ipp = [c for f, c in calls if f in ("_emit_lr", "round_emit")]
+        witness = [c for f, c in calls
+                   if f in ("stage0_fused", "stage1_fused", "prove_mid_fused")]
+        assert len(ipp) == 2 * (8 * m).bit_length() - 2 and not any(ipp)
+        assert len(witness) == 4 and all(witness)
+        assert len(calls) == len(ipp) + len(witness)
+    assert out[0] == out[-1]
+    if m == 1:
+        ps[0].verify_single(bp, pc, Transcript(b"routing"), vs[0], 8)
+    else:
+        ps[0].verify_multiple(bp, pc, Transcript(b"routing"), vs[0], 8)

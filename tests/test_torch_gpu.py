@@ -153,6 +153,58 @@ def test_fixed_msm_kernels_match_plain(cuda):
     assert torch.equal(out, FM.reduce_plain(slab))
 
 
+def test_fixed_msm_direct_form_matches_one_hot(cuda):
+    """K6's direct form (public rows) equals its one-hot form and
+    accumulate_plain limb for limb, at a split above 16 (1280 rows over 45
+    lanes, not a multiple of 32, zero digits included); K7 equals
+    reduce_plain on 40, 20 and 5 of those chunks (4, 2 and 1 groups)."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    r = random.Random(86)
+    bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+             for _ in range(20)]
+    niels = FM.FixedBaseTables(bases, cuda).niels
+    d = np.random.default_rng(87).integers(-7, 9, (20 * 64, 45))
+    d[:, 3] = 0
+    d[100:400] = 0
+    digits = torch.as_tensor(d.astype(np.int8)).to(cuda)
+    assert FM.pick_splits(20 * 64, 45) == 40
+    before = dict(_cuda.LAUNCHES)
+    vt = FM.accumulate(niels, digits, consttime=False)
+    ct = FM.accumulate(niels, digits)
+    plain = FM.accumulate_plain(niels, digits)
+    torch.cuda.synchronize()
+    assert vt.shape[0] == 40
+    assert torch.equal(vt, ct) and torch.equal(vt, plain)
+    assert _cuda.LAUNCHES["fixed_accumulate_vt"] == \
+        before["fixed_accumulate_vt"] + 1
+    assert _cuda.LAUNCHES["fixed_accumulate"] == before["fixed_accumulate"] + 1
+    for k in (40, 20, 5):                 # K7 with 4, 2 and 1 chunk groups
+        part = vt[:k].contiguous()
+        out = FM.reduce(part)
+        torch.cuda.synchronize()
+        assert torch.equal(out, FM.reduce_plain(part))
+
+
+def test_prove_routes_public_rows_to_the_direct_form(cuda):
+    """One half of a device-transcript prove at n = 8, m = 1 launches K6's
+    one-hot form 4 times (V, A, S, T), its direct form 2 log2(8) = 6 times
+    (each IPP round's L and R) and K7 once per K6 launch."""
+    from bulletproofs_tpu_torch import BatchProver
+    bp, pc = BulletproofGens(8, 1), PedersenGens()
+    prover = BatchProver(bp, pc, 8, device=cuda)
+    labels = [b"gpu routes %d" % i for i in range(5)]
+    _cuda.reset_counts()
+    proofs, vcs = prover.prove_batch(
+        [1, 2, 3, 4, 255], [Scalar(11 + i) for i in range(5)],
+        [Transcript(l) for l in labels], rng=Rng(88))
+    torch.cuda.synchronize()
+    got = {k: _cuda.LAUNCHES[k] for k in
+           ("fixed_accumulate", "fixed_accumulate_vt", "fixed_reduce")}
+    assert got == {"fixed_accumulate": 4, "fixed_accumulate_vt": 6,
+                   "fixed_reduce": 10}
+    proofs[4].verify_single(bp, pc, Transcript(labels[4]), vcs[4], 8)
+
+
 def test_prove_batch_on_card(cuda):
     from bulletproofs_tpu_torch import BatchProver
     bp, pc = BulletproofGens(64, 1), PedersenGens()
