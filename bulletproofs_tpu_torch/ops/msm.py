@@ -184,7 +184,8 @@ def horner_plain(sums: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(64, 8, 4, 10) bucket sums -> (point (4, 10) int32, flag (1,) bool):
     S_w = sum_b (b + 1) B_b by the double running sum, then
     sum_w 16^w S_w by Horner; the flag is ristretto equality with the
-    identity."""
+    identity.  K4b makes these operations in this order, so its limbs are
+    these."""
     v = sums.to(torch.int64).permute(1, 2, 3, 0)           # (8, 4, 10, 64)
     running = tuple(v[NUM_BUCKETS - 1])                     # (10, 64) each
     total = running

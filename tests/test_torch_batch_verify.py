@@ -234,6 +234,9 @@ T.LinearProof.batch_verify([(p, T.Transcript(b"iso lin"), C, b)
 from bulletproofs_tpu_torch.benches import mxu_fmul_probe as PR
 res = PR.run("cpu", lanes=4, steps=2, reps=1, log=lambda *a: None)
 assert res["oracle_ok"] and bool((res["vpu_out"] == res["mxu_out"]).all())
+# the K4b bench's helpers
+from bulletproofs_tpu_torch.benches import horner as HB
+assert HB.latency_floor_ms(1980) > 0
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "bulletproofs_tpu"
        or k.startswith("bulletproofs_tpu.")]

@@ -15,6 +15,7 @@ import torch
 from bulletproofs_tpu_torch import (BulletproofGens, PedersenGens, ProofError,
                                     RangeProof, Scalar, Transcript)
 from bulletproofs_tpu_torch.core.ristretto import RISTRETTO_BASEPOINT
+from bulletproofs_tpu_torch.benches import horner as HB
 from bulletproofs_tpu_torch.core.scalar import L as ELL
 from bulletproofs_tpu_torch.ops import _cuda
 from bulletproofs_tpu_torch.ops import curve as C
@@ -92,6 +93,27 @@ def test_msm_kernels_match_plain(cuda):
     pout, pflag = M.horner_plain(sums)
     torch.cuda.synchronize()
     assert torch.equal(out, pout) and torch.equal(flag, pflag)
+
+
+@pytest.mark.parametrize("case", HB.CASES + tuple(f"slab {i}"
+                                                 for i in range(5)))
+def test_horner_kernel_matches_plain_on_edge_sums(cuda, case):
+    """K4b, one launch, against horner_plain limb for limb on bucket sums
+    that stress the chain (benches.horner.edge_sums: every bucket the
+    identity, the top window the identity, window 0 alone, projective and
+    4-torsion representatives) and on five seeded slabs."""
+    if case.startswith("slab"):
+        sums = HB.slab_sums(2048, 90 + int(case[5:]), cuda)
+    else:
+        sums = HB.edge_sums(case, HB.slab_sums(2048, 89, cuda).cpu(),
+                            91).to(cuda)
+    before = _cuda.LAUNCHES["msm_horner"]
+    out, flag = M.horner(sums)
+    pout, pflag = M.horner_plain(sums.cpu())
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["msm_horner"] == before + 1
+    assert torch.equal(out.cpu(), pout) and torch.equal(flag.cpu(), pflag)
+    assert bool(flag[0]) == (case == "identity")
 
 
 def test_wrappers_refuse_wrong_dtypes_on_cuda(cuda):
