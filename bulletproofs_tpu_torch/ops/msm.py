@@ -1,7 +1,8 @@
 """Pippenger multi-scalar multiplication: kernels K3 (bucket accumulation
 of Z = 1 points in Niels form), K11 (bucket accumulation of points of any
-Z) and K4 (bucket reduction, then the Horner window combine with the
-ristretto is-identity flag), csrc/msm.cu.
+Z: a binning launch, msm_bin, then one thread per bucket) and K4 (bucket
+reduction, then the Horner window combine with the ristretto is-identity
+flag), csrc/msm.cu.
 
 The JAX package's ops/msm_pallas.py `_msm_pallas_niels` (`msm_niels`) and
 `_msm_pallas` (`msm_lanes_flag`) in the port's layout: signed base-16
@@ -17,7 +18,8 @@ CPU tensors; the two agree limb for limb.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -131,23 +133,105 @@ def accumulate_z_plain(points: torch.Tensor,
     return _accumulate_plain(points, digits, C.identity, _add_extended)
 
 
-def accumulate_z(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Kernel K11 on CUDA tensors, the plain version on CPU tensors."""
+def _check_z(points: torch.Tensor, digits: torch.Tensor) -> int:
     n = points.shape[-1]
     if points.dim() != 3 or points.shape[:2] != (4, L) \
             or digits.shape != (NUM_WINDOWS, n):
         raise ValueError("accumulate_z takes points (4, 10, N), digits "
                          "(64, N)")
+    return n
+
+
+def bin_plain(digits: torch.Tensor, lanes: int) -> Tuple[torch.Tensor, ...]:
+    """digits (64, N) int8 -> K11's per-lane bucket lists as bit masks over
+    the lane's steps, nm = ceil(N / (32 lanes)) words each: (mask
+    (64, 8, nm, lanes), sign (64, nm, lanes), cnt (64, 8, lanes), perm
+    (64, 8, lanes)) int32.  Bit s of mask[w, b, m, j] is set when the digit
+    of window w of point k = j + (32 m + s) lanes has magnitude b + 1, bit
+    s of sign[w, m, j] when that digit is negative; cnt[w, b, j] counts
+    bucket b's bits; perm[w, b] lists the lanes by cnt, largest first, ties
+    by lane.  Walking a mask's bits in order lists the points of lane j and
+    bucket b in ascending k."""
+    n = digits.shape[-1]
+    nm = -(-n // (32 * lanes))
+    d = torch.cat([digits, torch.zeros((NUM_WINDOWS, nm * 32 * lanes - n),
+                                       dtype=digits.dtype,
+                                       device=digits.device)], dim=-1)
+    d = d.to(torch.int64).reshape(NUM_WINDOWS, nm, 32, lanes)
+    weight = (1 << torch.arange(32, device=d.device))[:, None]
+
+    def words(bits):                       # (..., 32, lanes) -> int32 words
+        v = (bits.to(torch.int64) * weight).sum(-2)
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+    a = d.abs()
+    hits = torch.stack([a == b + 1 for b in range(NUM_BUCKETS)], dim=1)
+    cnt = hits.sum((2, 3)).to(torch.int32)
+    perm = torch.sort(-cnt, dim=-1, stable=True).indices.to(torch.int32)
+    return words(hits), words(d < 0), cnt, perm
+
+
+def bin_points_plain(points: torch.Tensor, digits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+    """points (4, 10, N), digits (64, N) -> (rows (N, 40) int32, the points
+    point-major, and bin_plain(digits, pick_lanes(N)))."""
+    n = _check_z(points, digits)
+    rows = points.permute(2, 0, 1).reshape(n, 4 * L).contiguous()
+    return (rows,) + bin_plain(digits, pick_lanes(n))
+
+
+def bin_points(points: torch.Tensor, digits: torch.Tensor
+               ) -> Tuple[torch.Tensor, ...]:
+    """K11's binning launch (msm_bin) on CUDA tensors, bin_points_plain on
+    CPU tensors."""
+    n = _check_z(points, digits)
     if points.device.type == "cpu":
-        return accumulate_z_plain(points, digits)
+        return bin_points_plain(points, digits)
     lanes = pick_lanes(n)
+    nm = -(-n // (32 * lanes))
     _cuda.check(points, torch.int32)
     _cuda.check(digits, torch.int8)
+    dev = points.device
+    rows = torch.empty((n, 4 * L), dtype=torch.int32, device=dev)
+    mask = torch.empty((NUM_WINDOWS, NUM_BUCKETS, nm, lanes),
+                       dtype=torch.int32, device=dev)
+    sign = torch.empty((NUM_WINDOWS, nm, lanes), dtype=torch.int32,
+                       device=dev)
+    cnt, perm = torch.empty((2, NUM_WINDOWS, NUM_BUCKETS, lanes),
+                            dtype=torch.int32, device=dev)
+    _cuda.launch("msm_bin", "msm", "bp_msm_bin", points, digits, rows, mask,
+                 sign, cnt, perm, n, lanes)
+    return rows, mask, sign, cnt, perm
+
+
+def accumulate_z(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Kernel K11 on CUDA tensors (msm_bin, then msm_accumulate_z: one
+    thread per (window, bucket, lane) adds its list of bin_points into a
+    bucket in registers), the plain version on CPU tensors."""
+    n = _check_z(points, digits)
+    if points.device.type == "cpu":
+        return accumulate_z_plain(points, digits)
+    binned = bin_points(points, digits)
+    lanes = binned[-1].shape[-1]
     slab = torch.empty((NUM_WINDOWS, NUM_BUCKETS, 4, L, lanes),
                        dtype=torch.int32, device=points.device)
-    _cuda.launch("msm_accumulate_z", "msm", "bp_msm_accumulate_z", points,
-                 digits, slab, n, lanes)
+    _cuda.launch("msm_accumulate_z", "msm", "bp_msm_accumulate_z", *binned,
+                 slab, n, lanes)
     return slab
+
+
+def warps_per_sm() -> Dict[str, int]:
+    """Warps of K11 and of msm_bin that one SM of the current CUDA device
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, times
+    the block's warps)."""
+    out = (ctypes.c_int * 4)()
+    f = _cuda._lib("msm").bp_msm_blocks_per_sm
+    f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    err = f(out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return {"msm_accumulate_z": out[0] * out[1] // 32,
+            "msm_bin": out[2] * out[3] // 32}
 
 
 # -- K4: bucket reduction and Horner combine --------------------------------------

@@ -44,9 +44,9 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      route's byte for byte;
   6. holds kernels K8-K12 against their plain versions on the aggregated
      path's inputs (one fold, one gw update, the S coefficients' digits,
-     one verifier chunk's and the final MSM's accumulation, the S
-     commitment's stream for K12, timed beside K6), and K6 / K7 at the
-     m=16 IPP L and S streams as in 3;
+     one verifier chunk's and the final MSM's accumulation, K11's binning
+     launch there too, the S commitment's stream for K12, timed beside
+     K6), and K6 / K7 at the m=16 IPP L and S streams as in 3;
   9. drives the MXU probe (benches/mxu_fmul_probe.run, Q = 512 lanes,
      `--probe-steps` chained steps): its oracle check, then K15 and K16
      timed; both against their plain versions and each other limb for
@@ -55,13 +55,13 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
  10. R1CS: a k = `--r1cs-k` shuffle proved on the host and verified on the
      card by the default rule (the device mega-MSM: cold, then 3 runs
      alternating with the host C++ route, medians; the MSM alone), K1,
-     K10, K11, K4a and K4b against their plain versions on that MSM's
-     inputs, a flipped byte and swapped output commitments rejected; the
+     K10, K11 (its binning launch and itself), K4a and K4b against their
+     plain versions on that MSM's inputs, a flipped byte and swapped output commitments rejected; the
      same for batch_verify of two k = 2^10 proofs on the device (one
      tampered batch rejected);
  11. linear proofs: batch_verify of `--linear-items` items at n = 1024 on
      the forced device route (cold, then 3 runs alternating with the host
-     route, medians; the MSM alone), the five MSM kernels against their
+     route, medians; the MSM alone), the six MSM kernels against their
      plain versions on its inputs, and a tampered batch rejected;
  12. prints the kernels' launches, times, plain times and bounds as one
      JSON line, the card's name and power limit, and last the device line.
@@ -415,7 +415,8 @@ def probe_phase(args, dev, smi, record, failures):
 
 
 def msm_path_checks(what, dec, msm, imads, smi, failures):
-    """K1, K10, K11, K4a and K4b against their plain versions on the card,
+    """K1, K10, K11 (msm_bin, then the whole accumulate_z), K4a and K4b
+    against their plain versions on the card,
     on the inputs of one path's device MSM (`dec` and `msm` are Captures of
     curve.decompress and msm.msm_lanes_flag from that path's run).  Exact,
     tolerance 0; the path's own decoded points and MSM result are among the
@@ -428,6 +429,7 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
     N = pts.shape[-1]
     coef = S.from_bytes32(sc)
     dig = FO.digits_lanes(coef)
+    binned = M.bin_points(pts, dig)
     slab = M.accumulate_z(pts, dig)
     sums = M.reduce(slab)
     lanes = slab.shape[-1]
@@ -445,6 +447,8 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
         ("digits", dig, lambda: FO.digits_lanes(coef),
          lambda: FO.digits_plain(coef[None]), coef.numel() * 8 + dig.numel(),
          18 * N),
+        ("msm_bin", binned, lambda: M.bin_points(pts, dig),
+         lambda: M.bin_points_plain(pts, dig), bin_bytes(pts, dig, binned), 0),
         ("msm_accumulate_z", slab, lambda: M.accumulate_z(pts, dig),
          lambda: M.accumulate_z_plain(pts, dig),
          pts.numel() * 4 + dig.numel() + slab.numel() * 4,
@@ -476,8 +480,14 @@ def device_captures(module, name):
             Capture(M, "msm_lanes_flag"))
 
 
-MSM_KERNELS = ("decompress", "digits", "msm_accumulate_z", "msm_reduce",
-               "msm_horner")
+MSM_KERNELS = ("decompress", "digits", "msm_bin", "msm_accumulate_z",
+               "msm_reduce", "msm_horner")
+
+
+def bin_bytes(pts, dig, binned) -> int:
+    """Bytes K11's binning launch must move: the points and digits read
+    once, the point-major rows, the lists and the offsets written once."""
+    return pts.numel() * 4 + dig.numel() + sum(t.numel() * 4 for t in binned)
 
 
 def r1cs_phase(args, smi, imads, failures):
@@ -746,7 +756,8 @@ def main() -> int:
     for lib, out in logs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line \
-                    or (lib == "fixed_msm" and "Compiling entry" in line):
+                    or (lib in ("fixed_msm", "msm")
+                        and "Compiling entry" in line):
                 log(f"  [{lib}] {line.strip()}")
     per_sm = FM.blocks_per_sm()
     log(f"fixed_msm blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
@@ -755,6 +766,8 @@ def main() -> int:
     if per_sm["fixed_accumulate"] * sms * 32 != FM.TARGET_THREADS \
             or per_sm["fixed_accumulate_vt"] != per_sm["fixed_accumulate"]:
         log("  NOTE: K6's occupancy differs from fixed_msm.TARGET_THREADS")
+    log(f"msm resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+        f"): {M.warps_per_sm()}")
 
     n, m = 64, 1
     lg, nblk, n_dyn = V.shape(n, m)
@@ -1412,8 +1425,8 @@ def main() -> int:
     log(f"verify_batch({agg} card-proved m={m16} proofs, chunked route): "
         f"accepted (first run {time.time() - t0:.3f} s); launches "
         f"{verify16_launches}")
-    for k in ("decompress", "msm_accumulate_z", "msm_reduce", "msm_horner",
-              "digits"):
+    for k in ("decompress", "msm_bin", "msm_accumulate_z", "msm_reduce",
+              "msm_horner", "digits"):
         if verify16_launches[k] == 0:
             failures.append(f"{k} not launched by the m={m16} verifier")
     if verify16_launches["emit"] or verify16_launches["msm_accumulate"]:
@@ -1518,6 +1531,11 @@ def main() -> int:
                                          * 2))
         for cap, what in ((vcaps[0], "chunk"), (vcaps[1], "final MSM")):
             zp, zd = cap.args
+            zb = M.bin_points(zp, zd)
+            berr = max_abs_err(zb, M.bin_points_plain(zp, zd))
+            bms = time_cuda(lambda: M.bin_points(zp, zd), 10)
+            bplain_ms = time_cuda(lambda: M.bin_points_plain(zp, zd), 1)
+            bbytes = bin_bytes(zp, zd, zb)
             zs = M.accumulate_z(zp, zd)
             err = max_abs_err(zs, M.accumulate_z_plain(zp, zd))
             ms = time_cuda(lambda: M.accumulate_z(zp, zd), 10)
@@ -1525,16 +1543,24 @@ def main() -> int:
             nbytes = zp.numel() * 4 + zd.numel() + zs.numel() * 4
             mads = int((zd != 0).sum()) * add9 * FMUL_MADS
             if what == "chunk":
+                # msm_bin alone; msm_accumulate_z's time is the whole
+                # accumulate_z call, its binning launch included
+                record("msm_bin", "bulletproofs_tpu_torch/csrc/msm.cu",
+                       "bulletproofs_tpu/ops/msm_pallas.py:121", berr, bms,
+                       bplain_ms, bbytes, 0, verify16_launches)
                 record("msm_accumulate_z", "bulletproofs_tpu_torch/csrc/msm.cu",
                        "bulletproofs_tpu/ops/msm_pallas.py:121", err, ms,
                        plain_ms, nbytes, mads, verify16_launches)
             else:
-                b_ms, b_by = bound(nbytes, mads, imads)
-                log(f"  msm_accumulate_z on the {what} ({zp.shape[-1]} "
-                    f"points): max_abs_err {err}; {ms:.4f} ms kernel, "
-                    f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by})")
-                if err != 0:
-                    failures.append("msm_accumulate_z on the final MSM")
+                for name, e, t, pt, nb, md in (
+                        ("msm_bin", berr, bms, bplain_ms, bbytes, 0),
+                        ("msm_accumulate_z", err, ms, plain_ms, nbytes, mads)):
+                    b_ms, b_by = bound(nb, md, imads)
+                    log(f"  {name} on the {what} ({zp.shape[-1]} points): "
+                        f"max_abs_err {e}; {t:.4f} ms kernel, {pt:.2f} ms "
+                        f"plain, bound {b_ms:.4f} ms ({b_by})")
+                    if e != 0:
+                        failures.append(f"{name} on the final MSM")
         l16, s16 = (name for name, _, _ in FS.shape_specs(n, m16, lanes16))
         log(f"  fixed-base MSM at the m={m16} shapes:")
         lniels, ldig, lkw = shapes16.got[l16]

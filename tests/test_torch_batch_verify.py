@@ -237,6 +237,11 @@ assert res["oracle_ok"] and bool((res["vpu_out"] == res["mxu_out"]).all())
 # the K4b bench's helpers
 from bulletproofs_tpu_torch.benches import horner as HB
 assert HB.latency_floor_ms(1980) > 0
+# the K11 bench's inputs and the binning's plain version
+from bulletproofs_tpu_torch.benches import accumulate_z as AZB
+from bulletproofs_tpu_torch.ops import msm as MSM
+pts, dig = AZB.edge_inputs("fewer points than lanes", 1, "cpu")
+assert MSM.bin_points(pts, dig)[1].shape == (64, 8, 1, 32)
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "bulletproofs_tpu"
        or k.startswith("bulletproofs_tpu.")]

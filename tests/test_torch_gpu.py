@@ -15,6 +15,7 @@ import torch
 from bulletproofs_tpu_torch import (BulletproofGens, PedersenGens, ProofError,
                                     RangeProof, Scalar, Transcript)
 from bulletproofs_tpu_torch.core.ristretto import RISTRETTO_BASEPOINT
+from bulletproofs_tpu_torch.benches import accumulate_z as AZ
 from bulletproofs_tpu_torch.benches import horner as HB
 from bulletproofs_tpu_torch.core.scalar import L as ELL
 from bulletproofs_tpu_torch.ops import _cuda
@@ -296,6 +297,37 @@ def test_accumulate_z_and_msm_lanes_match_plain(cuda):
     assert C.lanes_to_points(out.cpu().numpy())[0].compress() \
         == ref.compress()
     assert not bool(flag[0])
+
+
+@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES])
+def test_bin_kernel_matches_plain(cuda, case):
+    """msm_bin, one launch, against bin_points_plain on the CPU: its five
+    outputs rows (the points point-major), mask (each bucket's bit mask of
+    lane steps), sign, cnt (each list's length) and perm (each bucket's
+    lanes ranked by length)."""
+    pts, dig = AZ.edge_inputs(case, 7, cuda)
+    before = _cuda.LAUNCHES["msm_bin"]
+    got = M.bin_points(pts, dig)
+    want = M.bin_points_plain(pts.cpu(), dig.cpu())
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["msm_bin"] == before + 1
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES])
+def test_accumulate_z_kernel_matches_plain_on_edge_cases(cuda, case):
+    """K11 (msm_bin then msm_accumulate_z) against accumulate_z_plain limb
+    for limb on the edge cases: every digit 0 (every bucket the identity),
+    every digit +-8, fewer points than lanes, a ragged lane step, every
+    digit negative."""
+    pts, dig = AZ.edge_inputs(case, 7, cuda)
+    before = (_cuda.LAUNCHES["msm_bin"], _cuda.LAUNCHES["msm_accumulate_z"])
+    slab = M.accumulate_z(pts, dig)
+    want = M.accumulate_z_plain(pts.cpu(), dig.cpu())
+    torch.cuda.synchronize()
+    assert (_cuda.LAUNCHES["msm_bin"], _cuda.LAUNCHES["msm_accumulate_z"]) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(slab.cpu(), want)
 
 
 def test_aggregated_prove_and_chunked_verify_on_card(cuda, monkeypatch):
