@@ -8,6 +8,34 @@ import time
 
 import torch
 
+# limb products of a field product and of a squaring (csrc/fe25519.cuh
+# fe_mul, fe_sq), each two 32-bit multiply-adds on the card
+MUL_PRODUCTS = 100
+SQ_PRODUCTS = 55
+
+
+def field_mads(fn) -> int:
+    """32-bit multiply-adds of the field products and squarings that the
+    plain version makes in fn() (the kernels make the same ones)."""
+    from ..ops import field as F
+    real_mul, real_sq, n = F.mul, F.square, {"mul": 0, "sq": 0}
+
+    def mul(a, b):
+        n["mul"] += 1
+        return real_mul(a, b)
+
+    def square(a):
+        n["sq"] += 1
+        return real_sq(a)
+
+    F.mul, F.square = mul, square
+    try:
+        fn()
+    finally:
+        F.mul, F.square = real_mul, real_sq
+    # square() is mul(a, a): each squaring was counted as a product too
+    return 2 * (MUL_PRODUCTS * (n["mul"] - n["sq"]) + SQ_PRODUCTS * n["sq"])
+
 
 def timed(fn, reps: int, device, warm: bool = True):
     """(last output, mean milliseconds of fn() over `reps` calls), after one

@@ -1,25 +1,28 @@
-"""Kernel K11 (`msm.accumulate_z`, the bucket accumulation of the verifier
-MSMs whose points have any Z) alone on one CUDA card:
+"""Kernels K11 (`msm.accumulate_z`, the bucket accumulation of the
+verifier MSMs whose points have any Z) and K3 (`msm.accumulate`, the fused
+m=1 verifier's accumulation of Niels points) alone on one CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.accumulate_z [--reps 10]
-        [--sizes 2052,8160,8260,46082,196653]
+        [--sizes 2052,8160,8260,46082,196653] [--niels-sizes 34946]
 
-At each size (the m=16 verifier's final MSM, its 8160-point chunk, the
-R1CS batch of two k = 2^10 proofs, the linear batch of 2048 items at
-n = 1024 and the R1CS k = 2^15 mega-MSM) it makes seeded points of any Z
-on the card (sums of three of 64 random multiples of the base point,
-doubled) and K10 digits of random 256-bit scalars, and times
-`msm.accumulate_z` by CUDA events (the mean of `--reps` calls after a
-warm-up, host launch work included), the device time of each K11 kernel
-by torch.profiler over `--reps` more calls and, where the tree has it,
-the binning launch `msm.bin_points` alone; it holds the slab to
-`accumulate_z_plain` and the bins to `bin_points_plain` exactly
-(tolerance 0).  Prints ptxas' report for the accumulation kernels, then
-one JSON line with the times, the operations bound, the resident warps
-per SM, the kernels' SASS instruction counts (cuobjdump) and the card's
-name and power limit.  It uses only the accumulate_z / accumulate_z_plain
-API where the tree has nothing more, so it runs unchanged on older trees
-of the port.
+K11 at each of `--sizes` (the m=16 verifier's final MSM, its 8160-point
+chunk, the R1CS batch of two k = 2^10 proofs, the linear batch of 2048
+items at n = 1024 and the R1CS k = 2^15 mega-MSM) on seeded points of any
+Z made on the card (sums of three of 64 random multiples of the base
+point, doubled); K3 at each of `--niels-sizes` (34,946: one 2048-proof
+sub-batch of the m=1 `verify_batch`, 130 static generators and 2048 x 17
+decoded points) on the same points scaled to Z = 1 in Niels form.  Digits
+are K10's of random 256-bit scalars.  Times the whole call by CUDA events
+(the mean of `--reps` calls after a warm-up, host launch work included),
+the device time of each kernel by torch.profiler over `--reps` more calls
+and, where the tree has it, the binning launch `msm.bin_points` alone;
+holds the slab to `accumulate_z_plain` / `accumulate_plain` and the bins
+to `bin_points_plain` exactly (tolerance 0).  Prints ptxas' report for the
+accumulation kernels, then one JSON line with the times, the operations
+bound, the resident warps per SM, the kernels' SASS instruction counts
+(cuobjdump) and the card's name and power limit.  It uses only the
+accumulate / accumulate_z API and their plain versions where the tree has
+nothing more, so it runs unchanged on older trees of the port.
 """
 
 from __future__ import annotations
@@ -38,19 +41,25 @@ import torch
 from ..core.ristretto import RISTRETTO_BASEPOINT
 from ..core.scalar import L as ELL, Scalar
 from ..ops import curve as C
+from ..ops import field as F
 from ..ops import fold as FO
 from ..ops import msm as M
 from ..ops import scalar as S
+from . import MUL_PRODUCTS
 
 SIZES = (2052, 8160, 8260, 46082, 196653)
-# the complete addition's field products, each 100 limb products of two
-# 32-bit multiply-adds; 32-bit multiply-adds per clock per SM at compute
-# capability 9.0 (CUDA C++ Programming Guide, throughput table)
+NIELS_SIZES = (34946,)
+# the complete and the mixed addition's field products, each 100 limb
+# products of two 32-bit multiply-adds; 32-bit multiply-adds per clock per
+# SM at compute capability 9.0 (CUDA C++ Programming Guide, throughput
+# table)
 ADD_FMULS = 9
-FMUL_MADS = 200
+MADD_FMULS = 7
+FMUL_MADS = 2 * MUL_PRODUCTS
 IMAD_PER_CLOCK_SM = 64
 PEAK_BYTES = 3.35e12                    # HBM3 of one H100 SXM
-# trees before the binned form ran K11 in blocks of 32 threads
+# trees before the binned forms ran K11 (before K11's) and K3 (before
+# K3's) in blocks of 32 threads
 OLD_THREADS = 32
 
 
@@ -69,6 +78,17 @@ def make_points(n: int, seed: int, device) -> torch.Tensor:
     return C.from_coords(C.double(p)).contiguous()
 
 
+def make_niels(n: int, seed: int, device) -> torch.Tensor:
+    """(3, 10, n) int32 Niels rows (Y+X, Y-X, 2dT) of make_points' points
+    scaled to Z = 1."""
+    X, Y, Z, _ = C.to_coords(make_points(n, seed, device))
+    zi = F.invert(Z)
+    x, y = F.mul(X, zi), F.mul(Y, zi)
+    one = torch.zeros_like(x)
+    one[..., 0, :] = 1
+    return C.to_niels(C.from_coords((x, y, one, F.mul(x, y)))).contiguous()
+
+
 def make_digits(n: int, seed: int, device) -> torch.Tensor:
     """(64, n) int8 signed digits of n random 256-bit scalars, by K10."""
     raw = np.random.default_rng(seed).integers(0, 256, (n, 32), np.uint8)
@@ -83,10 +103,11 @@ CASES = (("random", 300), ("all zero", 300), ("all +-8", 100),
          ("all negative", 200))
 
 
-def edge_inputs(case: str, seed: int, device):
-    """(points (4, 10, n), digits (64, n) int8) of a CASES entry."""
+def edge_inputs(case: str, seed: int, device, niels: bool = False):
+    """(points (4, 10, n), or Niels points (3, 10, n) when `niels`, digits
+    (64, n) int8) of a CASES entry."""
     n = dict(CASES)[case]
-    pts = make_points(n, seed, device)
+    pts = (make_niels if niels else make_points)(n, seed, device)
     dig = make_digits(n, seed + 1, device)
     if case == "all zero":
         dig = torch.zeros_like(dig)
@@ -97,23 +118,30 @@ def edge_inputs(case: str, seed: int, device):
     return pts, dig.contiguous()
 
 
-def ptxas_report(log: str) -> dict:
-    """{kernel: ptxas' lines} for K11's kernels out of an nvcc log."""
+def _ours(name: str) -> bool:
+    """K3's and K11's kernels (accumulate_kernel, accumulate_z_kernel,
+    bin_kernel and their template instances, mangled)."""
+    return "accumulate" in name or "bin_kernel" in name
+
+
+def ptxas_report(log: str, keep=_ours) -> dict:
+    """{kernel: ptxas' lines} for the kernels whose (mangled) names `keep`
+    takes, K3's and K11's by default, out of an nvcc log."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if ("accumulate_z" in m.group(1)
-                                  or "bin_kernel" in m.group(1)) else None
+            name = m.group(1) if keep(m.group(1)) else None
         elif name and ("registers" in line or "spill" in line
                        or "stack" in line):
             out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return out
 
 
-def sass_counts(so: str) -> dict:
-    """{kernel: [SASS instructions, of them IMAD.WIDE]} for K11's kernels in
-    a built library, by cuobjdump."""
+def sass_counts(so: str, keep=_ours) -> dict:
+    """{kernel: [SASS instructions, of them IMAD.WIDE]} for the kernels of
+    a built library whose names `keep` takes (K3's and K11's by default),
+    by cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -121,8 +149,7 @@ def sass_counts(so: str) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
-            name = m.group(1) if ("accumulate_z" in m.group(1)
-                                  or "bin_kernel" in m.group(1)) else None
+            name = m.group(1) if keep(m.group(1)) else None
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
         if name and m:
@@ -156,8 +183,8 @@ def smi(query: str) -> str:
 
 
 def device_ms(fn, reps: int) -> dict:
-    """{kernel: device milliseconds per call} of K11's kernels over `reps`
-    calls of fn(), by torch.profiler (CUDA activity only)."""
+    """{kernel: device milliseconds per call} of K3's and K11's kernels over
+    `reps` calls of fn(), by torch.profiler (CUDA activity only)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -165,7 +192,7 @@ def device_ms(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if "accumulate_z_kernel" in e.key or "bin_kernel" in e.key:
+        if _ours(e.key):
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0)
@@ -174,26 +201,34 @@ def device_ms(fn, reps: int) -> dict:
 
 
 def measure(inputs, reps: int, imads: float) -> list:
-    """Per size: K11's time, bin's, each kernel's device time, the bound
-    and the exactness checks."""
+    """Per size: the accumulation's time (K11 for points of any Z, K3 for
+    Niels points), its binning's, each kernel's device time, the bound and
+    the exactness checks."""
     from . import timed
     rows = []
     for pts, dig in inputs:
         n = pts.shape[-1]
-        slab, ms = timed(lambda: M.accumulate_z(pts, dig), reps, "cuda")
+        niels = pts.shape[0] == 3
+        acc, plain, fmuls = ((M.accumulate, M.accumulate_plain, MADD_FMULS)
+                             if niels else
+                             (M.accumulate_z, M.accumulate_z_plain, ADD_FMULS))
+        slab, ms = timed(lambda: acc(pts, dig), reps, "cuda")
         nonzero = int((dig != 0).sum())
         nbytes = pts.numel() * 4 + dig.numel() + slab.numel() * 4
-        row = {"n": n, "lanes": slab.shape[-1], "nonzero": nonzero, "ms": ms,
-               "bound_ms": max(nonzero * ADD_FMULS * FMUL_MADS / imads,
+        row = {"kernel": "K3" if niels else "K11", "n": n,
+               "lanes": slab.shape[-1], "nonzero": nonzero, "ms": ms,
+               "bound_ms": max(nonzero * fmuls * FMUL_MADS / imads,
                                nbytes / PEAK_BYTES) * 1e3}
-        row["device_ms"] = device_ms(lambda: M.accumulate_z(pts, dig), reps)
-        if hasattr(M, "bin_points"):
+        row["device_ms"] = device_ms(lambda: acc(pts, dig), reps)
+        # trees before K3's binned form bin extended points only
+        if hasattr(M, "bin_points") and (not niels
+                                         or hasattr(M, "ROW_WORDS")):
             bins, row["bin_ms"] = timed(lambda: M.bin_points(pts, dig), reps,
                                         "cuda")
             row["bin_exact"] = all(
                 torch.equal(a, b) for a, b in
                 zip(bins, M.bin_points_plain(pts, dig)))
-        row["exact"] = bool(torch.equal(slab, M.accumulate_z_plain(pts, dig)))
+        row["exact"] = bool(torch.equal(slab, plain(pts, dig)))
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows
@@ -203,6 +238,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
+    ap.add_argument("--niels-sizes", default=",".join(map(str, NIELS_SIZES)))
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -214,18 +250,22 @@ def main() -> int:
     ptxas = ptxas_report(logs.get("msm", ""))
     for name, lines in ptxas.items():
         print(name, "|", " | ".join(lines), flush=True)
-    if hasattr(M, "warps_per_sm"):
-        warps = M.warps_per_sm()
-    else:
-        warps = {name: occupancy_from_ptxas(lines, OLD_THREADS)
-                 for name, lines in ptxas.items()}
+    warps = M.warps_per_sm() if hasattr(M, "warps_per_sm") else {}
+    if "msm_accumulate" not in warps:
+        # trees before the binned forms: blocks of 32 threads
+        warps.update({name: occupancy_from_ptxas(lines, OLD_THREADS)
+                      for name, lines in ptxas.items() if name not in warps
+                      and "bin_kernel" not in name})
     card = smi("name,power.limit")
     mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     imads = sms * IMAD_PER_CLOCK_SM * mhz * 1e6
-    sizes = [int(s) for s in args.sizes.split(",")]
-    inputs = [(make_points(n, args.seed + n, "cuda"),
-               make_digits(n, args.seed + 1 + n, "cuda")) for n in sizes]
+    sizes = [int(s) for s in args.sizes.split(",") if s]
+    niels_sizes = [int(s) for s in args.niels_sizes.split(",") if s]
+    inputs = [(make(n, args.seed + n, "cuda"),
+               make_digits(n, args.seed + 1 + n, "cuda"))
+              for make, ns in ((make_points, sizes), (make_niels, niels_sizes))
+              for n in ns]
     rows = measure(inputs, args.reps, imads)
     result = {"bench": "accumulate_z", "reps": args.reps, "sizes": rows,
               "ptxas": ptxas, "warps_per_sm": warps,

@@ -1,5 +1,5 @@
-"""The prover's fixed-base MSM kernels (K6, K7) at the four main-path
-shapes, on one CUDA card:
+"""The prover's fixed-base MSM kernels (K6, K7; K12 at the m=16 S stream)
+at the four main-path shapes, on one CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.fixed_msm_shapes [--reps 3]
 
@@ -95,6 +95,10 @@ def measure(name, niels, digits, consttime: bool, reps: int):
         _, row["k6_direct_ms"] = timed(
             lambda: FM.accumulate(niels, digits, consttime=False), reps,
             "cuda")
+    elif name.startswith("m=16"):
+        # K12 (`_ILP2`) where chip_smoke.py times it, the m=16 S stream
+        _, row["k12_ms"] = timed(lambda: FM.accumulate2(niels, digits), reps,
+                                 "cuda")
     return row
 
 

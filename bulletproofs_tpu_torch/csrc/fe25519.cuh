@@ -1,17 +1,23 @@
-// GF(2^255 - 19) for the port's kernels: the CUDA twin of ops/field.py.
+// GF(2^255 - 19) for the port's kernels: the CUDA twin of ops/field.py,
+// and the one field product of every curve kernel (K1, K3, K4, K5, K6, K7,
+// K11, K12).
 //
 // An element is 10 signed int32 limbs in radix 2^25.5 (ref10 layout: limb
-// k at bit ceil(25.5 k), 26 bits wide for even k, 25 for odd k).  Products
-// are 32 x 32 -> 64-bit multiply-adds (IMAD.WIDE); every column sum stays
-// below 2^63 for inputs that are sums of at most three carried values
-// (|limb| < 2^27), which is all the curve formulas feed `fe_mul`.
+// k at bit ceil(25.5 k), 26 bits wide for even k, 25 for odd k).  A limb
+// product is one signed 32 x 32 -> 64-bit multiply-add (mad.wide.s32); every
+// column sum stays below 2^63 for inputs that are sums of at most three
+// carried values (|limb| < 2^27), which is all the curve formulas feed
+// `fe_mul`, and the carry rounds after round 1 run in 32 bits.  `fe_sq`
+// makes fe_mul(a, a)'s column sums from 55 limb products.
 //
-// Every function repeats the plain PyTorch version step for step (the same
+// Every function gives the plain PyTorch version's integers (the same
 // column sums, the same three rounded carry rounds, the same canonical
 // reduction), so a kernel built from these functions returns the plain
 // version's limbs exactly, not just the same value mod p.  The JAX
 // package's counterpart is the field half of ops/pallas_math.py (20 x
-// 13-bit limbs on the TPU's int32 VPU).
+// 13-bit limbs on the TPU's int32 VPU).  tests/test_torch_fe_header.py
+// compiles this header with the host compiler and holds each function to
+// ops/field.py over the full range of its callers' inputs.
 #pragma once
 #include <stdint.h>
 
@@ -54,26 +60,93 @@ __device__ __forceinline__ fe fe_one() {
   return r;
 }
 
-// three rounded parallel carry rounds; limb 9 wraps into limb 0 times 19
-__device__ __forceinline__ fe fe_carry(int64_t h[10]) {
+// One limb product is one signed 32 x 32 -> 64-bit multiply-add
+// (mad.wide.s32, one IMAD.WIDE); `(int64_t)a * b` compiled to up to three
+// instructions (an unsigned wide product and sign corrections).
+__device__ __forceinline__ int64_t mad_wide(int32_t a, int32_t b, int64_t c) {
+#ifdef __CUDA_ARCH__
+  int64_t r;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(c));
+  return r;
+#else
+  return c + (int64_t)a * b;
+#endif
+}
+
+// Three rounded parallel carry rounds (ops/field.carry; limb 9 wraps into
+// limb 0 times 19), with rounds 2 and 3 in 32 bits.  Round 1 leaves limb k
+// a residue in [-2^(w-1), 2^(w-1)) and passes limb k + 1 its carry times
+// the factor limb k + 1 takes it with (19 into limb 0, else 1);
+// carry_round1 splits that product at limb k + 1's width into a quotient
+// and a remainder.  For any |h| < 2^63 - 2^25 that carry stays below 2^43,
+// so quotient, remainder and residue fit in 32 bits, and so does every
+// later round.  The same integers as three 64-bit rounds, so the same
+// limbs.
+struct carry_out {
+  int32_t res, quo, rem;
+};
+
+__device__ __forceinline__ carry_out carry_round1(int64_t h, int k) {
+  const int w = 26 - (k & 1);
+  const int wn = 26 - ((k + 1) & 1);
+  const int32_t half = 1 << (w - 1);
+  const int64_t c = ((h + half) >> w) * (k == 9 ? 19 : 1);
+  return carry_out{
+      (int32_t)(((uint32_t)h + (uint32_t)half) & ((1u << w) - 1)) - half,
+      (int32_t)(c >> wn), (int32_t)((uint32_t)c & ((1u << wn) - 1))};
+}
+
+__device__ __forceinline__ fe fe_carry(const int64_t h[10]) {
+  carry_out o[10];
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    int64_t c[10];
+  for (int k = 0; k < 10; ++k) o[k] = carry_round1(h[k], k);
+  // limb k's round-2 value is its residue plus the remainder of limb
+  // src's carry; the quotient joins the round-2 carry
+  int32_t r2[10], c2[10];
 #pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      const int w = 26 - (k & 1);
-      c[k] = (h[k] + (1LL << (w - 1))) >> w;
-      h[k] -= c[k] * (1LL << w);
-    }
-    h[0] += 19 * c[9];
+  for (int k = 0; k < 10; ++k) {
+    const int w = 26 - (k & 1), src = k == 0 ? 9 : k - 1;
+    const int32_t s = o[k].res + o[src].rem;
+    const int32_t e = (s + (1 << (w - 1))) >> w;
+    c2[k] = o[src].quo + e;
+    r2[k] = s - e * (1 << w);
+  }
+  int32_t h2[10], c3[10];
 #pragma unroll
-    for (int k = 1; k < 10; ++k) h[k] += c[k - 1];
+  for (int k = 0; k < 10; ++k) {
+    const int w = 26 - (k & 1), src = k == 0 ? 9 : k - 1;
+    h2[k] = r2[k] + (k == 0 ? 19 : 1) * c2[src];
+    c3[k] = (h2[k] + (1 << (w - 1))) >> w;
   }
   fe out;
 #pragma unroll
-  for (int k = 0; k < 10; ++k) out.v[k] = (int32_t)h[k];
+  for (int k = 0; k < 10; ++k) {
+    const int w = 26 - (k & 1), src = k == 0 ? 9 : k - 1;
+    out.v[k] = h2[k] - c3[k] * (1 << w) + (k == 0 ? 19 : 1) * c3[src];
+  }
   return out;
 }
+
+#ifdef __CUDACC__
+#define FULL_MASK 0xffffffffu
+
+// fe_carry on ten lanes of a warp (limb k's column sum h on lane base + k),
+// round by round: each round passes the carries from lane k - 1 to lane k
+// (limb 9's into limb 0, x19).  K4b's pair products and K5's ten-lane
+// products end in it.
+__device__ __forceinline__ int32_t carry_rounds(int64_t h, int k, int base) {
+  const int w = 26 - (k & 1);
+  const int32_t half = 1 << (w - 1), f = k == 0 ? 19 : 1;
+  const int src = base + (k == 0 ? 9 : k - 1);
+  const carry_out o = carry_round1(h, k);
+  const int32_t s = o.res + __shfl_sync(FULL_MASK, o.rem, src);
+  const int32_t e = (s + half) >> w;
+  const int32_t c2 = __shfl_sync(FULL_MASK, o.quo, src) + e;
+  const int32_t h2 = s - e * (1 << w) + f * __shfl_sync(FULL_MASK, c2, src);
+  const int32_t c3 = (h2 + half) >> w;
+  return h2 - c3 * (1 << w) + f * __shfl_sync(FULL_MASK, c3, src);
+}
+#endif
 
 __device__ __forceinline__ fe fe_add(const fe& a, const fe& b) {
   fe r;
@@ -96,7 +169,8 @@ __device__ __forceinline__ fe fe_neg(const fe& a) {
   return r;
 }
 
-// schoolbook 10 x 10 with the odd-odd doubling; columns 10..18 fold back x19
+// schoolbook 10 x 10 with the odd-odd doubling, one mad_wide a limb
+// product; columns 10..18 fold back x19
 __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
   int64_t lo[10], hi[9];
 #pragma unroll
@@ -108,11 +182,10 @@ __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
 #pragma unroll
     for (int j = 0; j < 10; ++j) {
       const int32_t bj = (i & j & 1) ? 2 * b.v[j] : b.v[j];
-      const int64_t p = (int64_t)a.v[i] * (int64_t)bj;
       if (i + j < 10)
-        lo[i + j] += p;
+        lo[i + j] = mad_wide(a.v[i], bj, lo[i + j]);
       else
-        hi[i + j - 10] += p;
+        hi[i + j - 10] = mad_wide(a.v[i], bj, hi[i + j - 10]);
     }
   }
 #pragma unroll
@@ -120,12 +193,37 @@ __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
   return fe_carry(lo);
 }
 
-__device__ __forceinline__ fe fe_sq(const fe& a) { return fe_mul(a, a); }
+// fe_mul(a, a) in 55 limb products: each pair i < j once, its factor 2
+// and the odd-odd doubling folded into the operand (|limb| < 2^27, so
+// 4 a_j fits in 32 bits).  Every column sum is the integer fe_mul(a, a)
+// forms, so the limbs are its limbs.
+__device__ __forceinline__ fe fe_sq(const fe& a) {
+  int64_t lo[10], hi[9];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) lo[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) hi[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+#pragma unroll
+    for (int j = i; j < 10; ++j) {
+      const int f = (i == j ? 1 : 2) * ((i & j & 1) ? 2 : 1);
+      const int32_t aj = f * a.v[j];
+      if (i + j < 10)
+        lo[i + j] = mad_wide(a.v[i], aj, lo[i + j]);
+      else
+        hi[i + j - 10] = mad_wide(a.v[i], aj, hi[i + j - 10]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) lo[k] += 19 * hi[k];
+  return fe_carry(lo);
+}
 
 __device__ __forceinline__ fe fe_mul_small(const fe& a, int32_t s) {
   int64_t h[10];
 #pragma unroll
-  for (int k = 0; k < 10; ++k) h[k] = (int64_t)a.v[k] * s;
+  for (int k = 0; k < 10; ++k) h[k] = mad_wide(a.v[k], s, 0);
   return fe_carry(h);
 }
 

@@ -237,10 +237,9 @@ struct OneHotSet {
   // every copy of every word read, ORed under the all-ones / all-zeros
   // masks (exactly one set, none for digit 0: its sum is dropped), added
   // to, and written back as (new & m) | (old & ~m)
+  // (each mask formed where it is used: held in eight registers across the
+  // addition, they made ptxas spill 60 B once fe_mul took mad.wide.s32)
   __device__ __forceinline__ void add(int mag, const ge_niels& pt) {
-    int32_t m[NBUCKET];
-#pragma unroll
-    for (int b = 0; b < NBUCKET; ++b) m[b] = -(int32_t)(mag == b + 1);
     int32_t cur[40];
 #pragma unroll
     for (int w = 0; w < 40; ++w) {
@@ -248,7 +247,7 @@ struct OneHotSet {
       load8(w, v);
       int32_t x = 0;
 #pragma unroll
-      for (int b = 0; b < NBUCKET; ++b) x |= v[b] & m[b];
+      for (int b = 0; b < NBUCKET; ++b) x |= v[b] & -(int32_t)(mag == b + 1);
       cur[w] = x;
     }
     int32_t nw[40];
@@ -258,7 +257,10 @@ struct OneHotSet {
       int32_t v[8];
       load8(w, v);
 #pragma unroll
-      for (int b = 0; b < NBUCKET; ++b) v[b] = (nw[w] & m[b]) | (v[b] & ~m[b]);
+      for (int b = 0; b < NBUCKET; ++b) {
+        const int32_t m = -(int32_t)(mag == b + 1);
+        v[b] = (nw[w] & m) | (v[b] & ~m);
+      }
       store8(w, v);
     }
   }

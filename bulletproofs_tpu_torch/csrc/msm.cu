@@ -3,35 +3,19 @@
 // route) and for points of arbitrary Z (K11, the chunked route, whose final
 // MSM adds per-chunk partial results).
 //
-// K3 msm_accumulate replaces ops/msm_pallas.py:58 _accum_kernel_niels
-// (the phase-1 pallas_call of _msm_pallas_niels, :379).  K11, msm_bin then
-// msm_accumulate_z, replaces :121 _accum_kernel (the phase-1 pallas_call of
-// _msm_pallas, :459).  K4 is two launches of this file, after either:
-// msm_reduce replaces :178 _reduce_kernel (:397, :477) and msm_horner
-// replaces :214 _horner_kernel (:412, :492).
+// K3, msm_bin_niels then msm_accumulate, replaces ops/msm_pallas.py:58
+// _accum_kernel_niels (the phase-1 pallas_call of _msm_pallas_niels, :379).
+// K11, msm_bin then msm_accumulate_z, replaces :121 _accum_kernel (the
+// phase-1 pallas_call of _msm_pallas, :459).  K3 and K11 are one binning
+// kernel and one accumulation kernel, each a template over the point form.
+// K4 is two launches of this file, after either: msm_reduce replaces :178
+// _reduce_kernel (:397, :477) and msm_horner replaces :214 _horner_kernel
+// (:412, :492).
 //
 // Digits are signed base-16 in [-8, 8] (64 windows), so there are 8
 // buckets per window (digit 0 adds nothing).  Verifier data is public, so
 // the bucket is indexed directly by |digit|; the TPU kernel's one-hot mux
 // over all buckets was a Mosaic workaround.
-//
-// K3 bound: operations.  Each nonzero digit costs one 7-multiplication
-// mixed addition (~700 IMAD.WIDE) against 1 byte of digit and a 120-byte
-// Niels point that all 64 windows share through L2.  Design: grid
-// (lanes / 32, 64 windows), one thread per (window, lane); thread j walks
-// points j, j + lanes, j + 2 lanes, ... (the loop that replaces the TPU
-// grid's sequential chunk axis) and keeps its 8 buckets in shared memory,
-// laid out [bucket][coordinate][limb][thread] so a warp's accesses hit 32
-// different banks; 40 KB per block of 32 threads, so five blocks share an
-// SM.  The slab leaves the kernel once: (64, 8, 4, 10, lanes) int32.
-//
-// K11 bound: operations, as K3's, with the complete 9-multiplication
-// addition (~900 IMAD.WIDE) per nonzero digit against a 160-byte point.
-// Design (at the kernels below): a binning launch sorts each (window, lane)'s
-// points into per-bucket lists, then one thread per (window, bucket, lane)
-// keeps its bucket in registers; a negative digit negates X and T (two limb
-// negations, as the TPU kernel's fneg).  It writes K3's slab layout, so K4
-// runs unchanged after it.
 //
 // K4 msm_reduce: grid (8 buckets, 64 windows), lanes / 2 threads; a tree of
 // complete additions over the lanes in shared memory -> (64, 8, 4, 10).
@@ -48,138 +32,82 @@
 #include <cooperative_groups.h>
 
 #define NBUCKET 8
-#define ACC_THREADS 32
 
-__device__ __forceinline__ fe smem_fe_load(const int32_t* s, int stride) {
-  fe r;
-#pragma unroll
-  for (int k = 0; k < 10; ++k) r.v[k] = s[k * stride];
-  return r;
-}
-
-__device__ __forceinline__ void smem_fe_store(int32_t* s, int stride,
-                                              const fe& a) {
-#pragma unroll
-  for (int k = 0; k < 10; ++k) s[k * stride] = a.v[k];
-}
-
-__global__ void __launch_bounds__(ACC_THREADS)
-accumulate_kernel(const int32_t* __restrict__ niels,
-                  const int8_t* __restrict__ digits, int32_t* __restrict__ slab,
-                  int64_t n, int lanes) {
-  __shared__ int32_t buckets[NBUCKET * 4 * 10 * ACC_THREADS];
-  const int tid = threadIdx.x;
-  const int lane = blockIdx.x * ACC_THREADS + tid;
-  const int w = blockIdx.y;
-  const int cstride = 10 * ACC_THREADS;            // one coordinate
-  const int bstride = 4 * cstride;                 // one bucket
-
-  const ge id = ge_identity();
-  for (int b = 0; b < NBUCKET; ++b) {
-    int32_t* s = buckets + b * bstride + tid;
-    smem_fe_store(s, ACC_THREADS, id.X);
-    smem_fe_store(s + cstride, ACC_THREADS, id.Y);
-    smem_fe_store(s + 2 * cstride, ACC_THREADS, id.Z);
-    smem_fe_store(s + 3 * cstride, ACC_THREADS, id.T);
-  }
-
-  const int8_t* drow = digits + (int64_t)w * n;
-  for (int64_t k = lane; k < n; k += lanes) {
-    const int d = drow[k];
-    if (d == 0) continue;
-    ge_niels q;
-    const fe ypx = fe_load(niels + k, n);
-    const fe ymx = fe_load(niels + 10 * n + k, n);
-    const fe t2d = fe_load(niels + 20 * n + k, n);
-    if (d < 0) {
-      q.ypx = ymx;
-      q.ymx = ypx;
-      q.t2d = fe_neg(t2d);
-    } else {
-      q.ypx = ypx;
-      q.ymx = ymx;
-      q.t2d = t2d;
-    }
-    int32_t* s = buckets + ((d < 0 ? -d : d) - 1) * bstride + tid;
-    ge acc;
-    acc.X = smem_fe_load(s, ACC_THREADS);
-    acc.Y = smem_fe_load(s + cstride, ACC_THREADS);
-    acc.Z = smem_fe_load(s + 2 * cstride, ACC_THREADS);
-    acc.T = smem_fe_load(s + 3 * cstride, ACC_THREADS);
-    acc = ge_madd(acc, q);
-    smem_fe_store(s, ACC_THREADS, acc.X);
-    smem_fe_store(s + cstride, ACC_THREADS, acc.Y);
-    smem_fe_store(s + 2 * cstride, ACC_THREADS, acc.Z);
-    smem_fe_store(s + 3 * cstride, ACC_THREADS, acc.T);
-  }
-
-  // slab[w][b][c][limb][lane]
-  for (int b = 0; b < NBUCKET; ++b) {
-    const int32_t* s = buckets + b * bstride + tid;
-    int32_t* dst = slab + ((int64_t)(w * NBUCKET + b) * 40) * lanes + lane;
-    for (int ck = 0; ck < 40; ++ck) dst[(int64_t)ck * lanes] = s[ck * ACC_THREADS];
-  }
-}
-
-// -- K11: bucket accumulation for points of any Z, over per-lane lists ------
+// -- K3 and K11: bucket accumulation over per-lane lists ----------------------
 //
-// Two launches, msm_bin then msm_accumulate_z (K11 proper), with the slab of
-// the plain version: entry (w, b, ., ., j) is the complete-addition sum, from
-// the identity and in ascending k, of the points k = j (mod lanes) with
-// |d[w, k]| = b + 1, a negative digit adding (-X : Y : Z : -T).
+// Two launches each, a binning kernel then an accumulation kernel, with the
+// slab of the plain version: entry (w, b, ., ., j) is the sum, from the
+// identity and in ascending k, of the points k = j (mod lanes) with
+// |d[w, k]| = b + 1.  K3 (Niels rows Y+X, Y-X, 2dT of Z = 1 points, the
+// fused verifier's static generators and decoded proof points) adds by the
+// 7-multiplication mixed addition ge_madd, a negative digit swapping Y+X
+// and Y-X and negating 2dT; K11 (points of any Z) by the 9-multiplication
+// complete addition ge_add, a negative digit adding (-X : Y : Z : -T).
 //
-// Bound: operations, one 9-multiplication complete addition per non-zero
-// digit; its 900 limb products are about a quarter of the integer
-// instructions it runs (the carries and operand sums are the rest;
-// benches/accumulate_z.py counts the kernel's SASS), and on the H100
-// their throughput, not latency, bounds K11: the first form kept a
-// thread's 8 buckets in shared memory (40 KB a warp, 5 warps an SM), yet
-// 8 to 16 warps an SM moved this form's time by a few per cent.  Design:
-// one thread per (window, bucket, lane) keeps its one bucket in registers
-// and walks a list of its own points, 64 x 8 x lanes threads; fewer
-// instructions an addition (K11's arithmetic, below); the longest lists
-// first; a warp's 32 lists of nearly one length.
+// Bound: operations, one addition per non-zero digit; its limb products
+// are about a quarter of the integer instructions it runs (the carries and
+// operand sums are the rest; benches/accumulate_z.py counts the kernels'
+// SASS), and on the H100 their throughput, not latency, bounds the
+// accumulation: the first form kept a thread's 8 buckets in shared memory
+// (40 KB a warp, 5 warps an SM), yet 8 to 16 warps an SM moved this form's
+// time by a few per cent.  Design: one thread per (window, bucket, lane)
+// keeps its one bucket in registers and walks a list of its own points,
+// 64 x 8 x lanes threads; the longest lists first; a warp's 32 lists of
+// nearly one length.
 //
-// msm_bin: one thread per (window w, lane j) reads the digits of points j,
-// j + lanes, ... (coalesced across the warp), 32 lane steps at a time, and
-// writes for each step block m nine 32-bit words: bit s of
+// The binning kernel: one thread per (window w, lane j) reads the digits
+// of points j, j + lanes, ... (coalesced across the warp), 32 lane steps at
+// a time, and writes for each step block m nine 32-bit words: bit s of
 // mask[w][b][m][j] is set when |d[w, j + (32 m + s) lanes]| = b + 1, bit s
 // of sign[w][m][j] when that digit is negative (stores coalesced across the
 // warp; index lists, tried first, cost 0.5 ms of scattered 4-byte stores
 // at 196,653 points on the H100), and cnt[w][b][j], the bits of bucket b.
-// A K11 thread walks its mask's set bits in order: ascending k, digit 0
-// never listed.  A block holds one window's lanes, so it also ranks each
-// bucket's lanes by length into perm[w][b][.], the lane each K11 thread
-// takes.  The other blocks copy the points into point-major rows (N, 40)
-// int32: the 32 threads of a warp read 32 unrelated points, and a point's
-// 160 contiguous bytes are five sectors where the (4, 10, N) layout spreads
-// it over forty.
-//
-#define ACCZ_THREADS 128                 // K11's block
-#define ACCZ_MIN_BLOCKS 2                // K11's blocks per SM
+// An accumulation thread walks its mask's set bits in order: ascending k,
+// digit 0 never listed.  A block holds one window's lanes, so it also ranks
+// each bucket's lanes by length into perm[w][b][.], the lane each
+// accumulation thread takes.  The other blocks copy the points into
+// point-major rows: the 32 threads of a warp read 32 unrelated points, and
+// a point's contiguous row is a few sectors where the (c, 10, N) layout
+// spreads it over 10 c.  A Niels row (30 words) is padded to 32 words, one
+// 128-byte line of eight aligned 16-byte loads (at 120 bytes every odd row
+// would sit 8 bytes off a 16-byte boundary, and 8-byte loads double the
+// load count); an extended row is 40 words, ten 16-byte loads.
+#define ACCZ_THREADS 128                 // the accumulation's block
+#define ACCZ_MIN_BLOCKS 2                // its blocks per SM
 #define MAX_LANES 512                    // ops/msm.py MAX_LANES
-#define ROW_BLOCKS 264                   // msm_bin's blocks copying rows
+#define ROW_BLOCKS 264                   // the binning's blocks copying rows
 
+// the point forms: words of a point, of its row, and its addition
+struct niels_form {
+  static constexpr int WORDS = 30, ROW = 32;
+};
+struct ext_form {
+  static constexpr int WORDS = 40, ROW = 40;
+};
+
+template <class Form>
 __global__ void __launch_bounds__(MAX_LANES)
 bin_kernel(const int32_t* __restrict__ pts, const int8_t* __restrict__ digits,
            int32_t* __restrict__ rows, uint32_t* __restrict__ mask,
            uint32_t* __restrict__ sign, int32_t* __restrict__ cnt,
            int32_t* __restrict__ perm, int64_t n, int lanes, int nm) {
+  constexpr int W = Form::WORDS, R = Form::ROW;
   __shared__ int32_t key[NBUCKET * MAX_LANES];
   __shared__ int32_t tile[32 * 41];
   if (blockIdx.x >= 64) {
     // the point-major rows, 32 points a tile through shared memory: loads
-    // of one word of 32 points, then the tile's 1,280 words stored in order
+    // of one word of 32 points, then the tile's 32 rows stored in order
+    // (a Niels row's two pad words 0)
     for (int64_t k0 = (int64_t)(blockIdx.x - 64) * 32; k0 < n;
          k0 += (int64_t)(gridDim.x - 64) * 32) {
-      for (int i = threadIdx.x; i < 32 * 40; i += blockDim.x) {
+      for (int i = threadIdx.x; i < 32 * W; i += blockDim.x) {
         const int c = i / 32, p = i % 32;
         if (k0 + p < n) tile[p * 41 + c] = pts[c * n + k0 + p];
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < 32 * 40; i += blockDim.x)
-        if (k0 * 40 + i < n * 40)
-          rows[k0 * 40 + i] = tile[(i / 40) * 41 + i % 40];
+      for (int i = threadIdx.x; i < 32 * R; i += blockDim.x)
+        if (k0 * R + i < n * R)
+          rows[k0 * R + i] = i % R < W ? tile[(i / R) * 41 + i % R] : 0;
       __syncthreads();
     }
     return;
@@ -231,147 +159,62 @@ bin_kernel(const int32_t* __restrict__ pts, const int8_t* __restrict__ digits,
   }
 }
 
-// K11's arithmetic.  In fe_mul, (int64_t)a * b compiled to up to three
-// instructions a product (an unsigned wide product and sign corrections)
-// and fe_carry's rounds are 64-bit.  Here each product is one signed
-// multiply-add (mad.wide.s32) and rounds 2 and 3 of the carry run in 32
-// bits (round 1's carry split at the receiving limb's width into a
-// quotient and a remainder by carry_round1, which K4b shares).  The same
-// integers in every column and every round, so the limbs of fe_mul,
-// fe_mul_small and ge_add.
-__device__ __forceinline__ int64_t mad_wide(int32_t a, int32_t b, int64_t c) {
-#ifdef __CUDA_ARCH__
-  int64_t r;
-  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(c));
-  return r;
-#else
-  return c + (int64_t)a * b;
-#endif
-}
-
-// fe_carry's round 1 for limb k: its residue and its carry times the
-// factor limb k + 1 takes it with (19 into limb 0, else 1), split at limb
-// k + 1's width into a quotient and a remainder.  Carries reach 2^38;
-// quotient, remainder and residue fit in 32 bits, and so does every later
-// round, so rounds 2 and 3 run in 32 bits: limb k's round-2 value is its
-// residue plus the incoming remainder, its round-2 carry the incoming
-// quotient plus that value's carry.
-struct carry_out {
-  int32_t res, quo, rem;
-};
-
-__device__ __forceinline__ carry_out carry_round1(int64_t h, int k) {
-  const int w = 26 - (k & 1);
-  const int wn = 26 - ((k + 1) & 1);
-  const int32_t half = 1 << (w - 1);
-  const int64_t c = ((h + half) >> w) * (k == 9 ? 19 : 1);
-  return carry_out{
-      (int32_t)(((uint32_t)h + (uint32_t)half) & ((1u << w) - 1)) - half,
-      (int32_t)(c >> wn), (int32_t)((uint32_t)c & ((1u << wn) - 1))};
-}
-
-// fe_carry, rounds 2 and 3 in 32 bits: limb k's round-1 residue plus the
-// remainder of limb k - 1's carry, then the quotient passed on as part of
-// the round-2 carry
-__device__ __forceinline__ fe fe_carry32(const int64_t h[10]) {
-  carry_out o[10];
+// the R words of row k, R / 4 aligned 16-byte loads
+template <int R>
+__device__ __forceinline__ void row_load(const int32_t* __restrict__ rows,
+                                         int64_t k, int32_t (&v)[R]) {
+  const int4* r = reinterpret_cast<const int4*>(rows + k * R);
 #pragma unroll
-  for (int k = 0; k < 10; ++k) o[k] = carry_round1(h[k], k);
-  int32_t r2[10], c2[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    const int w = 26 - (k & 1), src = k == 0 ? 9 : k - 1;
-    const int32_t s = o[k].res + o[src].rem;
-    const int32_t e = (s + (1 << (w - 1))) >> w;
-    c2[k] = o[src].quo + e;
-    r2[k] = s - e * (1 << w);
-  }
-  int32_t h2[10], c3[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    const int w = 26 - (k & 1), src = k == 0 ? 9 : k - 1;
-    h2[k] = r2[k] + (k == 0 ? 19 : 1) * c2[src];
-    c3[k] = (h2[k] + (1 << (w - 1))) >> w;
-  }
-  fe out;
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    const int w = 26 - (k & 1), src = k == 0 ? 9 : k - 1;
-    out.v[k] = h2[k] - c3[k] * (1 << w) + (k == 0 ? 19 : 1) * c3[src];
-  }
-  return out;
-}
-
-__device__ __forceinline__ fe fe_mul_z(const fe& a, const fe& b) {
-  int64_t lo[10], hi[9];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) lo[k] = 0;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) hi[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-#pragma unroll
-    for (int j = 0; j < 10; ++j) {
-      const int32_t bj = (i & j & 1) ? 2 * b.v[j] : b.v[j];
-      if (i + j < 10)
-        lo[i + j] = mad_wide(a.v[i], bj, lo[i + j]);
-      else
-        hi[i + j - 10] = mad_wide(a.v[i], bj, hi[i + j - 10]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 9; ++k) lo[k] += 19 * hi[k];
-  return fe_carry32(lo);
-}
-
-__device__ __forceinline__ fe fe_dbl_z(const fe& a) {
-  int64_t h[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) h[k] = (int64_t)a.v[k] * 2;
-  return fe_carry32(h);
-}
-
-// ge_add with fe_mul_z
-__device__ __forceinline__ ge ge_add_z(const ge& p, const ge& q) {
-  const fe A = fe_mul_z(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-  const fe B = fe_mul_z(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-  const fe C = fe_mul_z(fe_mul_z(p.T, fe_const(FE_D2)), q.T);
-  const fe D = fe_dbl_z(fe_mul_z(p.Z, q.Z));
-  const fe E = fe_sub(B, A), F = fe_sub(D, C), G = fe_add(D, C),
-           H = fe_add(B, A);
-  ge r;
-  r.X = fe_mul_z(E, F);
-  r.Y = fe_mul_z(G, H);
-  r.Z = fe_mul_z(F, G);
-  r.T = fe_mul_z(E, H);
-  return r;
-}
-
-// point k of the (N, 40) rows: ten 16-byte loads
-__device__ __forceinline__ ge ge_row(const int32_t* __restrict__ rows,
-                                     int64_t k) {
-  const int4* r = reinterpret_cast<const int4*>(rows + k * 40);
-  int32_t v[40];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
+  for (int i = 0; i < R / 4; ++i) {
     const int4 x = __ldg(r + i);
     v[4 * i] = x.x;
     v[4 * i + 1] = x.y;
     v[4 * i + 2] = x.z;
     v[4 * i + 3] = x.w;
   }
-  ge p;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    p.X.v[i] = v[i];
-    p.Y.v[i] = v[10 + i];
-    p.Z.v[i] = v[20 + i];
-    p.T.v[i] = v[30 + i];
-  }
-  return p;
 }
 
-// window and bucket of K11's thread group g (the 64 x 8 groups of `lanes`
+// acc + (+-point k): ge_madd with Y+X and Y-X swapped and 2dT negated for a
+// negative digit
+__device__ __forceinline__ ge add_row(const ge& acc, niels_form,
+                                      const int32_t* __restrict__ rows,
+                                      int64_t k, bool neg) {
+  int32_t v[niels_form::ROW];
+  row_load(rows, k, v);
+  fe ypx, ymx, t2d;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    ypx.v[i] = v[i];
+    ymx.v[i] = v[10 + i];
+    t2d.v[i] = v[20 + i];
+  }
+  ge_niels q;
+  q.ypx = fe_select(neg, ymx, ypx);
+  q.ymx = fe_select(neg, ypx, ymx);
+  q.t2d = fe_select(neg, fe_neg(t2d), t2d);
+  return ge_madd(acc, q);
+}
+
+// acc + (+-point k): ge_add with X and T negated for a negative digit
+__device__ __forceinline__ ge add_row(const ge& acc, ext_form,
+                                      const int32_t* __restrict__ rows,
+                                      int64_t k, bool neg) {
+  int32_t v[ext_form::ROW];
+  row_load(rows, k, v);
+  ge q;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    q.X.v[i] = v[i];
+    q.Y.v[i] = v[10 + i];
+    q.Z.v[i] = v[20 + i];
+    q.T.v[i] = v[30 + i];
+  }
+  q.X = fe_select(neg, fe_neg(q.X), q.X);
+  q.T = fe_select(neg, fe_neg(q.T), q.T);
+  return ge_add(acc, q);
+}
+
+// window and bucket of thread group g (the 64 x 8 groups of `lanes`
 // threads): window 63 first, since a 253-bit scalar's top digit is 0 or 1,
 // so bucket 0 of window 63 holds about half the points, the longest lists
 __device__ __forceinline__ void group_wb(int64_t g, int& w, int& b) {
@@ -379,20 +222,21 @@ __device__ __forceinline__ void group_wb(int64_t g, int& w, int& b) {
   b = (int)(g % NBUCKET);
 }
 
-// K11: thread (w, b, j) adds its list's points into one bucket in registers
+// thread (w, b, j) adds its list's points into one bucket in registers
 // and writes it to slab[w][b][c][limb][j] once (the identity for an empty
 // list).  Thread r of group (w, b) takes lane perm[w][b][r], so a warp's 32
 // lists are of nearly one length (a warp runs as long as its longest) and
 // the longest start first.  Blocks are of four warps, two an SM: a block
 // holds its registers until its longest warp ends, and a larger one spans
 // more of a group's lengths.
+template <class Form>
 __global__ void __launch_bounds__(ACCZ_THREADS, ACCZ_MIN_BLOCKS)
-accumulate_z_kernel(const int32_t* __restrict__ rows,
-                    const uint32_t* __restrict__ mask,
-                    const uint32_t* __restrict__ sign,
-                    const int32_t* __restrict__ cnt,
-                    const int32_t* __restrict__ perm,
-                    int32_t* __restrict__ slab, int lanes, int nm) {
+accumulate_kernel(const int32_t* __restrict__ rows,
+                  const uint32_t* __restrict__ mask,
+                  const uint32_t* __restrict__ sign,
+                  const int32_t* __restrict__ cnt,
+                  const int32_t* __restrict__ perm,
+                  int32_t* __restrict__ slab, int lanes, int nm) {
   const int64_t t = (int64_t)blockIdx.x * ACCZ_THREADS + threadIdx.x;
   int w, b;
   group_wb(t / lanes, w, b);
@@ -412,12 +256,8 @@ accumulate_z_kernel(const int32_t* __restrict__ rows,
     }
     const int s = __ffs(bits) - 1;
     bits &= bits - 1;
-    ge q = ge_row(rows, j + (int64_t)(32 * m + s) * lanes);
-    if ((neg >> s) & 1) {
-      q.X = fe_neg(q.X);
-      q.T = fe_neg(q.T);
-    }
-    acc = ge_add_z(acc, q);
+    acc = add_row(acc, Form(), rows, j + (int64_t)(32 * m + s) * lanes,
+                  (neg >> s) & 1);
   }
   ge_store(slab + g * 40 * lanes + j, lanes, acc);
 }
@@ -471,7 +311,6 @@ __global__ void reduce_kernel(const int32_t* __restrict__ slab,
 // apart.  Both phases keep every operation of horner_plain in its order,
 // so the point and the flag equal its limbs.
 
-#define FULL_MASK 0xffffffffu
 #define HORNER_CLUSTER 16                   // blocks; 4 windows each
 #define HORNER_THREADS 128                  // a warp per window, per product
 
@@ -508,21 +347,6 @@ __device__ __forceinline__ int64_t pair_col(int32_t ak, int32_t bk,
   }
   const int64_t col = lo + 19 * hi;
   return col + (int64_t)__shfl_sync(FULL_MASK, (long long)col, l.partner);
-}
-
-// fe_carry on a group of ten lanes (limb k on lane base + k), round by
-// round: each round passes carries from lane k - 1 to lane k
-__device__ __forceinline__ int32_t carry_rounds(int64_t h, int k, int base) {
-  const int w = 26 - (k & 1);
-  const int32_t half = 1 << (w - 1), f = k == 0 ? 19 : 1;
-  const int src = base + (k == 0 ? 9 : k - 1);
-  const carry_out o = carry_round1(h, k);
-  const int32_t s = o.res + __shfl_sync(FULL_MASK, o.rem, src);
-  const int32_t e = (s + half) >> w;
-  const int32_t c2 = __shfl_sync(FULL_MASK, o.quo, src) + e;
-  const int32_t h2 = s - e * (1 << w) + f * __shfl_sync(FULL_MASK, c2, src);
-  const int32_t c3 = (h2 + half) >> w;
-  return h2 - c3 * (1 << w) + f * __shfl_sync(FULL_MASK, c3, src);
 }
 
 // the same limbs with one exchange: lane k takes round 1's outputs of
@@ -710,57 +534,93 @@ horner_kernel(const int32_t* __restrict__ sums, int32_t* __restrict__ out,
   if (rank == 0) horner_chain(win, acc, tmp, out, flag, d2k, l);
 }
 
-// niels (3, 10, n) int32, digits (64, n) int8 -> slab (64, 8, 4, 10, lanes)
-BP_EXPORT int bp_msm_accumulate(const int32_t* niels, const int8_t* digits,
-                                int32_t* slab, int64_t n, int64_t lanes,
-                                cudaStream_t stream) {
-  dim3 grid((unsigned)(lanes / ACC_THREADS), 64);
-  accumulate_kernel<<<grid, ACC_THREADS, 0, stream>>>(niels, digits, slab, n,
-                                                      (int)lanes);
-  return (int)cudaGetLastError();
-}
-
-// pts (4, 10, n) int32, digits (64, n) int8 -> rows (n, 40), mask (64, 8,
-// nm, lanes), sign (64, nm, lanes), cnt and perm (64, 8, lanes); nm =
-// ceil(n / (32 lanes)), a lane's words of 32 steps.  Blocks 0-63 bin one
-// window each (a thread per lane); the rest copy the rows.
-BP_EXPORT int bp_msm_bin(const int32_t* pts, const int8_t* digits,
-                         int32_t* rows, uint32_t* mask, uint32_t* sign,
-                         int32_t* cnt, int32_t* perm, int64_t n,
-                         int64_t lanes, cudaStream_t stream) {
+template <class Form>
+static int bin_launch(const int32_t* pts, const int8_t* digits, int32_t* rows,
+                      uint32_t* mask, uint32_t* sign, int32_t* cnt,
+                      int32_t* perm, int64_t n, int64_t lanes,
+                      cudaStream_t stream) {
   const int nm = (int)((n + 32 * lanes - 1) / (32 * lanes));
   const int64_t tiles = (n + 31) / 32;
   const unsigned blocks = 64 + (unsigned)(tiles < ROW_BLOCKS ? tiles
                                                               : ROW_BLOCKS);
-  bin_kernel<<<blocks, (unsigned)lanes, 0, stream>>>(
+  bin_kernel<Form><<<blocks, (unsigned)lanes, 0, stream>>>(
       pts, digits, rows, mask, sign, cnt, perm, n, (int)lanes, nm);
   return (int)cudaGetLastError();
 }
 
-// rows, mask, sign, cnt, perm of bp_msm_bin -> slab (64, 8, 4, 10, lanes)
+template <class Form>
+static int accumulate_launch(const int32_t* rows, const uint32_t* mask,
+                             const uint32_t* sign, const int32_t* cnt,
+                             const int32_t* perm, int32_t* slab, int64_t n,
+                             int64_t lanes, cudaStream_t stream) {
+  const int nm = (int)((n + 32 * lanes - 1) / (32 * lanes));
+  const unsigned blocks = (unsigned)(64 * NBUCKET * lanes / ACCZ_THREADS);
+  accumulate_kernel<Form><<<blocks, ACCZ_THREADS, 0, stream>>>(
+      rows, mask, sign, cnt, perm, slab, (int)lanes, nm);
+  return (int)cudaGetLastError();
+}
+
+// K3's binning: niels (3, 10, n) int32, digits (64, n) int8 -> rows (n, 32)
+// (the Niels words, two pad words 0), mask (64, 8, nm, lanes), sign (64, nm,
+// lanes), cnt and perm (64, 8, lanes); nm = ceil(n / (32 lanes)), a lane's
+// words of 32 steps.  Blocks 0-63 bin one window each (a thread per lane);
+// the rest copy the rows.
+BP_EXPORT int bp_msm_bin_niels(const int32_t* niels, const int8_t* digits,
+                               int32_t* rows, uint32_t* mask, uint32_t* sign,
+                               int32_t* cnt, int32_t* perm, int64_t n,
+                               int64_t lanes, cudaStream_t stream) {
+  return bin_launch<niels_form>(niels, digits, rows, mask, sign, cnt, perm, n,
+                                lanes, stream);
+}
+
+// K11's binning: pts (4, 10, n) int32 -> rows (n, 40), the rest as K3's
+BP_EXPORT int bp_msm_bin(const int32_t* pts, const int8_t* digits,
+                         int32_t* rows, uint32_t* mask, uint32_t* sign,
+                         int32_t* cnt, int32_t* perm, int64_t n,
+                         int64_t lanes, cudaStream_t stream) {
+  return bin_launch<ext_form>(pts, digits, rows, mask, sign, cnt, perm, n,
+                              lanes, stream);
+}
+
+// K3: rows, mask, sign, cnt, perm of bp_msm_bin_niels -> slab (64, 8, 4,
+// 10, lanes)
+BP_EXPORT int bp_msm_accumulate(const int32_t* rows, const uint32_t* mask,
+                                const uint32_t* sign, const int32_t* cnt,
+                                const int32_t* perm, int32_t* slab, int64_t n,
+                                int64_t lanes, cudaStream_t stream) {
+  return accumulate_launch<niels_form>(rows, mask, sign, cnt, perm, slab, n,
+                                       lanes, stream);
+}
+
+// K11: rows, mask, sign, cnt, perm of bp_msm_bin -> slab (64, 8, 4, 10,
+// lanes)
 BP_EXPORT int bp_msm_accumulate_z(const int32_t* rows, const uint32_t* mask,
                                   const uint32_t* sign, const int32_t* cnt,
                                   const int32_t* perm, int32_t* slab,
                                   int64_t n, int64_t lanes,
                                   cudaStream_t stream) {
-  const int nm = (int)((n + 32 * lanes - 1) / (32 * lanes));
-  const unsigned blocks = (unsigned)(64 * NBUCKET * lanes / ACCZ_THREADS);
-  accumulate_z_kernel<<<blocks, ACCZ_THREADS, 0, stream>>>(
-      rows, mask, sign, cnt, perm, slab, (int)lanes, nm);
-  return (int)cudaGetLastError();
+  return accumulate_launch<ext_form>(rows, mask, sign, cnt, perm, slab, n,
+                                     lanes, stream);
 }
 
 // blocks that one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and their threads:
-// out = {K11 blocks, ACCZ_THREADS, msm_bin blocks, MAX_LANES}
+// out = {K11 blocks, ACCZ_THREADS, msm_bin blocks, MAX_LANES, K3 blocks,
+// msm_bin_niels blocks}
 BP_EXPORT int bp_msm_blocks_per_sm(int* out) {
   out[1] = ACCZ_THREADS;
   out[3] = MAX_LANES;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, accumulate_z_kernel, ACCZ_THREADS, 0);
+      out, accumulate_kernel<ext_form>, ACCZ_THREADS, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, bin_kernel,
-                                                        MAX_LANES, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, bin_kernel<ext_form>, MAX_LANES, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 4, accumulate_kernel<niels_form>, ACCZ_THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 5, bin_kernel<niels_form>, MAX_LANES, 0);
   return (int)err;
 }
 

@@ -41,6 +41,7 @@ LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,
                             "fixed_reduce": 0,
                             "fold": 0, "smul": 0, "digits": 0,
                             "msm_bin": 0, "msm_accumulate_z": 0,
+                            "msm_bin_niels": 0,
                             "fixed_accumulate2": 0,
                             "keccak_f1600": 0, "sinv": 0, "fmul13_chain": 0,
                             "fmul13_chain_mma": 0}

@@ -174,6 +174,22 @@ def compress_plain(pts: torch.Tensor) -> torch.Tensor:
     return fe_to_bytes(encode(to_coords(pts)))
 
 
+# K5's lanes of a warp a point (its two forms of the field arithmetic):
+# ten while a launch has at most COMPRESS_TEN_LANES_UP_TO points (3 a
+# warp, ~3.9 warps an SM sub-partition at 6,144), one above.  On an H100
+# (PERF.md §6) one lane took ~0.13 ms at every size to 12,288 points,
+# one thread's chain of products with most of the card idle; ten lanes
+# 0.068 ms at 512 points and 0.086 at 4,608, then their shuffles bound
+# them (0.165 at 8,192); 2 and 5 lanes were never the fastest.
+COMPRESS_LPS = (1, 10)
+COMPRESS_TEN_LANES_UP_TO = 6144
+
+
+def compress_lanes(n: int) -> int:
+    """K5's lanes a point for a launch of n points."""
+    return 10 if n <= COMPRESS_TEN_LANES_UP_TO else 1
+
+
 def compress(pts: torch.Tensor) -> torch.Tensor:
     """Kernel K5 (csrc/compress.cu) on a CUDA tensor, the plain version on
     a CPU tensor: (4, 10, N) int32 points -> (N, 32) uint8 encodings."""
@@ -181,11 +197,17 @@ def compress(pts: torch.Tensor) -> torch.Tensor:
         raise ValueError("compress takes a (4, 10, N) int32 tensor")
     if pts.device.type == "cpu":
         return compress_plain(pts)
+    return _compress_kernel(pts, compress_lanes(pts.shape[-1]))
+
+
+def _compress_kernel(pts: torch.Tensor, lp: int) -> torch.Tensor:
+    """K5 at `lp` lanes a point (one of COMPRESS_LPS; the benches time
+    both)."""
     pts = _cuda.check(pts, torch.int32)
     n = pts.shape[-1]
     out = torch.empty((n, 32), dtype=torch.uint8, device=pts.device)
     if n:
-        _cuda.launch("compress", "compress", "bp_compress", pts, out, n)
+        _cuda.launch("compress", "compress", "bp_compress", pts, out, n, lp)
     return out
 
 

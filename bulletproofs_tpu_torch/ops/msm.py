@@ -1,8 +1,8 @@
 """Pippenger multi-scalar multiplication: kernels K3 (bucket accumulation
-of Z = 1 points in Niels form), K11 (bucket accumulation of points of any
-Z: a binning launch, msm_bin, then one thread per bucket) and K4 (bucket
-reduction, then the Horner window combine with the ristretto is-identity
-flag), csrc/msm.cu.
+of Z = 1 points in Niels form) and K11 (bucket accumulation of points of
+any Z), each a binning launch (msm_bin_niels / msm_bin) then one thread
+per bucket, and K4 (bucket reduction, then the Horner window combine with
+the ristretto is-identity flag), csrc/msm.cu.
 
 The JAX package's ops/msm_pallas.py `_msm_pallas_niels` (`msm_niels`) and
 `_msm_pallas` (`msm_lanes_flag`) in the port's layout: signed base-16
@@ -109,19 +109,21 @@ def accumulate_plain(niels: torch.Tensor,
 
 
 def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Kernel K3 on CUDA tensors, the plain version on CPU tensors."""
-    n = niels.shape[-1]
-    if niels.shape[:2] != (3, L) or digits.shape != (NUM_WINDOWS, n):
-        raise ValueError("accumulate takes niels (3, 10, N), digits (64, N)")
+    """Kernel K3 on CUDA tensors (msm_bin_niels, then msm_accumulate: one
+    thread per (window, bucket, lane) adds its list of bin_points rows into
+    a bucket in registers), the plain version on CPU tensors."""
+    n = _check_points(niels, digits, (3,))
     if niels.device.type == "cpu":
         return accumulate_plain(niels, digits)
-    lanes = pick_lanes(n)
-    _cuda.check(niels, torch.int32)
-    _cuda.check(digits, torch.int8)
+    return _accumulate_binned("msm_accumulate", "bp_msm_accumulate",
+                              bin_points(niels, digits), n, niels.device)
+
+
+def _accumulate_binned(kernel: str, fn: str, binned, n: int, device):
+    lanes = binned[-1].shape[-1]
     slab = torch.empty((NUM_WINDOWS, NUM_BUCKETS, 4, L, lanes),
-                       dtype=torch.int32, device=niels.device)
-    _cuda.launch("msm_accumulate", "msm", "bp_msm_accumulate", niels, digits,
-                 slab, n, lanes)
+                       dtype=torch.int32, device=device)
+    _cuda.launch(kernel, "msm", fn, *binned, slab, n, lanes)
     return slab
 
 
@@ -133,18 +135,24 @@ def accumulate_z_plain(points: torch.Tensor,
     return _accumulate_plain(points, digits, C.identity, _add_extended)
 
 
-def _check_z(points: torch.Tensor, digits: torch.Tensor) -> int:
+# words of a point-major row: a Niels point's 30 padded to 32 (one aligned
+# 128-byte line), an extended point's 40
+ROW_WORDS = {3: 32, 4: 4 * L}
+
+
+def _check_points(points: torch.Tensor, digits: torch.Tensor,
+                  coords=(3, 4)) -> int:
     n = points.shape[-1]
-    if points.dim() != 3 or points.shape[:2] != (4, L) \
-            or digits.shape != (NUM_WINDOWS, n):
-        raise ValueError("accumulate_z takes points (4, 10, N), digits "
-                         "(64, N)")
+    if points.dim() != 3 or points.shape[0] not in coords \
+            or points.shape[1] != L or digits.shape != (NUM_WINDOWS, n):
+        raise ValueError(f"takes points ({' or '.join(map(str, coords))}, "
+                         f"10, N) and digits (64, N)")
     return n
 
 
 def bin_plain(digits: torch.Tensor, lanes: int) -> Tuple[torch.Tensor, ...]:
-    """digits (64, N) int8 -> K11's per-lane bucket lists as bit masks over
-    the lane's steps, nm = ceil(N / (32 lanes)) words each: (mask
+    """digits (64, N) int8 -> K3's and K11's per-lane bucket lists as bit
+    masks over the lane's steps, nm = ceil(N / (32 lanes)) words each: (mask
     (64, 8, nm, lanes), sign (64, nm, lanes), cnt (64, 8, lanes), perm
     (64, 8, lanes)) int32.  Bit s of mask[w, b, m, j] is set when the digit
     of window w of point k = j + (32 m + s) lanes has magnitude b + 1, bit
@@ -173,65 +181,68 @@ def bin_plain(digits: torch.Tensor, lanes: int) -> Tuple[torch.Tensor, ...]:
 
 def bin_points_plain(points: torch.Tensor, digits: torch.Tensor
                      ) -> Tuple[torch.Tensor, ...]:
-    """points (4, 10, N), digits (64, N) -> (rows (N, 40) int32, the points
-    point-major, and bin_plain(digits, pick_lanes(N)))."""
-    n = _check_z(points, digits)
-    rows = points.permute(2, 0, 1).reshape(n, 4 * L).contiguous()
+    """points (4, 10, N) or Niels points (3, 10, N), digits (64, N) ->
+    (rows (N, ROW_WORDS) int32, the points point-major, a Niels row's two
+    pad words 0, and bin_plain(digits, pick_lanes(N)))."""
+    n = _check_points(points, digits)
+    c = points.shape[0]
+    rows = torch.zeros((n, ROW_WORDS[c]), dtype=torch.int32,
+                       device=points.device)
+    rows[:, :c * L] = points.permute(2, 0, 1).reshape(n, c * L)
     return (rows,) + bin_plain(digits, pick_lanes(n))
 
 
 def bin_points(points: torch.Tensor, digits: torch.Tensor
                ) -> Tuple[torch.Tensor, ...]:
-    """K11's binning launch (msm_bin) on CUDA tensors, bin_points_plain on
-    CPU tensors."""
-    n = _check_z(points, digits)
+    """The binning launch of K3 (msm_bin_niels, for Niels points) or of K11
+    (msm_bin) on CUDA tensors, bin_points_plain on CPU tensors."""
+    n = _check_points(points, digits)
     if points.device.type == "cpu":
         return bin_points_plain(points, digits)
+    c = points.shape[0]
     lanes = pick_lanes(n)
     nm = -(-n // (32 * lanes))
     _cuda.check(points, torch.int32)
     _cuda.check(digits, torch.int8)
     dev = points.device
-    rows = torch.empty((n, 4 * L), dtype=torch.int32, device=dev)
+    rows = torch.empty((n, ROW_WORDS[c]), dtype=torch.int32, device=dev)
     mask = torch.empty((NUM_WINDOWS, NUM_BUCKETS, nm, lanes),
                        dtype=torch.int32, device=dev)
     sign = torch.empty((NUM_WINDOWS, nm, lanes), dtype=torch.int32,
                        device=dev)
     cnt, perm = torch.empty((2, NUM_WINDOWS, NUM_BUCKETS, lanes),
                             dtype=torch.int32, device=dev)
-    _cuda.launch("msm_bin", "msm", "bp_msm_bin", points, digits, rows, mask,
-                 sign, cnt, perm, n, lanes)
+    kernel, fn = (("msm_bin_niels", "bp_msm_bin_niels") if c == 3
+                  else ("msm_bin", "bp_msm_bin"))
+    _cuda.launch(kernel, "msm", fn, points, digits, rows, mask, sign, cnt,
+                 perm, n, lanes)
     return rows, mask, sign, cnt, perm
 
 
 def accumulate_z(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """Kernel K11 on CUDA tensors (msm_bin, then msm_accumulate_z: one
-    thread per (window, bucket, lane) adds its list of bin_points into a
-    bucket in registers), the plain version on CPU tensors."""
-    n = _check_z(points, digits)
+    thread per (window, bucket, lane) adds its list of bin_points rows into
+    a bucket in registers), the plain version on CPU tensors."""
+    n = _check_points(points, digits, (4,))
     if points.device.type == "cpu":
         return accumulate_z_plain(points, digits)
-    binned = bin_points(points, digits)
-    lanes = binned[-1].shape[-1]
-    slab = torch.empty((NUM_WINDOWS, NUM_BUCKETS, 4, L, lanes),
-                       dtype=torch.int32, device=points.device)
-    _cuda.launch("msm_accumulate_z", "msm", "bp_msm_accumulate_z", *binned,
-                 slab, n, lanes)
-    return slab
+    return _accumulate_binned("msm_accumulate_z", "bp_msm_accumulate_z",
+                              bin_points(points, digits), n, points.device)
 
 
 def warps_per_sm() -> Dict[str, int]:
-    """Warps of K11 and of msm_bin that one SM of the current CUDA device
-    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, times
-    the block's warps)."""
-    out = (ctypes.c_int * 4)()
+    """Warps of K3's and K11's kernels that one SM of the current CUDA
+    device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    times the block's warps)."""
+    out = (ctypes.c_int * 6)()
     f = _cuda._lib("msm").bp_msm_blocks_per_sm
     f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     err = f(out)
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return {"msm_accumulate_z": out[0] * out[1] // 32,
-            "msm_bin": out[2] * out[3] // 32}
+    acc, binned = out[1] // 32, out[3] // 32
+    return {"msm_accumulate_z": out[0] * acc, "msm_bin": out[2] * binned,
+            "msm_accumulate": out[4] * acc, "msm_bin_niels": out[5] * binned}
 
 
 # -- K4: bucket reduction and Horner combine --------------------------------------

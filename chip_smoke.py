@@ -21,15 +21,17 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      and 4 proofs at n=8 from the card equal the device="cpu" route's
      byte for byte;
   3. holds every kernel against its plain PyTorch version on the card, on
-     main-path inputs (one 2048-proof verifier sub-batch; one IPP round's
-     L stream and the S stream, one 8192-point compression, one half's
-     transcript states and IPP challenges of the prover; K12 beside K6 on
-     the L stream), and the verifier MSM against the host curve library on
-     a small input.  At each of the prover's fixed-base shapes (m=1 and
-     m=16, IPP L and S streams) each K6 form that serves it (one-hot for
-     the witness rows, also direct for the public IPP rows) and K7 are
-     timed and held against their plain versions, the two forms against
-     each other; launches per form are checked;
+     main-path inputs (one 2048-proof verifier sub-batch, and K3 with its
+     binning launch on each of the verify run's four; one IPP round's L
+     stream and the S stream, the prover's compressions at each size it
+     makes (12,288 and 8,192 points), one half's transcript states and IPP
+     challenges; K12 beside K6 on the L stream), and the verifier MSM
+     against the host curve library on a small input.  At each of the
+     prover's fixed-base shapes (m=1 and m=16, IPP L and S streams) each
+     K6 form that serves it (one-hot for the witness rows, also direct for
+     the public IPP rows) and K7 are timed and held against their plain
+     versions, the two forms against each other; launches per form are
+     checked;
   4. times the verifier's main path (best of `--runs` after a warm-up);
   5. drives the aggregated path at full width: BatchProver(m=16) of
      `--agg-total` n=64 proofs on the device-transcript route (one
@@ -42,8 +44,9 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      swapped commitments rejected, 2 proofs through the host
      verify_multiple, and n=8, m=2 proofs from the card equal to the CPU
      route's byte for byte;
-  6. holds kernels K8-K12 against their plain versions on the aggregated
-     path's inputs (one fold, one gw update, the S coefficients' digits,
+  6. holds kernels K5 and K8-K12 against their plain versions on the
+     aggregated path's inputs (its compressions at each size, 4,608 and
+     512 points; one fold, one gw update, the S coefficients' digits,
      one verifier chunk's and the final MSM's accumulation, K11's binning
      launch there too, the S commitment's stream for K12, timed beside
      K6), and K6 / K7 at the m=16 IPP L and S streams as in 3;
@@ -100,9 +103,8 @@ SMEM_BYTES_PER_CLOCK_SM = 128
 # the direct form reads and writes one bucket, and only for a non-zero digit
 ONE_HOT_SMEM_BYTES = 3 * 8 * 40 * 4
 DIRECT_SMEM_BYTES = 2 * 40 * 4
-# multiply-adds of one field multiplication (10 x 10 limb products) and of
-# one Montgomery multiplication (9 x (9 + 1 + 9) limb products)
-FMUL_MADS = 100 * 2
+# multiply-adds of one Montgomery multiplication (9 x (9 + 1 + 9) limb
+# products); field products and squarings are counted by field_mads
 MONT_MADS = 171 * 2
 
 
@@ -164,22 +166,53 @@ def bound(nbytes: float, mads: float, imads_per_s: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def count_fmuls(fn):
-    """Field multiplications the plain version makes in fn() (the CUDA
-    kernels repeat its arithmetic step for step)."""
-    from bulletproofs_tpu_torch.ops import field as F
-    real, calls = F.mul, [0]
+def field_mads(fn) -> int:
+    """32-bit multiply-adds of the field products (100 limb products) and
+    squarings (55) the plain version makes in fn()."""
+    from bulletproofs_tpu_torch.benches import field_mads as fm
+    return fm(fn)
 
-    def counting(a, b):
-        calls[0] += 1
-        return real(a, b)
 
-    F.mul = counting
-    try:
-        fn()
-    finally:
-        F.mul = real
-    return calls[0]
+def decode_mads() -> int:
+    """Multiply-adds of one ristretto decode (K1)."""
+    from bulletproofs_tpu_torch.ops import curve as C
+    return field_mads(lambda: C.decode(torch.zeros((10, 1),
+                                                   dtype=torch.int64)))
+
+
+def horner_mads() -> int:
+    """Multiply-adds of K4b: 64 window sums of 14 complete additions, then
+    63 x (4 doublings + 1 addition)."""
+    from bulletproofs_tpu_torch.ops import curve as C
+    ident = C.to_coords(C.identity(1, "cpu"))
+    add = field_mads(lambda: C.add(ident, ident))
+    dbl = field_mads(lambda: C.double(ident))
+    return 64 * 14 * add + 63 * (4 * dbl + add)
+
+
+def encode_mads() -> int:
+    """Multiply-adds of one ristretto encode (K5)."""
+    from bulletproofs_tpu_torch.ops import curve as C
+    return field_mads(lambda: C.encode(C.to_coords(C.identity(1, "cpu"))))
+
+
+def compress_checks(calls, what, imads, smi, failures):
+    """K5 against compress_plain on each size a prover's run compressed
+    (`calls` of a CaptureEach keyed by N): exact, timed, with its lanes
+    per point."""
+    from bulletproofs_tpu_torch.ops import curve as C
+    for n_pts, ((pts,), out) in sorted(calls.items()):
+        want, plain_ms = time_once(lambda: C.compress_plain(pts))
+        err = max_abs_err(out, want)
+        ms = time_cuda(lambda: C.compress(pts), 20)
+        b_ms, b_by = bound(pts.numel() * 4 + out.numel(),
+                           n_pts * encode_mads(), imads)
+        log(f"  compress on the {what}'s {n_pts} points "
+            f"({C.compress_lanes(n_pts)} lanes a point): max_abs_err {err} "
+            f"({'ok' if err == 0 else 'MISMATCH'}); {ms:.4f} ms kernel, "
+            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}) on {smi}")
+        if err != 0:
+            failures.append(f"compress on the {what}'s {n_pts} points")
 
 
 def emit_mont_muls(n: int, m: int, P: int, tile: int) -> int:
@@ -215,6 +248,26 @@ class Capture:
 
     def restore(self):
         setattr(self.module, self.name, self.real)
+
+
+class CaptureEach(Capture):
+    """Keeps the input (tensors cloned) and result of the first call of
+    each key(*args), by default of every call, in `calls` ({key: (args,
+    out)}, in call order), while the function goes on working."""
+
+    def __init__(self, module, name, key=None):
+        super().__init__(module, name)
+        self.key, self.calls = key, {}
+
+    def __call__(self, *args):
+        k = len(self.calls) if self.key is None else self.key(*args)
+        if k in self.calls:
+            return self.real(*args)
+        kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        out = self.real(*args)
+        self.calls[k] = (kept, out)
+        return out
 
 
 def time_once(fn):
@@ -433,9 +486,7 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
     slab = M.accumulate_z(pts, dig)
     sums = M.reduce(slab)
     lanes = slab.shape[-1]
-    decode = count_fmuls(lambda: C.decode(torch.zeros((10, 1),
-                                                      dtype=torch.int64)))
-    add = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
+    add = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
     log(f"  {what}: kernels against their plain versions ({raw.shape[0]} "
         f"encodings; {N} MSM points in {lanes} lanes):")
     # (name, output, kernel, plain version, bytes, multiply-adds): the
@@ -443,7 +494,7 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
     stages = (
         ("decompress", dec.out, lambda: C.decompress(raw),
          lambda: C.decompress_plain(raw), raw.shape[0] * (32 + 1 + 160),
-         raw.shape[0] * decode * FMUL_MADS),
+         raw.shape[0] * decode_mads()),
         ("digits", dig, lambda: FO.digits_lanes(coef),
          lambda: FO.digits_plain(coef[None]), coef.numel() * 8 + dig.numel(),
          18 * N),
@@ -452,14 +503,13 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
         ("msm_accumulate_z", slab, lambda: M.accumulate_z(pts, dig),
          lambda: M.accumulate_z_plain(pts, dig),
          pts.numel() * 4 + dig.numel() + slab.numel() * 4,
-         int((dig != 0).sum()) * add * FMUL_MADS),
+         int((dig != 0).sum()) * add),
         ("msm_reduce", sums, lambda: M.reduce(slab),
          lambda: M.reduce_plain(slab), slab.numel() * 4 + sums.numel() * 4,
-         64 * 8 * (lanes - 1) * 9 * FMUL_MADS),
+         64 * 8 * (lanes - 1) * add),
         ("msm_horner", (msm.out[0][..., 0], msm.out[1]),
          lambda: M.horner(sums), lambda: M.horner_plain(sums),
-         sums.numel() * 4 + 160 + 4,
-         (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_MADS))
+         sums.numel() * 4 + 160 + 4, horner_mads()))
     for name, got, kernel, plain, nbytes, mads in stages:
         want, plain_ms = time_once(plain)
         err = max_abs_err(got, want)
@@ -485,8 +535,9 @@ MSM_KERNELS = ("decompress", "digits", "msm_bin", "msm_accumulate_z",
 
 
 def bin_bytes(pts, dig, binned) -> int:
-    """Bytes K11's binning launch must move: the points and digits read
-    once, the point-major rows, the lists and the offsets written once."""
+    """Bytes K3's or K11's binning launch must move: the points and digits
+    read once, the point-major rows, the lists and the offsets written
+    once."""
     return pts.numel() * 4 + dig.numel() + sum(t.numel() * 4 for t in binned)
 
 
@@ -817,8 +868,7 @@ def main() -> int:
     # of one half's device rest
     shapes1 = FS.ShapeCapture(FS.shape_specs(n, m, half))
     caps1 = {
-        "compress": Capture(PS.C, "compress",
-                            lambda pts: pts.shape[-1] == min(2 * half, 8192)),
+        "compress": CaptureEach(PS.C, "compress", lambda pts: pts.shape[-1]),
         "keccak": Capture(TD, "f1600_state_bytes",
                           lambda st: st.shape[1] == half),
         "sinv": Capture(PS.S, "sinv", lambda x: x.shape[1] == half),
@@ -932,9 +982,13 @@ def main() -> int:
         bv.verify_batch(ps, vs, [Transcript(l) for l in labels], rng=Rng(seed))
         torch.cuda.synchronize()
 
+    k3_caps = CaptureEach(M, "accumulate")          # K3, every sub-batch
     _cuda.reset_counts()
     t0 = time.time()
-    verify(proofs, vcss, 11)
+    try:
+        verify(proofs, vcss, 11)
+    finally:
+        k3_caps.restore()
     verify_launches = dict(_cuda.LAUNCHES)
     log(f"verify_batch({len(proofs)} card-proved proofs, n={n}): accepted "
         f"(first run {time.time() - t0:.3f} s); launches {verify_launches}")
@@ -1002,10 +1056,10 @@ def main() -> int:
         if launches[name] == 0:
             failures.append(f"{name} not launched on the main path")
 
-    madd = count_fmuls(lambda: C.madd(
+    madd = field_mads(lambda: C.madd(
         C.to_coords(C.identity(1, "cpu")),
         tuple(torch.zeros((10, 1), dtype=torch.int64) for _ in range(3))))
-    add = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
+    add = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
 
     def k12_against_k6(niels, dig, what):
         """K12 against its plain version and beside K6 on one stream ->
@@ -1029,8 +1083,7 @@ def main() -> int:
             log(f"    K6's direct form there: {shape_ms[what]:.4f} ms")
         return (err, ms2, plain_ms,
                 niels.numel() * 4 + dig.numel() + slab2.numel() * 4,
-                (rows * q * madd + k2 * q * FM.NUM_BUCKETS * add)
-                * FMUL_MADS)
+                rows * q * madd + k2 * q * FM.NUM_BUCKETS * add)
 
     shape_ms = {}           # shape -> the direct K6's ms, for k12_against_k6
 
@@ -1048,7 +1101,7 @@ def main() -> int:
             f"threads), {nonzero / (rows * q):.2%} non-zero digits; "
             f"plain K6 {plain_ms:.2f} ms")
         nbytes = niels.numel() * 4 + dig.numel() + plain.numel() * 4
-        mads = nonzero * madd * FMUL_MADS
+        mads = nonzero * madd
         b_ms, b_by = bound(nbytes, mads, imads)
         out, slabs = {}, {}
         for name, ct in (("fixed_accumulate", True),
@@ -1078,7 +1131,7 @@ def main() -> int:
         ms = time_cuda(lambda: FM.reduce(slab), 20)
         nbytes = slab.numel() * 4 + pts.numel() * 4
         mads = q * ((K - 1) * FM.NUM_BUCKETS + 2 * (FM.NUM_BUCKETS - 1)) \
-            * add * FMUL_MADS
+            * add
         b_ms, b_by = bound(nbytes, mads, imads)
         log(f"    fixed_reduce ({FM.red_groups(K)} chunk groups): max_abs_err "
             f"{err}; {ms:.4f} ms, plain {rplain_ms:.2f} ms, bound "
@@ -1113,13 +1166,12 @@ def main() -> int:
     torch.cuda.synchronize()
     if bool(got[0][0]) or bool(got[0][1]) or not bool(got[0][66:].all()):
         failures.append("decompress validity")
-    fm = count_fmuls(lambda: C.decode(torch.zeros((10, 1), dtype=torch.int64)))
     record("decompress", "bulletproofs_tpu_torch/csrc/decompress.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:242",
            max_abs_err((got[0], got[1]), (want[0], want[1])),
            time_cuda(lambda: C.decompress(raw_dev), 20),
            time_cuda(lambda: C.decompress_plain(raw_dev), 1),
-           N * (32 + 1 + 160), N * fm * FMUL_MADS, verify_launches)
+           N * (32 + 1 + 160), N * decode_mads(), verify_launches)
 
     blk = torch.from_numpy(blk_np.copy()).to(dev)
     got = V.emit(n, m, blk)
@@ -1141,14 +1193,35 @@ def main() -> int:
     NP = niels.shape[-1]
     lanes = M.pick_lanes(NP)
     nonzero = int((digits != 0).sum())
+    # K3 on each sub-batch of the verify run: its binning launch and the
+    # whole accumulate call against their plain versions
+    log(f"  K3 on the {len(k3_caps.calls)} sub-batches of the verify run:")
+    for i, ((kn, kd), kslab) in enumerate(k3_caps.calls.values()):
+        berr = max_abs_err(M.bin_points(kn, kd), M.bin_points_plain(kn, kd))
+        err = max_abs_err(kslab, M.accumulate_plain(kn, kd))
+        log(f"    sub-batch {i} ({kn.shape[-1]} points): msm_bin_niels "
+            f"max_abs_err {berr}, msm_accumulate max_abs_err {err}")
+        if berr != 0 or err != 0:
+            failures.append(f"K3 on verify sub-batch {i}")
+    if len(k3_caps.calls) != verify_launches["msm_accumulate"]:
+        failures.append("K3's sub-batches not captured")
+    binned = M.bin_points(niels, digits)
+    record("msm_bin_niels", "bulletproofs_tpu_torch/csrc/msm.cu",
+           "bulletproofs_tpu/ops/msm_pallas.py:58",
+           max_abs_err(binned, M.bin_points_plain(niels, digits)),
+           time_cuda(lambda: M.bin_points(niels, digits), 20),
+           time_cuda(lambda: M.bin_points_plain(niels, digits), 1),
+           bin_bytes(niels, digits, binned), 0, verify_launches)
+    # msm_accumulate's time is the whole accumulate call, its binning
+    # launch included
     slab = M.accumulate(niels, digits)
     record("msm_accumulate", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:58",
            max_abs_err(slab, M.accumulate_plain(niels, digits)),
-           time_cuda(lambda: M.accumulate(niels, digits), 5),
+           time_cuda(lambda: M.accumulate(niels, digits), 20),
            time_cuda(lambda: M.accumulate_plain(niels, digits), 1),
            NP * 120 + digits.numel() + slab.numel() * 4,
-           nonzero * 7 * FMUL_MADS, verify_launches)
+           nonzero * madd, verify_launches)
     sums = M.reduce(slab)
     record("msm_reduce", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:178",
@@ -1156,15 +1229,14 @@ def main() -> int:
            time_cuda(lambda: M.reduce(slab), 20),
            time_cuda(lambda: M.reduce_plain(slab), 1),
            slab.numel() * 4 + sums.numel() * 4,
-           64 * 8 * (lanes - 1) * 9 * FMUL_MADS, verify_launches)
+           64 * 8 * (lanes - 1) * add, verify_launches)
     out = M.horner(sums)
     record("msm_horner", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:214",
            max_abs_err(out, M.horner_plain(sums)),
            time_cuda(lambda: M.horner(sums), 20),
            time_cuda(lambda: M.horner_plain(sums), 1),
-           sums.numel() * 4 + 160 + 4,
-           (64 * 14 * 9 + 63 * (4 * 8 + 9)) * FMUL_MADS, verify_launches)
+           sums.numel() * 4 + 160 + 4, horner_mads(), verify_launches)
     if not bool(out[1].all()) or not bool(valid.all()):
         failures.append("sub-batch MSM is not the identity")
 
@@ -1184,26 +1256,27 @@ def main() -> int:
         failures.append("msm vs host")
 
     # -- 5. prover kernels against their plain versions, on main-path inputs ---------
+    k5_1 = caps1.pop("compress").calls
     if any(c.args is None for c in caps1.values()) \
-            or len(shapes1.got) != 2:
+            or min(2 * half, 8192) not in k5_1 or len(shapes1.got) != 2:
         failures.append("prover kernel inputs not captured")
     else:
-        (cpts,) = caps1["compress"].args
+        (cpts,), _ = k5_1[min(2 * half, 8192)]
         l_name, s_name = (name for name, _, _ in FS.shape_specs(n, m, half))
         rniels, rdig, rkw = shapes1.got[l_name]
         if rkw.get("consttime", True):
             failures.append("the m=1 IPP L stream was sent to the one-hot K6")
         log(f"prover kernel phases (compress of {cpts.shape[-1]} points; IPP "
             f"L stream of {rdig.shape[0]} rows x {rdig.shape[1]} lanes):")
+        compress_checks(k5_1, "m=1 prove", imads, smi, failures)
         got = C.compress(cpts)
-        fm = count_fmuls(lambda: C.encode(C.to_coords(C.identity(1, "cpu"))))
         record("compress", "bulletproofs_tpu_torch/csrc/compress.cu",
                "bulletproofs_tpu/ops/msm_pallas.py:251",
                max_abs_err(got, C.compress_plain(cpts)),
                time_cuda(lambda: C.compress(cpts), 20),
                time_cuda(lambda: C.compress_plain(cpts), 1),
                cpts.numel() * 4 + got.numel(),
-               cpts.shape[-1] * fm * FMUL_MADS, prove_launches)
+               cpts.shape[-1] * encode_mads(), prove_launches)
         log(f"  fixed-base MSM at the m=1 shapes ({madd} multiplications per "
             f"mixed addition, {add} per addition):")
         at_l = fixed_shape_checks(l_name, rniels, rdig, True)
@@ -1266,7 +1339,9 @@ def main() -> int:
         bv.replay(blob[lo * plen: hi * plen], vblob[lo * 32: hi * 32],
                   [Transcript(l) for l in labels[lo:hi]], Rng(16))
     replay_ms = (time.time() - t0) * 1e3
-    kern_ms = sum(k["ms"] * k["launches"] for k in kernels[:5])
+    kern_ms = sum(k["ms"] * k["launches"] for k in kernels
+                  if k["name"] in ("decompress", "emit", "msm_accumulate",
+                                   "msm_reduce", "msm_horner"))
     log(f"breakdown per verify_batch: serialize {ser_ms:.1f} ms, C++ replay "
         f"{replay_ms:.1f} ms (host); kernels {kern_ms:.2f} ms (device, sum "
         f"of kernel time x launches); the rest is PyTorch glue and copies")
@@ -1307,10 +1382,12 @@ def main() -> int:
              Capture(PS.FO, "digits_lanes",
                      lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1),
              Capture(PS, "prove_rest")]
+    k5_16 = CaptureEach(PS.C, "compress", lambda pts: pts.shape[-1])
     t0 = time.time()
     try:
         prove16(200)
     finally:
+        k5_16.restore()
         for c in reversed(pcaps):
             c.restore()
         shapes16.close()
@@ -1527,7 +1604,7 @@ def main() -> int:
                time_cuda(lambda: FO.digits_lanes(coef), 20),
                time_cuda(lambda: FO.digits_plain(coef), 1),
                nb * P * (9 * 8 + 64), 18 * nb * P, prove16_launches)
-        add9 = count_fmuls(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
+        add9 = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
                                          * 2))
         for cap, what in ((vcaps[0], "chunk"), (vcaps[1], "final MSM")):
             zp, zd = cap.args
@@ -1541,7 +1618,7 @@ def main() -> int:
             ms = time_cuda(lambda: M.accumulate_z(zp, zd), 10)
             plain_ms = time_cuda(lambda: M.accumulate_z_plain(zp, zd), 1)
             nbytes = zp.numel() * 4 + zd.numel() + zs.numel() * 4
-            mads = int((zd != 0).sum()) * add9 * FMUL_MADS
+            mads = int((zd != 0).sum()) * add9
             if what == "chunk":
                 # msm_bin alone; msm_accumulate_z's time is the whole
                 # accumulate_z call, its binning launch included
@@ -1561,6 +1638,10 @@ def main() -> int:
                         f"plain, bound {b_ms:.4f} ms ({b_by})")
                     if e != 0:
                         failures.append(f"{name} on the final MSM")
+        compress_checks(k5_16.calls, f"m={m16} prove", imads, smi, failures)
+        if not k5_16.calls:
+            failures.append(f"compress inputs of the m={m16} prove not "
+                            f"captured")
         l16, s16 = (name for name, _, _ in FS.shape_specs(n, m16, lanes16))
         log(f"  fixed-base MSM at the m={m16} shapes:")
         lniels, ldig, lkw = shapes16.got[l16]

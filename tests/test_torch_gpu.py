@@ -16,6 +16,7 @@ from bulletproofs_tpu_torch import (BulletproofGens, PedersenGens, ProofError,
                                     RangeProof, Scalar, Transcript)
 from bulletproofs_tpu_torch.core.ristretto import RISTRETTO_BASEPOINT
 from bulletproofs_tpu_torch.benches import accumulate_z as AZ
+from bulletproofs_tpu_torch.benches import compress as CB
 from bulletproofs_tpu_torch.benches import horner as HB
 from bulletproofs_tpu_torch.core.scalar import L as ELL
 from bulletproofs_tpu_torch.ops import _cuda
@@ -328,6 +329,70 @@ def test_accumulate_z_kernel_matches_plain_on_edge_cases(cuda, case):
     assert (_cuda.LAUNCHES["msm_bin"], _cuda.LAUNCHES["msm_accumulate_z"]) \
         == (before[0] + 1, before[1] + 1)
     assert torch.equal(slab.cpu(), want)
+
+
+@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES])
+def test_bin_niels_kernel_matches_plain(cuda, case):
+    """msm_bin_niels (K3's binning), one launch, against bin_points_plain
+    on the CPU on the edge cases: the Niels rows padded to 32 words, mask,
+    sign, cnt and perm."""
+    pts, dig = AZ.edge_inputs(case, 7, cuda, niels=True)
+    before = _cuda.LAUNCHES["msm_bin_niels"]
+    got = M.bin_points(pts, dig)
+    want = M.bin_points_plain(pts.cpu(), dig.cpu())
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["msm_bin_niels"] == before + 1
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES])
+def test_accumulate_kernel_matches_plain_on_edge_cases(cuda, case):
+    """K3 (msm_bin_niels then msm_accumulate) against accumulate_plain limb
+    for limb on the edge cases: every digit 0, every digit +-8, fewer
+    points than lanes, a ragged lane step, every digit negative."""
+    pts, dig = AZ.edge_inputs(case, 7, cuda, niels=True)
+    keys = ("msm_bin_niels", "msm_accumulate")
+    before = [_cuda.LAUNCHES[k] for k in keys]
+    slab = M.accumulate(pts, dig)
+    want = M.accumulate_plain(pts.cpu(), dig.cpu())
+    torch.cuda.synchronize()
+    assert [_cuda.LAUNCHES[k] for k in keys] == [b + 1 for b in before]
+    assert torch.equal(slab.cpu(), want)
+
+
+def test_accumulate_kernel_at_a_verify_sub_batch(cuda):
+    """K3 and its binning at a 2048-proof sub-batch's 34,946 points (512
+    lanes), against their plain versions on the card."""
+    pts = AZ.make_niels(34946, 93, cuda)
+    dig = AZ.make_digits(34946, 94, cuda)
+    binned = M.bin_points(pts, dig)
+    assert binned[-1].shape[-1] == 512
+    assert all(torch.equal(a, b) for a, b in
+               zip(binned, M.bin_points_plain(pts, dig)))
+    slab = M.accumulate(pts, dig)
+    want = M.accumulate_plain(pts, dig)
+    torch.cuda.synchronize()
+    assert torch.equal(slab, want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 512, 4608, 8192, 12288])
+def test_compress_kernel_at_the_prover_sizes(cuda, n):
+    """K5 against compress_plain byte for byte at the prover's sizes and
+    at 1 and 31 points, at the lanes per point compress_lanes picks and at
+    every other: the identity (32 zero bytes) and the base point plus
+    4-torsion (the base point's bytes) come first."""
+    pts = CB.make_points(n, 95, cuda)
+    want = C.compress_plain(pts)
+    before = _cuda.LAUNCHES["compress"]
+    got = C.compress(pts)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["compress"] == before + 1
+    assert torch.equal(got, want)
+    assert not bool(got[0].any())
+    if n > 1:
+        assert bytes(got[1].cpu().numpy()) == RISTRETTO_BASEPOINT.compress()
+    for lp in C.COMPRESS_LPS:
+        assert torch.equal(C._compress_kernel(pts, lp), want), lp
 
 
 def test_aggregated_prove_and_chunked_verify_on_card(cuda, monkeypatch):

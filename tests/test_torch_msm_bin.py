@@ -1,16 +1,22 @@
-"""Kernel K11's binning launch (`msm.bin_points`, whose CUDA kernel
-`msm_bin` sorts each (window, lane)'s points into per-bucket lists) and
-the order K11 adds in, through the plain versions on the CPU, on the edge
-cases of `benches.accumulate_z.CASES` (random digits, every digit 0, every
-digit +-8, fewer points than lanes, a ragged last lane step, every digit
-negative):
+"""The binning launch of kernels K3 and K11 (`msm.bin_points`, whose CUDA
+kernels `msm_bin_niels` and `msm_bin` sort each (window, lane)'s points
+into per-bucket lists) and the order K3 and K11 add in, through the plain
+versions on the CPU, for both point forms (Niels rows of Z = 1 points, as
+K3 takes them, and extended points of any Z, as K11 takes them), on the
+edge cases of `benches.accumulate_z.CASES` (random digits, every digit 0,
+every digit +-8, fewer points than lanes, a ragged last lane step, every
+digit negative):
 
 * `bin_plain`'s bit masks list, per (window w, bucket b, lane j), the
   points k = j (mod lanes) with |d[w, k]| = b + 1 in ascending k, their
   signs and their count, and its permutation orders each bucket's lanes
-  by that count, largest first;
-* adding each list's points in order from the identity, as a K11 thread
-  does, gives `accumulate_z_plain`'s slab limb for limb;
+  by that count, largest first; `bin_points_plain`'s rows are the points
+  point-major (a Niels row padded with two zero words);
+* adding each list's points in order from the identity, as a K3 or K11
+  thread does (a mixed addition of the Niels row, Y+X and Y-X swapped and
+  2dT negated for a negative digit; or a complete addition, X and T
+  negated), gives `accumulate_plain`'s or `accumulate_z_plain`'s slab
+  limb for limb;
 * that slab's MSM (K4a and K4b's plain versions) equals the JAX package's
   host MSM of the points with the digits' scalars sum_w d[w, k] 16^w, by
   compressed bytes (ristretto equality)."""
@@ -23,6 +29,7 @@ import torch
 
 from bulletproofs_tpu.core.ristretto import RistrettoPoint as HostPoint
 from bulletproofs_tpu.core.ristretto import multiscalar_mul as host_msm
+from bulletproofs_tpu.core.field import P as FIELD_P
 from bulletproofs_tpu.core.scalar import L as ELL
 
 from bulletproofs_tpu_torch.benches import accumulate_z as AZ
@@ -31,6 +38,11 @@ from bulletproofs_tpu_torch.ops import msm as M
 from bulletproofs_tpu_torch.ops.limbs import fe_limbs_to_ints
 
 CASES = [c for c, _ in AZ.CASES]
+# (case, form): the extended form keeps the case's name as its id
+FORMED = pytest.mark.parametrize(
+    "case,form", [(c, "extended") for c in CASES]
+    + [(c, "niels") for c in CASES],
+    ids=CASES + [f"niels {c}" for c in CASES])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,8 +56,8 @@ def _one_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def _inputs(case):
-    return AZ.edge_inputs(case, 7, "cpu")
+def _inputs(case, form):
+    return AZ.edge_inputs(case, 7, "cpu", niels=form == "niels")
 
 
 def _lists(mask, sign, lanes):
@@ -64,33 +76,45 @@ def _lists(mask, sign, lanes):
 
 
 def _binned_slab(rows, mask, sign, cnt):
-    """K11's order: thread (w, b, j) starts from the identity and adds the
-    points of its list, lane j's points with |digit| = b + 1 by ascending
-    k, X and T negated for a negative digit."""
+    """K3's and K11's order: thread (w, b, j) starts from the identity and
+    adds the points of its list, lane j's points with |digit| = b + 1 by
+    ascending k: a Niels row (32 words) by the mixed addition, Y+X and Y-X
+    swapped and 2dT negated for a negative digit; an extended row (40
+    words) by the complete addition, X and T negated."""
     lanes = cnt.shape[-1]
     ks, negs = _lists(mask, sign, lanes)
-    pts = rows.to(torch.int64).T.reshape(4, 10, -1)
+    niels = rows.shape[1] == 32
+    pts = rows[:, :30 if niels else 40].to(torch.int64).T.reshape(
+        3 if niels else 4, 10, -1)
     acc = C.to_coords(C.identity(cnt.numel(), "cpu"))
     for i in range(int(cnt.max())):
         live = (cnt > i).reshape(-1)
         k = torch.where(live, ks[:, :, i].reshape(-1), 0)
         neg = negs[:, :, i].reshape(-1)
         q = pts[:, :, k]
-        q = (torch.where(neg, -q[0], q[0]), q[1], q[2],
-             torch.where(neg, -q[3], q[3]))
-        new = C.add(acc, q)
+        if niels:
+            new = C.madd(acc, (torch.where(neg, q[1], q[0]),
+                               torch.where(neg, q[0], q[1]),
+                               torch.where(neg, -q[2], q[2])))
+        else:
+            new = C.add(acc, (torch.where(neg, -q[0], q[0]), q[1], q[2],
+                              torch.where(neg, -q[3], q[3])))
         acc = tuple(torch.where(live, a, b) for a, b in zip(new, acc))
     slab = torch.stack(acc).reshape(4, 10, M.NUM_WINDOWS, M.NUM_BUCKETS,
                                     lanes)
     return slab.permute(2, 3, 0, 1, 4).to(torch.int32).contiguous()
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_bin_plain_lists(case):
-    _, dig = _inputs(case)
+@FORMED
+def test_bin_plain_lists(case, form):
+    pts, dig = _inputs(case, form)
     n = dig.shape[-1]
     lanes = M.pick_lanes(n)
-    mask, sign, cnt, perm = M.bin_plain(dig, lanes)
+    rows, mask, sign, cnt, perm = M.bin_points_plain(pts, dig)
+    c = pts.shape[0]
+    assert rows.shape == (n, 32 if c == 3 else 40)
+    assert torch.equal(rows[:, :10 * c], pts.permute(2, 0, 1).reshape(n, -1))
+    assert not rows[:, 10 * c:].any()
     nm = -(-(-(-n // lanes)) // 32)
     assert mask.shape == (64, 8, nm, lanes) and sign.shape == (64, nm, lanes)
     assert cnt.shape == (64, 8, lanes)
@@ -110,24 +134,36 @@ def test_bin_plain_lists(case):
             assert perm[w, b].tolist() == order
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_binned_order_gives_the_plain_slab(case):
-    pts, dig = _inputs(case)
-    rows, mask, sign, cnt, _ = M.bin_points(pts, dig)
-    assert torch.equal(rows, pts.permute(2, 0, 1).reshape(-1, 40))
-    slab = _binned_slab(rows, mask, sign, cnt)
-    assert torch.equal(slab, M.accumulate_z_plain(pts, dig))
+@FORMED
+def test_binned_order_gives_the_plain_slab(case, form):
+    pts, dig = _inputs(case, form)
+    slab = _binned_slab(*M.bin_points(pts, dig)[:4])
+    plain = M.accumulate_plain if form == "niels" else M.accumulate_z_plain
+    assert torch.equal(slab, plain(pts, dig))
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_binned_msm_matches_jax_host_msm(case):
-    pts, dig = _inputs(case)
+def _host_points(pts):
+    """Host points of (4, 10, n) extended or (3, 10, n) Niels limbs (Z = 1:
+    X = (Y+X - (Y-X)) / 2, Y = (Y+X + Y-X) / 2)."""
+    coords = [fe_limbs_to_ints(pts[c].numpy()) for c in range(pts.shape[0])]
+    if pts.shape[0] == 4:
+        return [HostPoint(*(coords[c][i] for c in range(4)))
+                for i in range(pts.shape[-1])]
+    half = pow(2, FIELD_P - 2, FIELD_P)
+    out = []
+    for ypx, ymx in zip(coords[0], coords[1]):
+        x, y = (ypx - ymx) * half % FIELD_P, (ypx + ymx) * half % FIELD_P
+        out.append(HostPoint(x, y, 1, x * y % FIELD_P))
+    return out
+
+
+@FORMED
+def test_binned_msm_matches_jax_host_msm(case, form):
+    pts, dig = _inputs(case, form)
     slab = _binned_slab(*M.bin_points(pts, dig)[:4])
     out, flag = M.horner_plain(M.reduce_plain(slab))
     got = C.lanes_to_points(out.numpy()[:, :, None])[0]
-    coords = [fe_limbs_to_ints(pts[c].numpy()) for c in range(4)]
-    host = [HostPoint(*(coords[c][i] for c in range(4)))
-            for i in range(pts.shape[-1])]
+    host = _host_points(pts)
     weights = 16 ** np.arange(64, dtype=object)
     scalars = [int((dig[:, k].numpy().astype(object) * weights).sum()) % ELL
                for k in range(pts.shape[-1])]
