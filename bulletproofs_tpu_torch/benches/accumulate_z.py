@@ -161,16 +161,17 @@ def sass_counts(so: str, keep=_ours) -> dict:
 
 def occupancy_from_ptxas(lines, threads: int) -> int:
     """Resident warps per SM of an H100 for a kernel of `threads`-thread
-    blocks from ptxas' registers and shared memory (65,536 registers
-    allotted 256 per warp, 233,472 B of shared memory with 1 KB held per
-    block, at most 32 blocks and 64 warps)."""
+    blocks from ptxas' registers and shared memory (65,536 registers in
+    four sub-partitions of 16,384, allotted 256 per warp, 233,472 B of
+    shared memory with 1 KB held per block, at most 32 blocks and 64
+    warps)."""
     text = " ".join(lines)
     regs = int(re.search(r"Used (\d+) registers", text).group(1))
     m = re.search(r"(\d+) bytes smem", text)
     smem = int(m.group(1)) if m else 0
     wpb = -(-threads // 32)
     per_warp = -(-regs * 32 // 256) * 256
-    blocks = min(65536 // per_warp // wpb, 233472 // (smem + 1024), 32,
+    blocks = min(4 * (16384 // per_warp) // wpb, 233472 // (smem + 1024), 32,
                  64 // wpb)
     return blocks * wpb
 

@@ -3,10 +3,13 @@
 // K14 sinv has no Pallas counterpart: it is the JAX package's XLA
 // vec_scalar.py:207 sinv (a scan of 253 steps), the inverse of each IPP
 // challenge u on the device transcript route.  One thread per proof runs
-// the ladder of sc_invert (sc25519.cuh): 326 Montgomery multiplications in
-// registers.  Bound: operations (326 x 171 limb products per proof against
-// 144 bytes); at 4096 proofs that is ~0.3 % of the card's threads, so
-// the time is one thread's chain of dependent multiplications.
+// sc_invert (sc25519.cuh): a safegcd inversion of 20 batches of 30
+// branch-free divsteps, each batch's 2x2 matrix applied to 9 signed 30-bit
+// limbs, all in registers.  At 4096 proofs the launch has 128 warps, one
+// per SM sub-partition on 32 SMs, so the time is one thread's chain: its
+// dependent instructions (a latency floor, which benches/field_kernels.py
+// counts, above the operations bound) and its instructions issued one warp
+// at a time (~21,900, at ~2.3 cycles each on an H100).
 //
 // K8 fold replaces ops/fold_pallas.py:42 _fold_kernel (fold_lanes, :88),
 // u x + v y elementwise, the IPP fold of a and b.  K9 smul replaces :50
@@ -103,7 +106,7 @@ digits_kernel(const int64_t* __restrict__ x, int8_t* __restrict__ out,
   for (int w = 0; w < 64; ++w) dst[w * Q] = d[w];
 }
 
-// x (9, P) -> out (9, P): x^(l-2) mod l per proof
+// x (9, P) -> out (9, P): x^-1 mod l per proof
 __global__ void __launch_bounds__(FOLD_THREADS)
 sinv_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
             int64_t P) {

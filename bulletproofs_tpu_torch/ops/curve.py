@@ -16,6 +16,7 @@ public entry points.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -124,6 +125,26 @@ def decompress_plain(raw: torch.Tensor):
     (vec_curve.decompress_device)."""
     valid, pt = decode(fe_from_bytes(raw))
     return valid & canonical_mask(raw), from_coords(pt)
+
+
+def decompress_resident() -> int:
+    """Points that K1 holds resident at once on the current CUDA device, a
+    thread a point (csrc/decompress.cu): its SMs times the threads an SM
+    that cudaOccupancyMaxActiveBlocksPerMultiprocessor allows."""
+    out = ctypes.c_int()
+    f = _cuda._lib("decompress").bp_decompress_threads_per_sm
+    f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    err = f(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count * out.value
+
+
+def decompress_waves(n: int) -> int:
+    """Waves of resident blocks that a K1 launch of n points takes on the
+    current CUDA device."""
+    return -(-n // decompress_resident())
 
 
 def decompress(raw: torch.Tensor):

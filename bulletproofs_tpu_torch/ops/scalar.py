@@ -120,10 +120,12 @@ _INV_BITS = [(ELL - 2) >> i & 1
 
 
 def sinv_plain(x: torch.Tensor) -> torch.Tensor:
-    """Canonical x -> x^(l-2) mod l, canonical (0 -> 0): the square-and-
-    multiply ladder over the static bits of l - 2, most significant first,
-    in Montgomery form, starting at the top bit (csrc/sc25519.cuh
-    sc_invert)."""
+    """Canonical x -> x^(l-2) mod l = x^-1, canonical (0 -> 0): the
+    square-and-multiply ladder over the static bits of l - 2, most
+    significant first, in Montgomery form, starting at the top bit.  Kernel
+    K14 (csrc/sc25519.cuh sc_invert) computes the same inverse by another
+    algorithm, a safegcd of fixed length; both are exact and canonical, so
+    their limbs agree, and each checks the other."""
     xm = to_mont(x)
     acc = xm
     for bit in _INV_BITS[1:]:
@@ -134,9 +136,9 @@ def sinv_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def sinv(x: torch.Tensor) -> torch.Tensor:
-    """(9, P) canonical scalars -> their inverses mod l (vec_scalar.sinv):
-    kernel K14 (csrc/fold.cu) on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    """(9, P) canonical scalars -> their inverses mod l, 0 -> 0
+    (vec_scalar.sinv): kernel K14 (csrc/fold.cu, a safegcd inversion) on a
+    CUDA tensor, the plain version (the Fermat ladder) on a CPU tensor."""
     if x.dim() != 2 or x.shape[0] != L or x.dtype != torch.int64:
         raise ValueError(f"sinv takes a ({L}, P) int64 tensor")
     if x.device.type == "cpu":

@@ -44,9 +44,10 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      swapped commitments rejected, 2 proofs through the host
      verify_multiple, and n=8, m=2 proofs from the card equal to the CPU
      route's byte for byte;
-  6. holds kernels K5 and K8-K12 against their plain versions on the
+  6. holds kernels K5, K8-K12 and K14 against their plain versions on the
      aggregated path's inputs (its compressions at each size, 4,608 and
-     512 points; one fold, one gw update, the S coefficients' digits,
+     512 points; one fold, one gw update, the S coefficients' digits, one
+     half's IPP challenges,
      one verifier chunk's and the final MSM's accumulation, K11's binning
      launch there too, the S commitment's stream for K12, timed beside
      K6), and K6 / K7 at the m=16 IPP L and S streams as in 3;
@@ -487,8 +488,10 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
     sums = M.reduce(slab)
     lanes = slab.shape[-1]
     add = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
+    waves = C.decompress_waves(raw.shape[0])
     log(f"  {what}: kernels against their plain versions ({raw.shape[0]} "
-        f"encodings; {N} MSM points in {lanes} lanes):")
+        f"encodings, K1 in {waves} wave(s); {N} MSM points in {lanes} "
+        f"lanes):")
     # (name, output, kernel, plain version, bytes, multiply-adds): the
     # first and last outputs are the path's own
     stages = (
@@ -781,6 +784,7 @@ def main() -> int:
     from bulletproofs_tpu_torch.ops import curve as C
     from bulletproofs_tpu_torch.config import settings
     from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    from bulletproofs_tpu_torch.benches import field_kernels as FK
     from bulletproofs_tpu_torch.benches import fixed_msm_shapes as FS
     from bulletproofs_tpu_torch.ops import fold as FO
     from bulletproofs_tpu_torch.ops import msm as M
@@ -796,6 +800,7 @@ def main() -> int:
     smi = card_line()
     imads = peak_imads()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = imads / (sms * IMAD_PER_CLOCK_SM) / 1e6     # maximum SM clock
     smem_rate = imads / IMAD_PER_CLOCK_SM * SMEM_BYTES_PER_CLOCK_SM
     log("torch", torch.__version__, "cuda", torch.version.cuda, "|", smi,
         f"| peak {imads:.4g} int32 multiply-adds/s")
@@ -819,6 +824,8 @@ def main() -> int:
         log("  NOTE: K6's occupancy differs from fixed_msm.TARGET_THREADS")
     log(f"msm resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
         f"): {M.warps_per_sm()}")
+    log(f"decompress resident points (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+        f"): {C.decompress_resident()}")
 
     n, m = 64, 1
     lg, nblk, n_dyn = V.shape(n, m)
@@ -1172,6 +1179,8 @@ def main() -> int:
            time_cuda(lambda: C.decompress(raw_dev), 20),
            time_cuda(lambda: C.decompress_plain(raw_dev), 1),
            N * (32 + 1 + 160), N * decode_mads(), verify_launches)
+    log(f"    ({N} encodings: {C.decompress_waves(N)} wave(s) of "
+        f"resident blocks)")
 
     blk = torch.from_numpy(blk_np.copy()).to(dev)
     got = V.emit(n, m, blk)
@@ -1305,16 +1314,17 @@ def main() -> int:
         (sx,) = caps1["sinv"].args
         got = S.sinv(sx)
         plain, plain_ms = time_once(lambda: S.sinv_plain(sx))
-        mont = 2 + (len(S._INV_BITS) - 1) + sum(S._INV_BITS[1:])
         record("sinv", "bulletproofs_tpu_torch/csrc/fold.cu",
                "bulletproofs_tpu/ops/vec_scalar.py:207",
                max_abs_err(got, plain), time_cuda(lambda: S.sinv(sx), 20),
-               plain_ms, 2 * 8 * sx.numel(),
-               mont * MONT_MADS * sx.shape[1], prove_launches)
+               plain_ms, 2 * 8 * sx.numel(), FK.SINV_OPS * sx.shape[1],
+               prove_launches)
         log(f"  (keccak_f1600 on {kst.shape[1]} states and sinv on "
-            f"{sx.shape[1]} challenges ({mont} Montgomery multiplications "
-            f"each): no Pallas counterpart, the JAX package runs both in "
-            f"XLA)")
+            f"{sx.shape[1]} challenges ({FK.SINV_DIVSTEPS} divsteps and "
+            f"{FK.SINV_OPS} integer operations each; latency floor "
+            f"{FK.sinv_latency_floor_ms(mhz):.4f} ms, {FK.SINV_CHAIN} "
+            f"dependent instructions): no Pallas counterpart, the JAX "
+            f"package runs both in XLA)")
 
     # -- 6. the verifier's timing ------------------------------------------------------
     times = []
@@ -1381,7 +1391,8 @@ def main() -> int:
              Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
              Capture(PS.FO, "digits_lanes",
                      lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1),
-             Capture(PS, "prove_rest")]
+             Capture(PS, "prove_rest"),
+             Capture(PS.S, "sinv")]
     k5_16 = CaptureEach(PS.C, "compress", lambda pts: pts.shape[-1])
     t0 = time.time()
     try:
@@ -1604,6 +1615,17 @@ def main() -> int:
                time_cuda(lambda: FO.digits_lanes(coef), 20),
                time_cuda(lambda: FO.digits_plain(coef), 1),
                nb * P * (9 * 8 + 64), 18 * nb * P, prove16_launches)
+        (sx16,) = pcaps[4].args
+        err = max_abs_err(S.sinv(sx16), S.sinv_plain(sx16))
+        ms = time_cuda(lambda: S.sinv(sx16), 20)
+        b_ms, b_by = bound(2 * 8 * sx16.numel(), FK.SINV_OPS * sx16.shape[1],
+                           imads)
+        log(f"  sinv on the m={m16} prover's {sx16.shape[1]} challenges: "
+            f"max_abs_err {err} ({'ok' if err == 0 else 'MISMATCH'}); "
+            f"{ms:.4f} ms kernel, bound {b_ms:.4f} ms ({b_by}), latency "
+            f"floor {FK.sinv_latency_floor_ms(mhz):.4f} ms on {smi}")
+        if err != 0:
+            failures.append(f"sinv on the m={m16} prover's challenges")
         add9 = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
                                          * 2))
         for cap, what in ((vcaps[0], "chunk"), (vcaps[1], "final MSM")):

@@ -242,6 +242,10 @@ from bulletproofs_tpu_torch.benches import accumulate_z as AZB
 from bulletproofs_tpu_torch.ops import msm as MSM
 pts, dig = AZB.edge_inputs("fewer points than lanes", 1, "cpu")
 assert MSM.bin_points(pts, dig)[1].shape == (64, 8, 1, 32)
+# the K1 / K14 bench's helpers and the chunked-verify bench
+from bulletproofs_tpu_torch.benches import field_kernels as FKB
+from bulletproofs_tpu_torch.benches import chunked_verify as CVB
+assert FKB.sinv_latency_floor_ms(1980) > 0 and CVB.Rng(1).randbytes(4)
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "bulletproofs_tpu"
        or k.startswith("bulletproofs_tpu.")]

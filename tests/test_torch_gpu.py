@@ -457,10 +457,16 @@ def test_keccak_kernel_matches_plain(cuda):
     assert got[:, 7].cpu().numpy().tobytes() == f1600_state(host)
 
 
-def test_sinv_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("P", [256, 1000, 4096])
+def test_sinv_kernel_matches_plain(cuda, P):
+    """K14 (safegcd) against the Fermat ladder of sinv_plain and pow, at the
+    m=16 and m=1 provers' challenge counts, edge values first."""
     from bulletproofs_tpu_torch.ops.limbs import sc_limbs_to_ints
     r = random.Random(84)
-    vals = [0, 1, ELL - 1] + [r.randrange(ELL) for _ in range(997)]
+    edge = [0, 1, 2, ELL - 1, ELL - 2, 1 << 252, (1 << 252) - 1] \
+        + [1 << k for k in range(0, 253, 12)] \
+        + [(1 << k) - 1 for k in range(2, 253, 12)]
+    vals = edge + [r.randrange(ELL) for _ in range(P - len(edge))]
     x = torch.as_tensor(sc_ints_to_limbs(vals)).to(cuda)
     before = _cuda.LAUNCHES["sinv"]
     got = S.sinv(x)
@@ -468,8 +474,28 @@ def test_sinv_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["sinv"] == before + 1
     assert torch.equal(got, want)
-    assert sc_limbs_to_ints(got[:, :20].cpu().numpy()) == [
-        pow(v, ELL - 2, ELL) for v in vals[:20]]
+    k = len(edge) + 20
+    assert sc_limbs_to_ints(got[:, :k].cpu().numpy()) == [
+        pow(v, -1, ELL) if v else 0 for v in vals[:k]]
+
+
+@pytest.mark.parametrize("n", [33792, 34816, 45056])
+def test_decompress_kernel_at_path_sizes(cuda, n):
+    """K1 at one wave of eight warps an SM (33,792), an m=1 verifier
+    sub-batch (34,816) and the linear batch (45,056), with non-canonical,
+    negative and random encodings among valid ones: equal to the plain
+    version, one launch, one wave of resident blocks."""
+    from bulletproofs_tpu_torch.benches import field_kernels as FK
+    raw = FK.encodings(n, 65)
+    before = _cuda.LAUNCHES["decompress"]
+    valid, pts = C.decompress(raw)
+    pvalid, ppts = C.decompress_plain(raw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decompress"] == before + 1
+    assert torch.equal(valid, pvalid) and torch.equal(pts, ppts)
+    assert not bool(valid[0]) and not bool(valid[1])
+    assert bool(valid[66:].all())
+    assert C.decompress_waves(n) == 1
 
 
 @pytest.mark.parametrize("m", [1, 2])
