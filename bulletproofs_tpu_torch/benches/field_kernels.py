@@ -1,29 +1,37 @@
 """What the compiler made of every kernel that includes csrc/fe25519.cuh
 (K1, K3, K4a, K4b, K5, K6 in both forms, K7, K11, K12) or
-csrc/sc25519.cuh (K8, K9, K10, K14), on one CUDA card:
+csrc/sc25519.cuh (K2, K8, K9, K10, K14), on one CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.field_kernels [--time]
         [--reps 20]
 
-Builds the libraries (decompress, msm, compress, fixed_msm, fold) and
-prints one JSON line per kernel: ptxas' registers, spill stores and loads
-and static shared memory (`-Xptxas -v`), the resident warps per SM those
-allow at the kernel's block size (`accumulate_z.occupancy_from_ptxas`),
+Builds the libraries (decompress, emit, msm, compress, fixed_msm, fold)
+and prints one JSON line per kernel: ptxas' registers, spill stores and
+loads and static shared memory (`-Xptxas -v`), the resident warps per SM
+those allow at the kernel's block size (`accumulate_z.occupancy_from_ptxas`;
+not for K2 and K4a, whose residency the runtime reports),
 its SASS instructions, IMAD.WIDE among them, and the instructions in
 each compiled loop's body (cuobjdump); then a line with the card's name
-and power limit and, where the tree has the query, K1's resident points
-that the CUDA runtime reports.  With `--time` it also times, by
-CUDA events (the mean of `--reps` calls after a warm-up), kernels that
-no other bench times alone, on seeded inputs, each held to its plain
-version exactly: K1 (`curve.decompress`) at 8,192, 33,792, 34,816 (an m=1
-verifier sub-batch, 2048 x 17), 45,056 (the linear batch's 2048 x 22)
-and 65,579 (the R1CS k = 2^15 shuffle's) encodings, with the waves of
-resident blocks each takes, K4a (`msm.reduce` of a 512-lane slab), K4b
-(`msm.horner`, whose arithmetic is its own) and K14 (`scalar.sinv`) at
-256 and 4096 challenges, with 0, 1 and l - 1 among them.
+and power limit and, where the tree has the queries, K1's resident points
+and K2's and K4a's resident warps per SM that the CUDA runtime reports
+(K2's with its dynamic shared memory, which ptxas does not see).  With
+`--time` it also times, by CUDA events (the mean of `--reps` calls after
+a warm-up), kernels that no other bench times alone, on seeded inputs,
+each held to its plain version exactly: K1 (`curve.decompress`) at 8,192,
+33,792, 34,816 (an m=1 verifier sub-batch, 2048 x 17), 45,056 (the linear
+batch's 2048 x 22) and 65,579 (the R1CS k = 2^15 shuffle's) encodings,
+with the waves of resident blocks each takes, K2 (`verify.emit`) on a
+2048-proof sub-batch's challenge blocks at n = 64, m = 1, K4a
+(`msm.reduce`) at 512, 256, 128 and 64 lanes (an m=1 verifier
+sub-batch's 34,946 points, the R1CS batch's 8,260, an m=16 chunk's 8,160
+and the chunked verifier's final 2,052), K4b (`msm.horner`, whose
+arithmetic is its own) and K14 (`scalar.sinv`) at 256 and 4096
+challenges, with 0, 1 and l - 1 among them; K2's and K4a's lines carry
+their operations bound and latency floor at the card's maximum SM clock.
 Dropped into an older tree of the port (with this package's
 benches/__init__.py and benches/accumulate_z.py) it reports that tree's
-kernels, with their block sizes then.
+kernels; K2's and K4a's resident warps only where the tree has their
+queries.
 """
 
 from __future__ import annotations
@@ -39,22 +47,28 @@ import torch
 
 from . import accumulate_z as AZ
 
-LIBS = ("decompress", "msm", "compress", "fixed_msm", "fold")
+LIBS = ("decompress", "emit", "msm", "compress", "fixed_msm", "fold")
 # (kernel name, template instance?) -> threads a block; K1 ran blocks of
 # 128 before its blocks of one warp, K3 of 32 and K5 of 128 before their
-# template forms; K4a runs lanes / 2 (256 at the verifier's 512 lanes),
-# msm_bin `lanes`
+# template forms; msm_bin `lanes`.  K2's and K4a's resident warps come from
+# the runtime's occupancy queries (verify.warps_per_sm, msm.warps_per_sm),
+# where the tree has them
 THREADS = {("decompress_kernel", False): 32,
            ("compress_kernel", True): 32, ("compress_kernel", False): 128,
            ("accumulate_kernel", True): 128, ("accumulate_kernel", False): 32,
            ("accumulate_z_kernel", False): 128,
            ("bin_kernel", True): 512, ("bin_kernel", False): 512,
-           ("reduce_kernel", False): 256, ("horner_kernel", False): 128,
+           ("horner_kernel", False): 128,
            ("fixed_accumulate_kernel", True): 32,
            ("fixed_accumulate2_kernel", False): 32,
            ("fixed_reduce_kernel", False): 128,
            ("fold_kernel", False): 128, ("smul_kernel", False): 128,
            ("digits_kernel", False): 128, ("sinv_kernel", False): 128}
+
+# the least latency of a dependent arithmetic instruction, in cycles (as
+# benches/horner.py): every latency floor below counts its chain's
+# instructions at this
+LEAST_LATENCY = 4
 
 # K14's work (csrc/sc25519.cuh sc_invert), counted from what the compiler
 # made of it for sm_90a (cuobjdump -sass; `loop_bodies` reports the loop):
@@ -77,13 +91,80 @@ SINV_OPS = 20 * SINV_BATCH_OPS
 # shift's two SHF, two IMAD.WIDE, an add and the mask); the limb
 # conversions, loads, normalisation and stores add ~60.
 SINV_CHAIN = SINV_DIVSTEPS * 6 + 20 * 8 + 60
-SINV_LEAST_LATENCY = 4
 
 
 def sinv_latency_floor_ms(mhz: float) -> float:
     """Least milliseconds of one thread's K14 chain at an SM clock of mhz
     (every launch of the prover is one wave, so a launch's floor)."""
-    return SINV_LEAST_LATENCY * SINV_CHAIN / (mhz * 1e3)
+    return LEAST_LATENCY * SINV_CHAIN / (mhz * 1e3)
+
+
+# K2's work: the Montgomery products of the emit function under its
+# cheapest schedule (`emit_mont_muls`), 171 64-bit multiply-adds each,
+# two 32-bit ones apiece at the card's integer rate
+SC_MUL_MADS = 171 * 2
+# dependent instructions of one Montgomery product (sc25519.cuh
+# sc_mont_mul), read from the source: 9 CIOS rounds of 8 (t0 + a_i b_0
+# IMAD.WIDE, the low-bit mask LOP3, the quotient IMAD, its mask LOP3,
+# + q l_0 IMAD.WIDE, the shift SHF, the 64-bit add of the next limb IADD3
+# and IADD3.X), the final carry chain (8 x 3) and the conditional
+# subtraction of l (8 x 3 and a select)
+SC_MUL_CHAIN = 9 * 8 + 8 * 3 + 8 * 3 + 1
+# dependent instructions of one complete addition (fe25519.cuh ge_add):
+# its longest path is C = (T 2d) T', F = D - C, X = E F, three field
+# products of 26 (a column of up to ten chained IMAD.WIDE, the x19 fold 2,
+# carry round 1 5, rounds 2-3 9) and two operand sums
+GE_ADD_CHAIN = 3 * 26 + 2
+
+
+def emit_mont_muls(n: int, m: int, P: int) -> int:
+    """Montgomery products of the emit function for P proofs under its
+    cheapest schedule: the challenge block into the Montgomery domain but
+    rc, -a and -b (lg + 5), the prefix chain and the suffix chain to
+    prod(u) (a chain's first term from one is its factor), u_k^2, u_k^-2
+    (3 lg - 2: the ends take one factor fewer), y^-2^j, z^j, the dynamic
+    coefficients, made plain from r and rc as read (r itself by one
+    product by one), the three seeds (-a t0, -b t0r, rzz) with t0, t0r and
+    rz, two factors a bit for the second and third tables, and the three
+    tables of plain g and h terms by doubling, one product a row, after
+    which g_i and h_i are additions and nothing leaves the Montgomery
+    domain by a product.  K2 (ops/verify.emit_schedule) makes these and a
+    few more: a tree of prod(u) beside the suffix chain (lg - 2, for a
+    shorter chain), and above nm = 64 the split tables' hi rows and 3
+    products for each i >= 64.  K2's first form made 3 popcount(i) + 4
+    products for each (proof, i) and more per proof; the same count bounds
+    both."""
+    nm = n * m
+    lg = nm.bit_length() - 1
+    per_proof = ((lg + 5)                     # into the Montgomery domain
+                 + max(lg - 2, 0) + max(lg - 1, 0)   # prefix, suffix chains
+                 + lg + max(3 * lg - 2, 0)    # u_k^2, u_k^-2
+                 + max(lg - 1, 0) + max(m - 2, 0)    # y^-2^j, z^j
+                 + 2 * lg + m + 5             # the dynamic coefficients
+                 + 6                          # rz, t0, t0r and the seeds
+                 + 2 * lg                     # the tables' factors
+                 + 3 * (nm - 1))              # the tables
+    return P * per_proof
+
+
+def emit_latency_floor_ms(n: int, m: int, mhz: float) -> float:
+    """Least milliseconds of K2's longest dependent chain at an SM clock of
+    mhz: into the Montgomery domain (1), the schedule's dependency depth
+    (lg + min(lg, 6) + 1 products: the suffix chain, u_0^-2, the second
+    table's factor and its doubling levels) and above nm = 64 a hi row's
+    product (1), each SC_MUL_CHAIN dependent instructions of
+    LEAST_LATENCY cycles."""
+    lg = (n * m).bit_length() - 1
+    depth = 1 + lg + min(lg, 6) + 1 + (lg > 6)
+    return LEAST_LATENCY * depth * SC_MUL_CHAIN / (mhz * 1e3)
+
+
+def reduce_latency_floor_ms(lanes: int, mhz: float) -> float:
+    """Least milliseconds of K4a's chain at an SM clock of mhz: log2(lanes)
+    dependent complete additions of GE_ADD_CHAIN instructions (the loads
+    and shuffles not counted)."""
+    return LEAST_LATENCY * (lanes.bit_length() - 1) * GE_ADD_CHAIN \
+        / (mhz * 1e3)
 
 
 def base_name(mangled: str):
@@ -166,26 +247,68 @@ def loop_bodies(so: str) -> dict:
     return out
 
 
-def timings(reps: int) -> dict:
+# K4a's lane counts: 512 for an m=1 verifier sub-batch's 34,946 MSM points
+# (and the R1CS k = 2^15 and linear MSMs), 256 for the R1CS batch of two
+# k = 2^10 (8,260), 128 for an m=16 chunk's 8,160, 64 for the chunked
+# verifier's final MSM of 2,052
+K4A_POINTS = (34946, 8260, 8160, 2052)
+
+
+def emit_blocks(P: int, n: int, m: int, seed: int) -> torch.Tensor:
+    """(P, lg + 8, 32) uint8 challenge blocks on the card: seeded canonical
+    scalars."""
+    import random
+    import numpy as np
+    from ..core.scalar import L as ELL
+    from ..ops import verify as V
+    _, nblk, _ = V.shape(n, m)
+    r = random.Random(seed)
+    return torch.as_tensor(np.frombuffer(
+        b"".join(r.randrange(ELL).to_bytes(32, "little")
+                 for _ in range(P * nblk)), np.uint8
+    ).reshape(P, nblk, 32).copy()).cuda()
+
+
+def timings(reps: int, mhz: float) -> dict:
     """{kernel at size: {ms, exact}} of K1 at K1_SIZES (with its waves,
-    where the tree has the query), K4a and K4b at the verifier sub-batch's
-    shapes and K14 at K14_SIZES."""
+    where the tree has the query), K2 on a 2048-proof sub-batch, K4a at
+    K4A_POINTS' lane counts (both with their bound and latency floor), K4b
+    at the verifier sub-batch's shape and K14 at K14_SIZES."""
     from ..ops import curve as C
     from ..ops import msm as M
     from ..ops import scalar as S
-    from . import timed
-    cases = []
+    from ..ops import verify as V
+    from . import field_mads, timed
+    imads = torch.cuda.get_device_properties(0).multi_processor_count \
+        * 64 * mhz * 1e6
+    cases, extra = [], {}
     for n in K1_SIZES:
         raw = encodings(n, 5)
         cases.append((f"decompress {n}", lambda raw=raw: C.decompress(raw),
                       lambda raw=raw: C.decompress_plain(raw)))
-    slab = M.accumulate_z(AZ.make_points(34946, 6, "cuda"),
-                          AZ.make_digits(34946, 7, "cuda"))
-    sums = M.reduce(slab)
-    cases += [("msm_reduce", lambda: M.reduce(slab),
-               lambda: M.reduce_plain(slab)),
-              ("msm_horner", lambda: M.horner(sums),
-               lambda: M.horner_plain(sums))]
+    blk = emit_blocks(2048, 64, 1, 9)
+    cases.append(("emit 2048", lambda: V.emit(64, 1, blk),
+                  lambda: V.emit_plain(64, 1, blk)))
+    extra["emit 2048"] = {
+        "bound_ms": emit_mont_muls(64, 1, 2048) * SC_MUL_MADS / imads * 1e3,
+        "latency_floor_ms": emit_latency_floor_ms(64, 1, mhz)}
+    add = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
+                                   * 2))
+    sums = None
+    for k, npts in enumerate(K4A_POINTS):
+        slab = M.accumulate_z(AZ.make_points(npts, 6 + k, "cuda"),
+                              AZ.make_digits(npts, 7 + k, "cuda"))
+        lanes = slab.shape[-1]
+        if sums is None:
+            sums = M.reduce(slab)
+        name = f"msm_reduce {lanes}"
+        cases.append((name, lambda slab=slab: M.reduce(slab),
+                      lambda slab=slab: M.reduce_plain(slab)))
+        extra[name] = {
+            "bound_ms": 64 * 8 * (lanes - 1) * add / imads * 1e3,
+            "latency_floor_ms": reduce_latency_floor_ms(lanes, mhz)}
+    cases.append(("msm_horner", lambda: M.horner(sums),
+                  lambda: M.horner_plain(sums)))
     for n in K14_SIZES:
         x = challenges(n, 8)
         cases.append((f"sinv {n}", lambda x=x: S.sinv(x),
@@ -196,7 +319,7 @@ def timings(reps: int) -> dict:
         want = plain()
         exact = all(torch.equal(a, b) for a, b in zip(got, want)) \
             if isinstance(got, tuple) else bool(torch.equal(got, want))
-        out[name] = {"ms": ms, "exact": exact}
+        out[name] = {"ms": ms, "exact": exact, **extra.get(name, {})}
     if hasattr(C, "decompress_waves"):
         for n in K1_SIZES:
             out[f"decompress {n}"]["waves"] = C.decompress_waves(n)
@@ -212,6 +335,8 @@ def main() -> int:
         print("field_kernels: no CUDA device available", file=sys.stderr)
         return 2
     from ..ops import _cuda
+    from ..ops import msm as M
+    from ..ops import verify as V
     logs = _cuda.build_all()
     for lib in LIBS:
         ptxas = AZ.ptxas_report(logs.get(lib, ""), lambda n: True)
@@ -232,8 +357,14 @@ def main() -> int:
     from ..ops import curve as C
     if hasattr(C, "decompress_resident"):
         result["decompress_resident"] = C.decompress_resident()
+    if hasattr(V, "warps_per_sm"):
+        result["resident_warps"] = {
+            "emit": V.warps_per_sm(),
+            "msm_reduce": M.warps_per_sm()["msm_reduce"]}
     if args.time:
-        result["times"] = timings(args.reps)
+        mhz = float(AZ.smi("clocks.max.sm").split()[0])
+        result["max_sm_mhz"] = mhz
+        result["times"] = timings(args.reps, mhz)
     print(json.dumps(result), flush=True)
     return 0 if all(t["exact"] for t in result.get("times", {}).values()) \
         else 1

@@ -15,149 +15,120 @@
 //     (ops/verify.tree_sum): blocks run in no order, so unlike the TPU's
 //     sequential grid nothing accumulates across blocks.
 //
-// Bound: operations (Montgomery multiplications: 171 64-bit multiply-adds
-// each, ~14 per (proof, i) pair and ~70 per proof, against 448 bytes of
-// input per proof).  Design: one block per tile; phase 1 runs one thread per
-// proof through the serial per-proof chain (prefix/suffix products for the
-// u^-1, the y^-2^j squarings) into shared memory and writes the digits;
-// phase 2 runs one thread per generator index i, looping over the tile's
-// proofs: s_i and s_{nm-1-i} are products over the bits of i and y^-i a
-// product of the y^-2^j, so no thread waits on another.  The TPU kernel's
-// one-hot lane doubling and static-slice Barrett were Mosaic workarounds and
-// are gone; everything stays in the Montgomery domain with canonical limbs.
+// Bound: operations, Montgomery products (171 64-bit multiply-adds each):
+// 272 a proof at n = 64, m = 1 under the cheapest schedule (three plain
+// tables of g and h terms by doubling, one product a row; no conversion
+// out of the Montgomery domain), against 448 bytes of input a proof.  A
+// Montgomery product is ~440 integer instructions, each issued at half
+// rate, and a dependent one takes ~1,300 cycles in one thread, so what
+// sets the time is how many rounds of products each warp issues and how
+// many warps share a sub-partition.  Design: a block is a tile of 8
+// proofs, a warp each (256 threads, two blocks an SM at n = 64, m = 1, so
+// a 2048-proof sub-batch is one wave of 16 warps an SM).  A warp runs its
+// proof's schedule (csrc/emit.cuh): the block loaded a lane a scalar, then
+// 13 steps of up to 32 products at n = 64, m = 1 (the longest chain; 265
+// products), the digits a lane a slot.  The first form ran each proof's
+// ~100 products in one thread and, per generator index, ~100 more; a first
+// redesign with the lanes on hand-written phases serialised their
+// diverging branches (~52 product rounds a warp).  Then lane 8 il + q of
+// warp w takes proof q at i = 4 w + il (+ 32 k): (g_i, h_i) from the
+// proof's tables in shared memory by three additions, summed over the
+// tile's 8 proofs by three xor shuffles of sc_add (exact in any order).
+// The TPU kernel's one-hot lane doubling and static-slice Barrett were
+// Mosaic workarounds and are gone.
 #include "common.cuh"
-#include "sc25519.cuh"
+#include "emit.cuh"
 
-#define LG_MAX 10
-#define M_MAX 16
+#define EMIT_TILE 8                    // proofs a block: ops/verify.EMIT_TILE
+#define EMIT_THREADS (32 * EMIT_TILE)  // a warp a proof
+#define EMIT_BLOCKS_PER_SM 2
 
-struct ProofState {
-  sc u_sq[LG_MAX], u_inv_sq[LG_MAX], ypow2[LG_MAX], rzz_zj[M_MAX];
-  sc t0, t0r, rz, neg_rz, neg_a, neg_b;
-};
+static_assert(EMIT_TILE == 8, "the tile sum takes 8 proofs in 8 lanes");
 
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(EMIT_THREADS, EMIT_BLOCKS_PER_SM)
 emit_kernel(const uint8_t* __restrict__ blk, const uint32_t* __restrict__ pow2,
-            int8_t* __restrict__ digits, int32_t* __restrict__ partial,
-            int64_t P, int n, int m, int tile_p) {
-  extern __shared__ ProofState st[];
-  const int nm = n * m;
-  const int lg = 31 - __clz(nm);
-  const int nblk = lg + 8;
-  const int n_dyn = 4 + 2 * lg + m;
-  const int64_t p0 = (int64_t)blockIdx.x * tile_p;
-  const int64_t rem = P - p0;
-  const int count = (int)(rem < tile_p ? rem : tile_p);
+            const int32_t* __restrict__ sched, int8_t* __restrict__ digits,
+            int32_t* __restrict__ partial, int64_t P, int n, int m) {
+  extern __shared__ sc slots[];
+  const EmitShape s = emit_shape(P, n, m, sched);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t p0 = (int64_t)blockIdx.x * EMIT_TILE;
+  const int count = (int)(P - p0 < EMIT_TILE ? P - p0 : EMIT_TILE);
 
-  // phase 1: per-proof chain (one thread per proof)
-  for (int q = threadIdx.x; q < count; q += blockDim.x) {
-    const int64_t p = p0 + q;
-    const uint8_t* b = blk + p * nblk * 32;
-    sc u[LG_MAX];
-    for (int k = 0; k < lg; ++k) u[k] = sc_to_mont(sc_from_bytes(b + 32 * k));
-    const sc r = sc_to_mont(sc_from_bytes(b + 32 * (lg + 0)));
-    const sc x = sc_to_mont(sc_from_bytes(b + 32 * (lg + 1)));
-    const sc rc = sc_to_mont(sc_from_bytes(b + 32 * (lg + 2)));
-    const sc z = sc_to_mont(sc_from_bytes(b + 32 * (lg + 3)));
-    const sc y_inv = sc_to_mont(sc_from_bytes(b + 32 * (lg + 4)));
-    const sc neg_a = sc_to_mont(sc_from_bytes(b + 32 * (lg + 5)));
-    const sc neg_b = sc_to_mont(sc_from_bytes(b + 32 * (lg + 6)));
-    const sc allinv = sc_to_mont(sc_from_bytes(b + 32 * (lg + 7)));
-    const sc one = sc_const(SC_ONE_M);
-
-    ProofState& S = st[q];
-    sc pres[LG_MAX], sufs[LG_MAX + 1];
-    pres[0] = one;
-    for (int k = 1; k < lg; ++k) pres[k] = sc_mont_mul(pres[k - 1], u[k - 1]);
-    sufs[lg] = one;
-    for (int k = lg - 1; k >= 0; --k) sufs[k] = sc_mont_mul(sufs[k + 1], u[k]);
-    sc cur = y_inv;
-    for (int k = 0; k < lg; ++k) {
-      S.u_sq[k] = sc_mont_mul(u[k], u[k]);
-      const sc uinv = sc_mont_mul(sc_mont_mul(allinv, pres[k]), sufs[k + 1]);
-      S.u_inv_sq[k] = sc_mont_mul(uinv, uinv);
-      S.ypow2[k] = cur;
-      cur = sc_mont_mul(cur, cur);
+  if (warp < count) {
+    const int64_t p = p0 + warp;
+    sc* v = slots + warp * s.slots;
+    emit_load(v, s, lane, blk + p * (s.lg + 8) * 32, pow2);
+    __syncwarp();
+    for (int step = 0; step < s.steps; ++step) {
+      emit_step(v, s, step, lane);
+      __syncwarp();
     }
-    const sc prod = sufs[0];
-    S.t0 = sc_mont_mul(r, allinv);
-    S.t0r = sc_mont_mul(r, prod);
-    const sc rx = sc_mont_mul(r, x);
-    const sc rcx = sc_mont_mul(rc, x);
-    const sc rcxx = sc_mont_mul(rcx, x);
-    S.rz = sc_mont_mul(r, z);
-    S.neg_rz = sc_neg(S.rz);
-    const sc rzz = sc_mont_mul(S.rz, z);
-    const sc rczz = sc_mont_mul(sc_mont_mul(rc, z), z);
-    S.neg_a = neg_a;
-    S.neg_b = neg_b;
-
-    // dynamic coefficients -> signed digits, column p * n_dyn + slot
-    int8_t d[64];
-    const int64_t cols = P * n_dyn;
-    int8_t* out = digits + p * n_dyn;
-    auto emit = [&](int slot, const sc& v) {
-      sc_signed_digits(sc_from_mont(v), d);
-      for (int w = 0; w < 64; ++w) out[w * cols + slot] = d[w];
-    };
-    emit(0, r);
-    emit(1, rx);
-    emit(2, rcx);
-    emit(3, rcxx);
-    for (int k = 0; k < lg; ++k) {
-      emit(4 + k, sc_mont_mul(r, S.u_sq[k]));
-      emit(4 + lg + k, sc_mont_mul(r, S.u_inv_sq[k]));
-    }
-    sc zp = one;
-    for (int j = 0; j < m; ++j) {
-      emit(4 + 2 * lg + j, sc_mont_mul(rczz, zp));
-      S.rzz_zj[j] = sc_mont_mul(rzz, zp);
-      zp = sc_mont_mul(zp, z);
-    }
+    emit_out(v, s, lane, p, digits);
   }
   __syncthreads();
 
-  // phase 2: one thread per generator index i, summed over the tile
-  for (int i = threadIdx.x; i < nm; i += blockDim.x) {
-    sc pw;
+  const int q = lane & 7, il = lane >> 3;
+  for (int ib = 0; ib < s.nm; ib += 32) {
+    const int i = ib + 4 * warp + il;
+    sc g = sc_zero(), h = sc_zero();
+    if (i < s.nm && q < count) emit_terms(slots + q * s.slots, s, i, g, h);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) pw.v[k] = pow2[(i % n) * 9 + k];
-    sc acc_g = sc_zero(), acc_h = sc_zero();
-    for (int q = 0; q < count; ++q) {
-      const ProofState& S = st[q];
-      sc t = S.t0, tr = S.t0r, yp = sc_const(SC_ONE_M);
-      for (int j = 0; j < lg; ++j) {
-        if ((i >> j) & 1) {
-          t = sc_mont_mul(t, S.u_sq[lg - 1 - j]);
-          tr = sc_mont_mul(tr, S.u_inv_sq[lg - 1 - j]);
-          yp = sc_mont_mul(yp, S.ypow2[j]);
-        }
+    for (int d = 1; d < EMIT_TILE; d <<= 1) {
+      sc g2, h2;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        g2.v[k] = __shfl_xor_sync(0xffffffffu, g.v[k], d);
+        h2.v[k] = __shfl_xor_sync(0xffffffffu, h.v[k], d);
       }
-      const sc g = sc_add(S.neg_rz, sc_mont_mul(S.neg_a, t));
-      const sc term1 = sc_mont_mul(S.rzz_zj[i / n], pw);
-      const sc term2 = sc_mont_mul(S.neg_b, tr);
-      const sc h = sc_add(S.rz, sc_mont_mul(yp, sc_add(term1, term2)));
-      acc_g = sc_add(acc_g, g);
-      acc_h = sc_add(acc_h, h);
+      g = sc_add(g, g2);
+      h = sc_add(h, h2);
     }
-    const sc g_out = sc_from_mont(acc_g), h_out = sc_from_mont(acc_h);
-    int32_t* dst = partial + (int64_t)blockIdx.x * 2 * nm * 9;
+    if (i < s.nm && q < 2) {
+      const sc& out = q ? h : g;
+      int32_t* dst = partial + (((int64_t)blockIdx.x * 2 + q) * s.nm + i) * 9;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      dst[i * 9 + k] = (int32_t)g_out.v[k];
-      dst[(nm + i) * 9 + k] = (int32_t)h_out.v[k];
+      for (int k = 0; k < 9; ++k) dst[k] = (int32_t)out.v[k];
     }
   }
 }
 
-// blk (P, lg + 8, 32) uint8, pow2 (n, 9) uint32 (2^i R mod l) ->
-// digits (64, P * n_dyn) int8, partial (ceil(P / tile_p), 2, nm, 9) int32
-BP_EXPORT int bp_emit(const uint8_t* blk, const uint32_t* pow2, int8_t* digits,
-                      int32_t* partial, int64_t P, int64_t n, int64_t m,
-                      int64_t tile_p, cudaStream_t stream) {
-  const int64_t tiles = (P + tile_p - 1) / tile_p;
-  const size_t smem = sizeof(ProofState) * (size_t)tile_p;
-  emit_kernel<<<(unsigned)tiles, 64, smem, stream>>>(
-      blk, pow2, digits, partial, P, (int)n, (int)m, (int)tile_p);
+// shared memory of a block whose proofs have `slots` slots each (at most
+// 1,023: the schedule's 10-bit slot fields)
+static int emit_smem(int64_t slots, size_t* smem) {
+  *smem = sizeof(sc) * EMIT_TILE * (size_t)slots;
+  return (int)cudaFuncSetAttribute(
+      emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// blk (P, lg + 8, 32) uint8, pow2 (log2 n, 9) uint32 (2^(2^b) R mod l),
+// sched (ops/verify.emit_schedule(n, m), `slots` slots a proof) ->
+// digits (64, P * n_dyn) int8, partial (ceil(P / EMIT_TILE), 2, nm, 9)
+// int32
+BP_EXPORT int bp_emit(const uint8_t* blk, const uint32_t* pow2,
+                      const int32_t* sched, int8_t* digits, int32_t* partial,
+                      int64_t P, int64_t n, int64_t m, int64_t slots,
+                      cudaStream_t stream) {
+  if (n * m > (1 << EMIT_LG_MAX) || m > EMIT_M_MAX || slots >= 1024)
+    return (int)cudaErrorInvalidValue;
+  size_t smem;
+  const int err = emit_smem(slots, &smem);
+  if (err) return err;
+  const int64_t tiles = (P + EMIT_TILE - 1) / EMIT_TILE;
+  emit_kernel<<<(unsigned)tiles, EMIT_THREADS, smem, stream>>>(
+      blk, pow2, sched, digits, partial, P, (int)n, (int)m);
   return (int)cudaGetLastError();
+}
+
+// blocks of emit_kernel with `slots` slots a proof that one SM of the
+// current device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// with its shared memory) and their threads: out = {blocks, EMIT_THREADS}
+BP_EXPORT int bp_emit_blocks_per_sm(int64_t slots, int* out) {
+  size_t smem;
+  int err = emit_smem(slots, &smem);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, emit_kernel, EMIT_THREADS, smem);
+  out[1] = EMIT_THREADS;
+  return err;
 }

@@ -17,8 +17,10 @@
 // the bucket is indexed directly by |digit|; the TPU kernel's one-hot mux
 // over all buckets was a Mosaic workaround.
 //
-// K4 msm_reduce: grid (8 buckets, 64 windows), lanes / 2 threads; a tree of
-// complete additions over the lanes in shared memory -> (64, 8, 4, 10).
+// K4 msm_reduce (K4a): grid (8 buckets, 64 windows), a block of two warps a
+// bucket; reduce_plain's tree of complete additions over the lanes, in
+// registers, then each addition on four lanes -> (64, 8, 4, 10); its
+// design is at the kernel below.
 // K4 msm_horner (K4b): the window sums S_w = sum_b (b + 1) B_b, then the
 // Horner chain sum_w 16^w S_w (63 x (4 doublings + 1 addition)) and the
 // ristretto is-identity flag (X == 0 or Y == 0); its design is at the
@@ -28,6 +30,7 @@
 // slab, the bucket sums and the result match it limb for limb.
 #include "common.cuh"
 #include "fe25519.cuh"
+#include "reduce.cuh"
 
 #include <cooperative_groups.h>
 
@@ -262,24 +265,58 @@ accumulate_kernel(const int32_t* __restrict__ rows,
   ge_store(slab + g * 40 * lanes + j, lanes, acc);
 }
 
-__global__ void reduce_kernel(const int32_t* __restrict__ slab,
-                              int32_t* __restrict__ sums, int lanes) {
-  extern __shared__ int32_t tree[];                // (40, lanes / 2)
-  const int half = lanes / 2;
-  const int t = threadIdx.x;
-  const int wb = blockIdx.y * NBUCKET + blockIdx.x;
-  const int32_t* src = slab + (int64_t)wb * 40 * lanes;
-  ge p = ge_add(ge_load(src + t, lanes), ge_load(src + half + t, lanes));
-  ge_store(tree + t, half, p);
-  __syncthreads();
-  for (int h = half / 2; h >= 1; h /= 2) {
-    if (t < h) {
-      p = ge_add(ge_load(tree + t, half), ge_load(tree + t + h, half));
-      ge_store(tree + t, half, p);
-    }
-    __syncthreads();
+// -- K4a: the bucket reduction ----------------------------------------------
+//
+// Bound: operations, 64 x 8 x (lanes - 1) complete additions (0.028 ms at
+// 512 lanes counting the limb products' multiply-adds; a ge_add compiles to
+// ~3,600 integer instructions, each at half rate, so the issue of all of
+// them takes longer).  The first form ran one block of lanes / 2 threads a
+// bucket, a 9-level tree in shared memory with a barrier at every level,
+// in four waves of 512 blocks (208 registers, 8 warps an SM): from the
+// second level on at least half of each block was idle, and the last five
+// levels ran one point addition at a time in one warp, ~12,000 cycles
+// each.  Design (csrc/reduce.cuh): a bucket is a block of two warps, four
+// blocks an SM, so all 512 buckets are resident at once (one wave on 132
+// SMs).  Each thread adds its own lanes (t mod 64) in registers, the two
+// warps of a sub-partition side by side; the last six levels run each
+// addition on four lanes over shared memory, one field product a lane a
+// stage, three stages deep.  The pairs and the products are
+// reduce_plain's, so the sums (and K4b's inputs) are its limbs.
+#define REDUCE_BLOCKS_PER_SM 4
+
+struct warp_barrier {
+  __device__ void operator()() const { __syncwarp(); }
+};
+
+struct reduce_points {
+  using value = ge;
+  const int32_t* src;                  // the bucket's (4, 10, lanes) slab
+  int lanes;
+  int32_t* nodes;                      // (REDUCE_THREADS, 40) shared words
+  int32_t* scratch;                    // (REDUCE_GROUPS, 40) shared words
+  __device__ ge load(int j) const { return ge_load(src + j, lanes); }
+  __device__ ge add(const ge& a, const ge& b) const { return ge_add(a, b); }
+  __device__ void put(int t, const ge& p) const {
+    ge_store(nodes + 40 * t, 1, p);
   }
-  if (t == 0) ge_store(sums + (int64_t)wb * 40, 1, p);
+  __device__ void add_nodes(int dst, int from, int role, bool active,
+                            int group) const {
+    ge_add_on_four_lanes(nodes, scratch + 40 * group, dst, from, role,
+                         active, warp_barrier());
+  }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+__global__ void __launch_bounds__(REDUCE_THREADS, REDUCE_BLOCKS_PER_SM)
+reduce_kernel(const int32_t* __restrict__ slab, int32_t* __restrict__ sums,
+              int lanes) {
+  __shared__ int32_t nodes[40 * REDUCE_THREADS];
+  __shared__ int32_t scratch[40 * REDUCE_GROUPS];
+  const int wb = blockIdx.y * NBUCKET + blockIdx.x;
+  reduce_points b{slab + (int64_t)wb * 40 * lanes, lanes, nodes, scratch};
+  reduce_bucket(b, threadIdx.x, lanes);
+  if (threadIdx.x < 40)
+    sums[(int64_t)wb * 40 + threadIdx.x] = nodes[threadIdx.x];
 }
 
 // -- K4b: the Horner window combine ----------------------------------------
@@ -606,10 +643,11 @@ BP_EXPORT int bp_msm_accumulate_z(const int32_t* rows, const uint32_t* mask,
 // blocks that one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and their threads:
 // out = {K11 blocks, ACCZ_THREADS, msm_bin blocks, MAX_LANES, K3 blocks,
-// msm_bin_niels blocks}
+// msm_bin_niels blocks, K4a blocks, REDUCE_THREADS}
 BP_EXPORT int bp_msm_blocks_per_sm(int* out) {
   out[1] = ACCZ_THREADS;
   out[3] = MAX_LANES;
+  out[7] = REDUCE_THREADS;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, accumulate_kernel<ext_form>, ACCZ_THREADS, 0);
   if (err == cudaSuccess)
@@ -621,20 +659,19 @@ BP_EXPORT int bp_msm_blocks_per_sm(int* out) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 5, bin_kernel<niels_form>, MAX_LANES, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 6, reduce_kernel, REDUCE_THREADS, 0);
   return (int)err;
 }
 
-// slab (64, 8, 4, 10, lanes) -> sums (64, 8, 4, 10)
+// slab (64, 8, 4, 10, lanes) -> sums (64, 8, 4, 10): a block a bucket
 BP_EXPORT int bp_msm_reduce(const int32_t* slab, int32_t* sums, int64_t lanes,
                             cudaStream_t stream) {
-  const size_t smem = sizeof(int32_t) * 40 * (size_t)(lanes / 2);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(reduce_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  dim3 grid(NBUCKET, 64);
-  reduce_kernel<<<grid, (unsigned)(lanes / 2), smem, stream>>>(slab, sums,
-                                                              (int)lanes);
+  if (lanes < 2 || lanes > MAX_LANES || (lanes & (lanes - 1)))
+    return (int)cudaErrorInvalidValue;
+  reduce_kernel<<<dim3(NBUCKET, 64), REDUCE_THREADS, 0, stream>>>(
+      slab, sums, (int)lanes);
   return (int)cudaGetLastError();
 }
 

@@ -231,10 +231,10 @@ def accumulate_z(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 
 def warps_per_sm() -> Dict[str, int]:
-    """Warps of K3's and K11's kernels that one SM of the current CUDA
-    device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    """Warps of K3's, K11's and K4a's kernels that one SM of the current
+    CUDA device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     times the block's warps)."""
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     f = _cuda._lib("msm").bp_msm_blocks_per_sm
     f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     err = f(out)
@@ -242,7 +242,8 @@ def warps_per_sm() -> Dict[str, int]:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     acc, binned = out[1] // 32, out[3] // 32
     return {"msm_accumulate_z": out[0] * acc, "msm_bin": out[2] * binned,
-            "msm_accumulate": out[4] * acc, "msm_bin_niels": out[5] * binned}
+            "msm_accumulate": out[4] * acc, "msm_bin_niels": out[5] * binned,
+            "msm_reduce": out[6] * (out[7] // 32)}
 
 
 # -- K4: bucket reduction and Horner combine --------------------------------------

@@ -14,6 +14,7 @@ points, and per-tile partial sums of the static g/h coefficients.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import torch
@@ -25,7 +26,7 @@ from . import msm as M
 from . import scalar as S
 from .limbs import SC_LIMBS, sc_ints_to_limbs
 
-EMIT_TILE = 8          # proofs per emit block (per partial g/h sum)
+EMIT_TILE = 8          # proofs per emit block, a warp each (a g/h partial)
 _LG_MAX, _M_MAX = 10, 16
 
 
@@ -44,6 +45,165 @@ def _pow2_mont(n: int):
 
 
 # -- K2: emit ------------------------------------------------------------------
+
+_LO_BITS = 6           # K2's tables split at 64 rows (csrc/emit.cuh)
+
+
+def _emit_products(n: int, m: int):
+    """K2's products for one proof, in an order that computes every operand
+    first: (ops, header fields, dynamic slots).  Slots 0 .. lg + 7 hold
+    the challenge block (rc, -a and -b as read, the others in the
+    Montgomery domain), lg + 8 Montgomery one, lg + 9 r as read, then
+    2^(2^b) R for b < log2(n); an op (dst, a, b) is dst = a b R^-1, its
+    first operand the one that may be a scalar as read.  A product of a
+    scalar as read and one in the Montgomery domain is out of that domain,
+    so the dynamic coefficients, the g and h terms and their tables are
+    made plain from r, rc, -a and -b as read, and nothing is converted
+    out."""
+    lg, _, _ = shape(n, m)
+    lg_n = n.bit_length() - 1
+    lo_bits = min(lg, _LO_BITS)
+    hi_bits = lg - lo_bits
+    one, r_in, pw2 = lg + 8, lg + 9, lg + 10
+    top = [lg + 10 + lg_n]
+    ops = []
+
+    def new(k=1):
+        top[0] += k
+        return top[0] - k
+
+    def mul(a, b, dst=None):
+        dst = new() if dst is None else dst
+        ops.append((dst, a, b))
+        return dst
+
+    u = list(range(lg))
+    r, x, rc, z, y_inv, neg_a, neg_b, allinv = range(lg, lg + 8)
+    lo, hi = new(3 << lo_bits), new(3 << hi_bits)
+
+    def hi_row(tb, j):
+        """Table tb's row 2^j where bit j is a hi bit (its factor is made
+        there), else None (a new slot)."""
+        return hi + (tb << hi_bits) + (1 << (j - lo_bits)) \
+            if j >= lo_bits else None
+
+    # prefix and suffix products of the u (a term from one is its factor),
+    # and prod(u) by a balanced tree, shorter than the suffix chain
+    pres = [one] + u[:1]
+    for k in range(2, lg):
+        pres.append(mul(pres[-1], u[k - 1]))
+    sufs = [None] * lg + [one]
+    if lg:
+        sufs[lg - 1] = u[lg - 1]
+    for k in range(lg - 2, 0, -1):
+        sufs[k] = mul(sufs[k + 1], u[k])
+    level = list(u) or [one]
+    while len(level) > 1:
+        level = [mul(level[i], level[i + 1]) if i + 1 < len(level)
+                 else level[i] for i in range(0, len(level), 2)]
+    u_sq = [mul(u[k], u[k], hi_row(0, lg - 1 - k)) for k in range(lg)]
+    u_inv_sq = []
+    for k in range(lg):
+        a = mul(allinv, pres[k]) if k else allinv
+        v = mul(a, sufs[k + 1]) if k < lg - 1 else a
+        u_inv_sq.append(mul(v, v))
+    ypow2 = [y_inv][:lg]
+    for _ in range(1, lg):
+        ypow2.append(mul(ypow2[-1], ypow2[-1]))
+    zpow = [one, z][:m]
+    for j in range(2, m):
+        zpow.append(mul(zpow[j // 2], zpow[j // 2]) if j % 2 == 0
+                    else mul(zpow[j - 1], z))
+    # the dynamic coefficients, plain: [r, rx, rcx, rcx^2, r u^2.., r u^-2..,
+    # rczz z^j..]
+    rcx = mul(rc, x)
+    rczz = mul(mul(rc, z), z)
+    dyn = [mul(r_in, one), mul(r_in, x), rcx, mul(rcx, x)] \
+        + [mul(r_in, q) for q in u_sq] + [mul(r_in, q) for q in u_inv_sq] \
+        + [rczz] + [mul(rczz, zp) for zp in zpow[1:]]
+    # the tables, plain: row i = seed prod_{bit j of i} factor j, so that
+    # g_i = -rz + row_1,i and h_i = rz + row_2,i + row_3,i.  Seeds -a t0
+    # (t0 = r prod(u)^-1), -b t0r (t0r = r prod(u)) and rzz; factors
+    # u_{lg-1-j}^2, u_{lg-1-j}^-2 y^-2^j, and y^-2^j times 2^(2^j) for the
+    # bits of i % n or z^(2^(j - log2 n)) for those of i / n.  Row 2^j + k
+    # = row k times factor j; a hi row of one bit is its factor.
+    rz = mul(r_in, z)
+    mul(neg_a, mul(r, allinv), lo)
+    mul(neg_b, mul(r, level[0]), lo + (1 << lo_bits))
+    mul(rz, z, lo + (2 << lo_bits))
+    factors = (
+        [u_sq[lg - 1 - j] for j in range(lg)],
+        [mul(u_inv_sq[lg - 1 - j], ypow2[j], hi_row(1, j))
+         for j in range(lg)],
+        [mul(ypow2[j], pw2 + j if j < lg_n else zpow[1 << (j - lg_n)],
+             hi_row(2, j)) for j in range(lg)])
+    for tb, f in enumerate(factors):
+        base = lo + (tb << lo_bits)
+        for j in range(lo_bits):
+            for k in range(1 << j):
+                mul(base + k, f[j], base + (1 << j) + k)
+        base = hi + (tb << hi_bits)
+        for j in range(1, hi_bits):
+            for k in range(1, 1 << j):
+                mul(base + k, f[lo_bits + j], base + (1 << j) + k)
+    header = [0, top[0], lo, hi, rz, lo_bits]
+    return ops, header, dyn
+
+
+def _list_schedule(ops, inputs: int):
+    """Steps of at most 32 ops, none reading a slot that its own or a later
+    step writes; the ops on the longest remaining chains go first."""
+    made = {}                                  # slot -> op index
+    for i, (dst, _, _) in enumerate(ops):
+        made[dst] = i
+    users = [[] for _ in ops]
+    for i, (_, a, b) in enumerate(ops):
+        for src in {a, b}:
+            if src >= inputs:
+                users[made[src]].append(i)
+    height = [0] * len(ops)
+    for i in range(len(ops) - 1, -1, -1):
+        height[i] = 1 + max((height[j] for j in users[i]), default=0)
+    step_of = {}
+    left = set(range(len(ops)))
+    steps = []
+    while left:
+        now = len(steps)
+        ready = [i for i in left
+                 if all(src < inputs or step_of.get(made[src], now) < now
+                        for src in (ops[i][1], ops[i][2]))]
+        ready.sort(key=lambda i: (-height[i], i))
+        steps.append(ready[:32])
+        for i in ready[:32]:
+            step_of[i] = now
+            left.discard(i)
+    return steps
+
+
+@lru_cache(maxsize=None)
+def emit_schedule(n: int, m: int) -> torch.Tensor:
+    """K2's schedule for shape (n, m), int32 (csrc/emit.cuh): a header
+    [steps, slots a proof, lo, hi, rz, lo_bits], the dynamic coefficients'
+    slots, then steps x 32 ops dst | a << 10 | b << 20 (-1: none)."""
+    ops, header, dyn = _emit_products(n, m)
+    steps = _list_schedule(ops, shape(n, m)[0] + 10 + n.bit_length() - 1)
+    header[0] = len(steps)
+    words = [-1] * (32 * len(steps))
+    for k, step in enumerate(steps):
+        for lane, i in enumerate(step):
+            dst, a, b = ops[i]
+            words[32 * k + lane] = dst | a << 10 | b << 20
+    return torch.tensor(header + dyn + words, dtype=torch.int32)
+
+
+@lru_cache(maxsize=None)
+def _emit_inputs(n: int, m: int, device: str):
+    """(2^(2^b) R mod l for b < log2(n), schedule, slots a proof) of K2 on
+    `device`, made once."""
+    sched = emit_schedule(n, m)
+    pow2 = _pow2_mont(n)[[1 << b for b in range(n.bit_length() - 1)]]
+    return pow2.contiguous().to(device), sched.to(device), int(sched[1])
+
 
 def _bits_product(seed, factors, lg):
     """rows[i] = seed * prod_{bit j of i} factors[lg-1-j] (Montgomery), by
@@ -140,10 +300,24 @@ def emit(n: int, m: int, blk: torch.Tensor):
     partial = torch.empty((-(-P // EMIT_TILE), 2, n * m, SC_LIMBS),
                           dtype=torch.int32, device=blk.device)
     if P:
-        pow2 = _pow2_mont(n).to(blk.device)
-        _cuda.launch("emit", "emit", "bp_emit", blk, pow2, digits, partial,
-                     P, n, m, EMIT_TILE)
+        pow2, sched, slots = _emit_inputs(n, m, str(blk.device))
+        _cuda.launch("emit", "emit", "bp_emit", blk, pow2, sched, digits,
+                     partial, P, n, m, slots)
     return digits, partial
+
+
+def warps_per_sm(n: int = 64, m: int = 1) -> int:
+    """Warps of K2 at shape (n, m) that one SM of the current CUDA device
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the
+    kernel's shared memory, times the block's warps)."""
+    out = (ctypes.c_int * 2)()
+    f = _cuda._lib("emit").bp_emit_blocks_per_sm
+    f.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    err = f(int(emit_schedule(n, m)[1]), out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return out[0] * (out[1] // 32)
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:

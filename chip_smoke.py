@@ -49,8 +49,9 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      512 points; one fold, one gw update, the S coefficients' digits, one
      half's IPP challenges,
      one verifier chunk's and the final MSM's accumulation, K11's binning
-     launch there too, the S commitment's stream for K12, timed beside
-     K6), and K6 / K7 at the m=16 IPP L and S streams as in 3;
+     launch there too, K4a on their 128- and 64-lane slabs, the S
+     commitment's stream for K12, timed beside K6), and K6 / K7 at the
+     m=16 IPP L and S streams as in 3;
   9. drives the MXU probe (benches/mxu_fmul_probe.run, Q = 512 lanes,
      `--probe-steps` chained steps): its oracle check, then K15 and K16
      timed; both against their plain versions and each other limb for
@@ -214,17 +215,6 @@ def compress_checks(calls, what, imads, smi, failures):
             f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}) on {smi}")
         if err != 0:
             failures.append(f"compress on the {what}'s {n_pts} points")
-
-
-def emit_mont_muls(n: int, m: int, P: int, tile: int) -> int:
-    """Montgomery multiplications csrc/emit.cu makes for P proofs."""
-    lg = (n * m).bit_length() - 1
-    n_dyn = 4 + 2 * lg + m
-    per_proof = (lg + 8) + (lg - 1) + lg + 5 * lg + 2 + 3 + 1 + 1 + 2 \
-        + n_dyn + 2 * lg + 3 * m
-    per_pair = sum(3 * bin(i).count("1") + 4 for i in range(n * m))
-    tiles = -(-P // tile)
-    return P * per_proof + P * per_pair + tiles * n * m * 2
 
 
 class Capture:
@@ -1047,16 +1037,22 @@ def main() -> int:
         failures.append("card and cpu proofs differ")
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, mads,
-               launches, **ops):
+               launches, floor_ms=None, **ops):
+        """One kernel's entry of the JSON line; `floor_ms`, where given, is
+        its latency floor (its dependent chain at the least latency,
+        counted from the source), logged beside the bound and kept out of
+        the line."""
         b_ms, b_by = bound(nbytes, mads, imads, **ops)
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        floor = "" if floor_ms is None \
+            else f", latency floor {floor_ms:.4f} ms"
+        kernels.append(entry)
         status = "ok" if err == 0 else "MISMATCH"
         log(f"  {name}: max_abs_err {err} ({status}); {ms:.4f} ms kernel, "
-            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}); "
+            f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}){floor}; "
             f"{launches[name]} launches on the main path")
         if err != 0:
             failures.append(name)
@@ -1190,8 +1186,11 @@ def main() -> int:
            max_abs_err(got, want), time_cuda(lambda: V.emit(n, m, blk), 20),
            time_cuda(lambda: V.emit_plain(n, m, blk), 1),
            blk.numel() + n * 36 + got[0].numel() + got[1].numel() * 4,
-           emit_mont_muls(n, m, sub, V.EMIT_TILE) * MONT_MADS,
-           verify_launches)
+           FK.emit_mont_muls(n, m, sub) * FK.SC_MUL_MADS,
+           verify_launches, floor_ms=FK.emit_latency_floor_ms(n, m, mhz))
+    log(f"    ({FK.emit_mont_muls(n, m, sub)} Montgomery "
+        f"products for {sub} proofs under the cheapest schedule; "
+        f"{V.warps_per_sm()} warps of K2 resident an SM)")
 
     valid, pts = C.decompress(raw.to(dev))
     gh = V.tree_sum(got[1])
@@ -1238,7 +1237,10 @@ def main() -> int:
            time_cuda(lambda: M.reduce(slab), 20),
            time_cuda(lambda: M.reduce_plain(slab), 1),
            slab.numel() * 4 + sums.numel() * 4,
-           64 * 8 * (lanes - 1) * add, verify_launches)
+           64 * 8 * (lanes - 1) * add, verify_launches,
+           floor_ms=FK.reduce_latency_floor_ms(lanes, mhz))
+    log(f"    ({lanes} lanes; {M.warps_per_sm()['msm_reduce']} warps of K4a "
+        f"resident an SM)")
     out = M.horner(sums)
     record("msm_horner", "bulletproofs_tpu_torch/csrc/msm.cu",
            "bulletproofs_tpu/ops/msm_pallas.py:214",
@@ -1641,6 +1643,19 @@ def main() -> int:
             plain_ms = time_cuda(lambda: M.accumulate_z_plain(zp, zd), 1)
             nbytes = zp.numel() * 4 + zd.numel() + zs.numel() * 4
             mads = int((zd != 0).sum()) * add9
+            # K4a on this MSM's slab (128 lanes a chunk, 64 the final MSM)
+            lanes_z = zs.shape[-1]
+            rerr = max_abs_err(M.reduce(zs), M.reduce_plain(zs))
+            rms = time_cuda(lambda: M.reduce(zs), 10)
+            rb_ms, rb_by = bound(zs.numel() * 4 + 64 * 8 * 40 * 4,
+                                 64 * 8 * (lanes_z - 1) * add9, imads)
+            log(f"  msm_reduce on the {what}'s slab ({lanes_z} lanes): "
+                f"max_abs_err {rerr} ({'ok' if rerr == 0 else 'MISMATCH'}); "
+                f"{rms:.4f} ms kernel, bound {rb_ms:.4f} ms ({rb_by}), "
+                f"latency floor "
+                f"{FK.reduce_latency_floor_ms(lanes_z, mhz):.4f} ms on {smi}")
+            if rerr != 0:
+                failures.append(f"msm_reduce on the m={m16} {what}")
             if what == "chunk":
                 # msm_bin alone; msm_accumulate_z's time is the whole
                 # accumulate_z call, its binning launch included

@@ -79,6 +79,48 @@ def test_emit_kernel_matches_plain(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("n,m,P", [(64, 1, 2048), (64, 1, 2047), (8, 2, 13),
+                                   (64, 16, 5)])
+def test_emit_kernel_at_path_shapes(cuda, n, m, P):
+    """K2 against emit_plain, digits and partials exact, at a verifier
+    sub-batch (2048 m=1 proofs), one proof short of it, a short tile at
+    nm = 16 and the fused m=16 cross-check's nm = 1024; a 2048-proof
+    sub-batch is one wave of the card's resident blocks."""
+    _, nblk, _ = V.shape(n, m)
+    r = random.Random(65 + P)
+    blk = torch.as_tensor(np.frombuffer(
+        b"".join(r.randrange(ELL).to_bytes(32, "little")
+                 for _ in range(P * nblk)), np.uint8
+    ).reshape(P, nblk, 32).copy()).to(cuda)
+    before = _cuda.LAUNCHES["emit"]
+    got = V.emit(n, m, blk)
+    want = V.emit_plain(n, m, blk)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["emit"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-2048 // V.EMIT_TILE)
+    assert V.warps_per_sm() // (V.EMIT_TILE) * sms >= tiles
+
+
+@pytest.mark.parametrize("lanes", [1 << k for k in range(1, 10)])
+def test_reduce_kernel_at_every_lane_count(cuda, lanes):
+    """K4a against reduce_plain limb for limb on a seeded slab of
+    benches.accumulate_z.make_points at every lane count the wrapper
+    takes; the 512 buckets are one wave of the card's resident blocks."""
+    pts = AZ.make_points(64 * 8 * lanes, 70 + lanes, cuda)
+    slab = pts.reshape(4, 10, 64, 8, lanes).permute(2, 3, 0, 1, 4) \
+        .contiguous()
+    before = _cuda.LAUNCHES["msm_reduce"]
+    got = M.reduce(slab)
+    want = M.reduce_plain(slab)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["msm_reduce"] == before + 1
+    assert torch.equal(got, want)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert M.warps_per_sm()["msm_reduce"] // 2 * sms >= 64 * 8
+
+
 def test_msm_kernels_match_plain(cuda):
     k = 700
     raw = _encodings(2 * k, 63)[:k].to(cuda)
