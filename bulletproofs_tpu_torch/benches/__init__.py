@@ -57,3 +57,54 @@ def timed(fn, reps: int, device, warm: bool = True):
     for _ in range(reps):
         out = fn()
     return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def queued(fn, reps: int):
+    """(last output, mean milliseconds of fn() over `reps` calls by CUDA
+    events, with the calls queued behind a sleep of the card long enough
+    that it runs them back to back): device time, where `timed`'s loop of
+    a short kernel measures the host's launch pace.  Raises if the host
+    could not queue every call before the sleep ended."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4 * reps * host_s * 2e9) + 2_000_000   # ~4x at 2 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        ahead = not start.query()       # the card still asleep: all queued
+        torch.cuda.synchronize()
+        if ahead:
+            return out, start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("the host could not queue the calls ahead of the card")
+
+
+def kernel_ms(fn, reps: int) -> dict:
+    """{kernel: device milliseconds per call} of every kernel (and copy)
+    that fn() runs on the card, over `reps` calls, by torch.profiler (CUDA
+    activity only): the kernels' own durations, without the gaps between
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            out[e.key.split("(")[0][:80]] = t / 1e3 / reps
+    return out

@@ -1,43 +1,59 @@
 """What the compiler made of every kernel that includes csrc/fe25519.cuh
 (K1, K3, K4a, K4b, K5, K6 in both forms, K7, K11, K12) or
-csrc/sc25519.cuh (K2, K8, K9, K10, K14), on one CUDA card:
+csrc/sc25519.cuh (K2, K8, K9, K10, K14), and of K13, on one CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.field_kernels [--time]
         [--reps 20]
 
-Builds the libraries (decompress, emit, msm, compress, fixed_msm, fold)
-and prints one JSON line per kernel: ptxas' registers, spill stores and
-loads and static shared memory (`-Xptxas -v`), the resident warps per SM
-those allow at the kernel's block size (`accumulate_z.occupancy_from_ptxas`;
-not for K2 and K4a, whose residency the runtime reports),
-its SASS instructions, IMAD.WIDE among them, and the instructions in
-each compiled loop's body (cuobjdump); then a line with the card's name
-and power limit and, where the tree has the queries, K1's resident points
-and K2's and K4a's resident warps per SM that the CUDA runtime reports
-(K2's with its dynamic shared memory, which ptxas does not see).  With
-`--time` it also times, by CUDA events (the mean of `--reps` calls after
-a warm-up), kernels that no other bench times alone, on seeded inputs,
-each held to its plain version exactly: K1 (`curve.decompress`) at 8,192,
-33,792, 34,816 (an m=1 verifier sub-batch, 2048 x 17), 45,056 (the linear
-batch's 2048 x 22) and 65,579 (the R1CS k = 2^15 shuffle's) encodings,
-with the waves of resident blocks each takes, K2 (`verify.emit`) on a
-2048-proof sub-batch's challenge blocks at n = 64, m = 1, K4a
-(`msm.reduce`) at 512, 256, 128 and 64 lanes (an m=1 verifier
-sub-batch's 34,946 points, the R1CS batch's 8,260, an m=16 chunk's 8,160
-and the chunked verifier's final 2,052), K4b (`msm.horner`, whose
-arithmetic is its own) and K14 (`scalar.sinv`) at 256 and 4096
-challenges, with 0, 1 and l - 1 among them; K2's and K4a's lines carry
-their operations bound and latency floor at the card's maximum SM clock.
-Dropped into an older tree of the port (with this package's
-benches/__init__.py and benches/accumulate_z.py) it reports that tree's
-kernels; K2's and K4a's resident warps only where the tree has their
-queries.
+Builds the libraries (decompress, emit, msm, compress, fixed_msm, fold,
+keccak) and prints one JSON line per kernel: ptxas' registers, spill
+stores and loads and static shared memory (`-Xptxas -v`), the resident
+warps per SM those allow at the kernel's block size
+(`accumulate_z.occupancy_from_ptxas`; not for K2 and K4a, whose residency
+the runtime reports, nor K13), its SASS instructions, IMAD.WIDE among
+them, and the instructions in each compiled loop's body (cuobjdump); then
+a line with the card's name and power limit and, where the tree has the
+queries, K1's resident points and K2's and K4a's resident warps per SM
+that the CUDA runtime reports (K2's with its dynamic shared memory, which
+ptxas does not see).  With `--time` it also times kernels that no other
+bench times alone, on seeded inputs, each held to its plain version
+exactly, three ways: `ms` by CUDA events around a loop of `--reps` calls
+after a warm-up (the host's launch pace where a kernel is shorter than
+its launch), `queued_ms` by the same events with the calls queued behind
+a sleep of the card (device time, back to back: `benches.queued`) and
+`kernel_ms` by torch.profiler (the kernels' own durations, summed per
+call).  The cases: K1 (`curve.decompress`) at 8,192, 33,792, 34,816 (an
+m=1 verifier sub-batch, 2048 x 17), 45,056 (the linear batch's 2048 x 22)
+and 65,579 (the R1CS k = 2^15 shuffle's) encodings, with the waves of
+resident blocks each takes, K2 (`verify.emit`) on a 2048-proof
+sub-batch's challenge blocks at n = 64, m = 1, K4a (`msm.reduce`) at 512,
+256, 128 and 64 lanes (an m=1 verifier sub-batch's 34,946 points, the
+R1CS batch's 8,260, an m=16 chunk's 8,160 and the chunked verifier's
+final 2,052), K4b (`msm.horner`, whose arithmetic is its own), K14
+(`scalar.sinv`) at 256 and 4096 challenges, with 0, 1 and l - 1 among
+them; K8 on the IPP round 1 of the m=1 (64 x 4096) and m=16 (1024 x 256)
+provers: `fold.fold_pair` (one launch for a and b) where the tree has it,
+and the six-launch form of an older `fold_dyn` (two `index_select`, two
+`fold_lanes`, two `where`), with the kernels one `prover_stages.fold_dyn`
+call launches; K13 at 4096 and 256 transcript states with a transcript's
+pad: one launch where the tree's `f1600_state_bytes` takes the pad, and
+the two-launch form (an XOR, then the permutation), K13 alone on the
+states with no pad, and the tree's K13
+built with its 24 rounds cut to none (loads and stores alone, into
+`_build/cuda/loads_only/`: a measurement, never loaded by the port).
+K2's, K4a's and K13's lines carry their bound and latency floor at the
+card's maximum SM clock.  Dropped into an older tree of the port (with
+this package's benches/__init__.py and benches/accumulate_z.py) it
+reports that tree's kernels; K2's and K4a's resident warps only where the
+tree has their queries.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -47,7 +63,8 @@ import torch
 
 from . import accumulate_z as AZ
 
-LIBS = ("decompress", "emit", "msm", "compress", "fixed_msm", "fold")
+LIBS = ("decompress", "emit", "msm", "compress", "fixed_msm", "fold",
+        "keccak")
 # (kernel name, template instance?) -> threads a block; K1 ran blocks of
 # 128 before its blocks of one warp, K3 of 32 and K5 of 128 before their
 # template forms; msm_bin `lanes`.  K2's and K4a's resident warps come from
@@ -167,6 +184,50 @@ def reduce_latency_floor_ms(lanes: int, mhz: float) -> float:
         / (mhz * 1e3)
 
 
+# K8's multiply-adds: a folded element is one sc_mont_mul_sum (9 x 9 limb
+# products twice, the reduction's 9 x 9 and 9 quotients), u R and v R one
+# sc_mont_mul (171 limb products) each per proof; two 32-bit multiply-adds
+# a limb product
+FOLD_ELEMENT_MADS = 2 * (3 * 81 + 9)
+FOLD_FACTOR_MADS = 2 * 171
+# IPP round 1 of the m=1 prover (one half of 8192 proofs) and of the m=16
+# prover (256 proofs): (N rows, P proofs)
+FOLD_SHAPES = ((64, 4096), (1024, 256))
+# K13's states: one half of the m=1 prover's 8192 transcripts, the m=16
+# prover's 256
+K13_SIZES = (4096, 256)
+# K13's latency floor: per round two shared-memory round trips (a store,
+# the block's barrier, a load; each counted as one shared load's latency,
+# ~30 cycles on recent NVIDIA parts, the barrier free) and 7 dependent
+# instructions (the rotation by one, theta's two LOP3, rho's select and
+# funnel shift; chi's LOP3, the parity's LOP3), x 24 rounds; the global
+# loads and stores not counted
+SMEM_TRIP = 30
+KECCAK_ROUND_CYCLES = 2 * SMEM_TRIP + 7 * 4
+
+
+def fold_work(N: int, P: int, nk: int):
+    """(bytes, 32-bit multiply-adds) of K8's round: a and b read and
+    written once (and the maps, u and u^-1), against 2 nk P folded
+    elements and the 2 P Montgomery factors."""
+    return (4 * N * 9 * 8 * P + 2 * 9 * 8 * P + 9 * N,
+            2 * nk * P * FOLD_ELEMENT_MADS + 2 * P * FOLD_FACTOR_MADS)
+
+
+def fold_bound(N: int, P: int, nk: int, imads: float) -> dict:
+    """K8's bound on one round (fold_work at the card's rates)."""
+    nbytes, mads = fold_work(N, P, nk)
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, mads / imads * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+def keccak_latency_floor_ms(mhz: float) -> float:
+    """Least milliseconds of K13's 24 rounds at an SM clock of mhz."""
+    return 24 * KECCAK_ROUND_CYCLES / (mhz * 1e3)
+
+
 def base_name(mangled: str):
     """(identifier, template instance?) of an Itanium-mangled kernel."""
     m = re.match(r"_Z(\d+)", mangled)
@@ -269,16 +330,121 @@ def emit_blocks(P: int, n: int, m: int, seed: int) -> torch.Tensor:
     ).reshape(P, nblk, 32).copy()).cuda()
 
 
+def fold_inputs(N: int, P: int, seed: int):
+    """IPP round 1's fold inputs on the card: a, b (N, 9, P) seeded
+    canonical scalars (below 2^252), u and its inverse (9, P), the maps of
+    the fold into nk = N / 2 (idx, mask)."""
+    import numpy as np
+    from ..ops import scalar as S
+    g = torch.Generator().manual_seed(seed)
+    top = torch.tensor([1 << 29] * 8 + [1 << 20])[None, :, None]
+
+    def vec(rows):
+        return (torch.randint(0, 1 << 29, (rows, 9, P), generator=g)
+                % top).cuda()
+    a, b, u = vec(N), vec(N), vec(1)[0]
+    j = np.arange(N)
+    idx = torch.as_tensor(np.where(j < N // 2, j + N // 2, 0)).cuda()
+    mask = torch.as_tensor(j < N // 2).cuda()
+    return a, b, u, S.sinv(u), idx, mask
+
+
+def fold_six(a, b, u, uinv, idx, mask, fold=None):
+    """The older fold_dyn's a and b: two index_select, two fold_lanes (or
+    `fold`, its plain version), two where."""
+    from ..ops import fold as FO
+    fold = fold or FO.fold_lanes
+    m = mask[:, None, None]
+    na = fold(a, a.index_select(0, idx), u, uinv)
+    nb = fold(b, b.index_select(0, idx), uinv, u)
+    return torch.where(m, na, a), torch.where(m, nb, b)
+
+
+def transcript_pad(seed: int) -> torch.Tensor:
+    """(200, 1) uint8 on the card: a pending pad as the device transcript
+    makes one (constant bytes, 0x04 after them, 0x80 at byte 167)."""
+    g = torch.Generator().manual_seed(seed)
+    pad = torch.zeros((200, 1), dtype=torch.uint8)
+    pad[:20, 0] = torch.randint(0, 256, (20,), generator=g).to(torch.uint8)
+    pad[21, 0] ^= 0x04
+    pad[167, 0] ^= 0x80
+    return pad.cuda()
+
+
+def keccak_loads_only():
+    """The tree's csrc/keccak.cu with its round loop cut to no round, built
+    into _build/cuda/loads_only/ -> a function (200, P) uint8 -> (200, P)
+    that only loads and stores the states, through that kernel."""
+    import ctypes
+    from ..ops import _cuda
+    from .._build import BUILD_DIR
+    d = os.path.join(BUILD_DIR, "cuda", "loads_only")
+    os.makedirs(d, exist_ok=True)
+    for name in os.listdir(_cuda.CSRC):
+        if name.endswith((".cuh", ".cu")):
+            shutil.copy(os.path.join(_cuda.CSRC, name), d)
+    src = os.path.join(d, "keccak.cu")
+    with open(src) as fh:
+        text = fh.read()
+    if text.count("rnd < 24") != 1:
+        raise RuntimeError("keccak.cu: no single round loop to cut")
+    with open(src, "w") as fh:
+        fh.write(text.replace("rnd < 24", "rnd < 0"))
+    so = os.path.join(d, "libkeccak_loads_only.so")
+    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-I", d, "-o", so, src], check=True, capture_output=True,
+                   timeout=600)
+    fn = ctypes.CDLL(so).bp_keccak_f1600
+    from ..ops import keccak_device as K
+    takes_pad = "pad" in inspect.signature(K.f1600_state_bytes).parameters
+    fn.restype = ctypes.c_int
+
+    def run(st):
+        out = torch.empty_like(st)
+        ptrs = [st.data_ptr()] + ([None] if takes_pad else []) \
+            + [out.data_ptr()]
+        args = [ctypes.c_void_p(p) for p in ptrs] + [
+            ctypes.c_int64(st.shape[1]),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+        if fn(*args) != 0:
+            raise RuntimeError("the loads-only K13 did not launch")
+        return out
+    return run
+
+
+def kernel_counts(fn, reps: int = 10) -> dict:
+    """{kernel: launches a call} of fn() on the card, by torch.profiler
+    over `reps` calls (the mean, rounded: a trace may miss an event)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:80]: round(e.count / reps)
+            for e in prof.key_averages()
+            if (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) > 0}
+
+
 def timings(reps: int, mhz: float) -> dict:
-    """{kernel at size: {ms, exact}} of K1 at K1_SIZES (with its waves,
-    where the tree has the query), K2 on a 2048-proof sub-batch, K4a at
-    K4A_POINTS' lane counts (both with their bound and latency floor), K4b
-    at the verifier sub-batch's shape and K14 at K14_SIZES."""
+    """{kernel at size: {ms, queued_ms, kernel_ms, exact}} of K1 at
+    K1_SIZES (with its waves, where the tree has the query), K2 on a
+    2048-proof sub-batch, K4a at K4A_POINTS' lane counts (both with their
+    bound and latency floor), K4b at the verifier sub-batch's shape, K14
+    at K14_SIZES, K8 at FOLD_SHAPES (with its bound and the launches of
+    one fold_dyn) and K13 at K13_SIZES (with its bound and latency
+    floor)."""
     from ..ops import curve as C
+    from ..ops import fold as FO
+    from ..ops import keccak_device as K
     from ..ops import msm as M
+    from ..ops import prover_stages as PS
     from ..ops import scalar as S
     from ..ops import verify as V
-    from . import field_mads, timed
+    from . import field_mads, kernel_ms, queued, timed
     imads = torch.cuda.get_device_properties(0).multi_processor_count \
         * 64 * mhz * 1e6
     cases, extra = [], {}
@@ -313,13 +479,51 @@ def timings(reps: int, mhz: float) -> dict:
         x = challenges(n, 8)
         cases.append((f"sinv {n}", lambda x=x: S.sinv(x),
                       lambda x=x: S.sinv_plain(x)))
+    for N, P in FOLD_SHAPES:
+        f = fold_inputs(N, P, N + P)
+        plain = lambda f=f: fold_six(*f, fold=FO.fold_plain)
+        if hasattr(FO, "fold_pair"):
+            cases.append((f"fold_pair {N}x{P}", lambda f=f: FO.fold_pair(*f),
+                          plain))
+        cases.append((f"fold six-launch {N}x{P}", lambda f=f: fold_six(*f),
+                      plain))
+        for name in (f"fold_pair {N}x{P}", f"fold six-launch {N}x{P}"):
+            extra[name] = fold_bound(N, P, N // 2, imads)
+        a, b, u, ui, idx, mask = f
+        extra[f"fold six-launch {N}x{P}"]["fold_dyn_kernels"] = \
+            kernel_counts(lambda: PS.fold_dyn(a, b, a, b, u, ui, mask, idx,
+                                              mask))
+    takes_pad = "pad" in inspect.signature(K.f1600_state_bytes).parameters
+    loads_only = keccak_loads_only()
+    for n in K13_SIZES:
+        g = torch.Generator().manual_seed(n)
+        st = torch.randint(0, 256, (200, n), generator=g,
+                           dtype=torch.uint8).cuda()
+        pad = transcript_pad(n)
+        plain = lambda st=st, pad=pad: K.f1600_state_bytes_plain(st ^ pad)
+        if takes_pad:
+            cases.append((f"keccak {n}", lambda st=st, pad=pad:
+                          K.f1600_state_bytes(st, pad), plain))
+        cases.append((f"keccak xor+permute {n}", lambda st=st, pad=pad:
+                      K.f1600_state_bytes(st ^ pad), plain))
+        cases.append((f"keccak no pad {n}",
+                      lambda st=st: K.f1600_state_bytes(st),
+                      lambda st=st: K.f1600_state_bytes_plain(st)))
+        cases.append((f"keccak loads-only {n}",
+                      lambda st=st: loads_only(st), lambda st=st: st))
+        for name in (f"keccak {n}", f"keccak xor+permute {n}",
+                     f"keccak no pad {n}"):
+            extra[name] = {"bound_ms": 400 * n / 3.35e12 * 1e3,
+                           "latency_floor_ms": keccak_latency_floor_ms(mhz)}
     out = {}
     for name, fn, plain in cases:
         got, ms = timed(fn, reps, "cuda")
         want = plain()
         exact = all(torch.equal(a, b) for a, b in zip(got, want)) \
             if isinstance(got, tuple) else bool(torch.equal(got, want))
-        out[name] = {"ms": ms, "exact": exact, **extra.get(name, {})}
+        out[name] = {"ms": ms, "queued_ms": queued(fn, reps)[1],
+                     "kernel_ms": sum(kernel_ms(fn, reps).values()),
+                     "exact": exact, **extra.get(name, {})}
     if hasattr(C, "decompress_waves"):
         for n in K1_SIZES:
             out[f"decompress {n}"]["waves"] = C.decompress_waves(n)

@@ -20,21 +20,39 @@
 //
 // Layout: the port's vectors are (R, 9, P) int64, 29-bit canonical limbs
 // (csrc/sc25519.cuh), so limb k of element (r, p) sits at (r * 9 + k) * P
-// + p.  One thread per element; the threads of a warp take neighbouring p,
-// so each limb load and store is one coalesced 256-byte access.  u, v and
-// the two gw / hw multipliers are per proof, (9, P): the kernel reads them
-// by p, and the broadcast over rows (the TPU kernel's block shape) is never
+// + p.  The threads of a warp take neighbouring p, so each limb load and
+// store is one coalesced 256-byte access.  u, v and the two gw / hw
+// multipliers are per proof, (9, P): the kernels read them by p, and the
+// broadcast over rows (the TPU kernel's block shape) is never
 // materialised.
 //
-// Bound.  K8 moves 216 bytes per element (x, y in, the result out) against
-// 3 Montgomery multiplications (513 limb products, 1026 32-bit
-// multiply-adds): at the card's 3.35 TB/s and ~1.67e13 multiply-adds/s the
-// two limits are within 5 % of each other.  K9 moves 144 bytes against 2
-// multiplications: likewise balanced.  K10 moves 72 bytes in and 64 out
-// against a few dozen integer operations: bytes.  Design: no shared memory
-// and no reuse to exploit; the kernels are plain streaming loops whose
-// arithmetic stays in registers (the TPU kernel's Barrett constants and
-// 13-bit limb matrices were VMEM/Mosaic workarounds).
+// K8 folds a and b of one IPP round in one launch, under the round's maps
+// read from device memory: out_a[j] = u a[j] + v a[idx[j]] where mask[j],
+// else a[j], and out_b likewise with u and v swapped (ops/fold.fold_pair,
+// the prover's fold_dyn: the rows above nk copied through, stale).  The
+// launch's host arguments are the same in every round, so a round can be
+// captured once as a CUDA graph.  fold_lanes (u x + v y of two vectors) is
+// the same kernel with the identity map and one vector.  A thread owns a
+// proof column p and FOLD_ROWS rows spread over the vector (so a first
+// round's folded rows, the first half, fall evenly on the blocks): it
+// makes u R and v R mod l once (one Montgomery product by R^2 each), after
+// which a folded element is one sc_mont_mul_sum, x (u R) + y (v R) under
+// one reduction, = u x + v y with no conversion: 252 limb products (an
+// earlier kernel made three Montgomery products, 513).  Only rows under
+// the mask make products.  A form that took runs of 4 neighbouring rows
+// and read each row's mask and map entry in turn ran at 2.2x the bound:
+// half its blocks folded while half copied, and each row waited on two
+// dependent loads.
+//
+// Bound.  K8 moves 4 x 72 bytes per row and proof (a and b read once,
+// written once; the partner rows are a's and b's own) against 504 32-bit
+// multiply-adds per folded element: at a round's nk = N / 2 bytes bound it
+// about 3x (0.0225 ms against 0.0079 at N P = 262,144).  K9 moves 144
+// bytes against 2 multiplications: balanced.  K10 moves 72 bytes in and
+// 64 out against a few dozen integer operations: bytes.  Design: no
+// shared memory and no reuse to exploit; the kernels are streaming loops
+// whose arithmetic stays in registers (the TPU kernel's Barrett constants
+// and 13-bit limb matrices were VMEM/Mosaic workarounds).
 //
 // Results are canonical (the plain versions' values exactly); the JAX
 // kernels' outputs are lazy (< ~10 l) and agree with them mod l.  K10
@@ -64,18 +82,74 @@ __device__ __forceinline__ sc sc_mul(const sc& a, const sc& b) {
   return sc_mont_mul(sc_mont_mul(a, b), sc_const(SC_R2));
 }
 
-// out[r] = u x[r] + v y[r]: (x u R^-1 + y v R^-1) R^2 R^-1
+// rows of one K8 thread: r0 and r0 + S, S = ceil(R / 2), so at a first
+// round's nk = R / 2 every thread folds one row and copies its partner,
+// which it has just read (4 rows a thread took 0.037 ms at 64 x 4096 on an
+// H100, 8 rows 0.071: a thread's rows run one after another)
+#define FOLD_ROWS 2
+
+// the low words of 9 int64 limbs (each < 2^29): 4-byte loads, half the
+// registers of 8-byte ones, the same sectors
+__device__ __forceinline__ sc sc_load_lo(const int64_t* base, int64_t stride) {
+  const uint32_t* w = (const uint32_t*)base;
+  sc r;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r.v[k] = w[2 * k * stride];
+  return r;
+}
+
+// oa[j] = u xa[j] + v ya[idx[j]] where mask[j], else xa[j]; ob[j] = v xb[j]
+// + u yb[idx[j]] where mask[j], else xb[j].  idx == nullptr is the
+// identity, mask == nullptr every row, xb == nullptr no second vector.
+// idx[j] must lie in [0, R).  Block (row slot r0, FOLD_THREADS columns);
+// the mask and the map are the same across a warp, and a thread reads its
+// rows' entries first, all at once.
 __global__ void __launch_bounds__(FOLD_THREADS)
-fold_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+fold_kernel(const int64_t* __restrict__ xa, const int64_t* __restrict__ ya,
+            const int64_t* __restrict__ xb, const int64_t* __restrict__ yb,
             const int64_t* __restrict__ u, const int64_t* __restrict__ v,
-            int64_t* __restrict__ out, int64_t total, int64_t P) {
-  const int64_t e = (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x;
-  if (e >= total) return;
-  const int64_t r = e / P, p = e - r * P;
-  const int64_t off = r * 9 * P + p;
-  const sc s = sc_add(sc_mont_mul(sc_load64(x + off, P), sc_load64(u + p, P)),
-                      sc_mont_mul(sc_load64(y + off, P), sc_load64(v + p, P)));
-  sc_store64(out + off, P, sc_mont_mul(s, sc_const(SC_R2)));
+            const int64_t* __restrict__ idx, const uint8_t* __restrict__ mask,
+            int64_t* __restrict__ oa, int64_t* __restrict__ ob, int64_t R,
+            int64_t P) {
+  const int64_t p = (int64_t)blockIdx.y * FOLD_THREADS + threadIdx.x;
+  if (p >= P) return;
+  const int64_t S = gridDim.x;
+  bool fold[FOLD_ROWS];
+  int64_t g[FOLD_ROWS];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < FOLD_ROWS; ++k) {
+    const int64_t j = blockIdx.x + k * S;
+    fold[k] = j < R && (mask == nullptr || mask[j]);
+    g[k] = j < R && idx != nullptr ? idx[j] : j;
+    any |= fold[k];
+  }
+  sc uR = sc_zero(), vR = sc_zero();
+  if (any) {                            // u R, v R mod l: Montgomery factors
+    uR = sc_mont_mul(sc_load_lo(u + p, P), sc_const(SC_R2));
+    vR = sc_mont_mul(sc_load_lo(v + p, P), sc_const(SC_R2));
+  }
+#pragma unroll
+  for (int k = 0; k < FOLD_ROWS; ++k) {
+    const int64_t j = blockIdx.x + k * S;
+    if (j >= R) break;
+    const int64_t off = j * 9 * P + p;
+    if (fold[k]) {
+      const int64_t gy = g[k] * 9 * P + p;
+      sc_store64(oa + off, P, sc_mont_mul_sum(sc_load_lo(xa + off, P), uR,
+                                              sc_load_lo(ya + gy, P), vR));
+      if (xb != nullptr)
+        sc_store64(ob + off, P, sc_mont_mul_sum(sc_load_lo(xb + off, P), vR,
+                                                sc_load_lo(yb + gy, P), uR));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) oa[off + q * P] = xa[off + q * P];
+      if (xb != nullptr) {
+#pragma unroll
+        for (int q = 0; q < 9; ++q) ob[off + q * P] = xb[off + q * P];
+      }
+    }
+  }
 }
 
 // out[r] = x[r] (mask[r] ? m1 : m0)
@@ -119,12 +193,16 @@ static unsigned blocks_for(int64_t total) {
   return (unsigned)((total + FOLD_THREADS - 1) / FOLD_THREADS);
 }
 
-// x, y, out (R, 9, P); u, v (9, P)
-BP_EXPORT int bp_fold(const int64_t* x, const int64_t* y, const int64_t* u,
-                      const int64_t* v, int64_t* out, int64_t R, int64_t P,
-                      cudaStream_t stream) {
-  fold_kernel<<<blocks_for(R * P), FOLD_THREADS, 0, stream>>>(x, y, u, v, out,
-                                                              R * P, P);
+// xa, ya, oa (R, 9, P); xb, yb, ob (R, 9, P) or null; u, v (9, P); idx (R,)
+// int64 or null; mask (R,) uint8 or null
+BP_EXPORT int bp_fold(const int64_t* xa, const int64_t* ya, const int64_t* xb,
+                      const int64_t* yb, const int64_t* u, const int64_t* v,
+                      const int64_t* idx, const uint8_t* mask, int64_t* oa,
+                      int64_t* ob, int64_t R, int64_t P, cudaStream_t stream) {
+  const dim3 grid((unsigned)((R + FOLD_ROWS - 1) / FOLD_ROWS),
+                  (unsigned)((P + FOLD_THREADS - 1) / FOLD_THREADS));
+  fold_kernel<<<grid, FOLD_THREADS, 0, stream>>>(xa, ya, xb, yb, u, v, idx,
+                                                 mask, oa, ob, R, P);
   return (int)cudaGetLastError();
 }
 

@@ -95,6 +95,45 @@ __device__ __forceinline__ sc sc_mont_mul(const sc& a, const sc& b) {
   return sc_cond_sub_l(e);
 }
 
+// (a b + c d) R^-1 mod l for canonical a, b, c, d (< l): the two products'
+// columns summed, then one Montgomery reduction (K8's fold: 252 limb
+// products where two sc_mont_mul take 342).  a b + c d < 2 l^2 < l R, as
+// 2 l < R = 2^261, so the reduced value lies below 2 l and one conditional
+// subtraction finishes.  Column headroom: each of the 9 rounds adds three
+// 58-bit products to a column (a_i b_j, c_i d_j, the quotient's q l_j),
+// so a column collects at most 27 of them, < 2^62.8, plus the carry of
+// the column below, < 2^34: below 2^63.
+__device__ __forceinline__ sc sc_mont_mul_sum(const sc& a, const sc& b,
+                                              const sc& c, const sc& d) {
+  uint64_t t[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+      t[j] += (uint64_t)a.v[i] * b.v[j] + (uint64_t)c.v[i] * d.v[j];
+    const uint64_t mq = ((t[0] & SC_MASK) * SC_LINV) & SC_MASK;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) t[j] += mq * SC_ELL[j];
+    const uint64_t cy = t[0] >> SC_BITS;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[0] += cy;
+    t[8] = 0;
+  }
+  int64_t e[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) e[k] = (int64_t)t[k];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int64_t cy = e[k] >> SC_BITS;
+    e[k] &= SC_MASK;
+    e[k + 1] += cy;
+  }
+  return sc_cond_sub_l(e);
+}
+
 __device__ __forceinline__ sc sc_add(const sc& a, const sc& b) {
   int64_t e[9];
 #pragma unroll

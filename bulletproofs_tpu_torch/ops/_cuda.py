@@ -6,10 +6,10 @@ libraries are built at first launch (never at import), all sources in
 parallel, into `_build/cuda/`; a library's file name carries a hash of its
 sources, so an edited kernel is rebuilt and a stale one never loaded.
 
-Every exported C function takes its tensors as device pointers, its sizes
-as 64-bit ints and the CUDA stream last, launches on that stream and
-returns `cudaGetLastError()`.  `launch` raises on a non-zero return and
-adds one to the kernel's entry in `LAUNCHES`.
+Every exported C function takes its tensors as device pointers (None is
+a null pointer), its sizes as 64-bit ints and the CUDA stream last,
+launches on that stream and returns `cudaGetLastError()`.  `launch` raises
+on a non-zero return and adds one to the kernel's entry in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ SOURCES = {"decompress": "decompress.cu", "emit": "emit.cu", "msm": "msm.cu",
            "compress": "compress.cu", "fixed_msm": "fixed_msm.cu",
            "fold": "fold.cu", "keccak": "keccak.cu", "fmul13": "fmul13.cu"}
 HEADERS = ("fe25519.cuh", "sc25519.cuh", "common.cuh", "emit.cuh",
-           "reduce.cuh")
+           "reduce.cuh", "keccak.cuh")
 
 # kernel name -> number of launches since the last reset_counts()
 LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,
@@ -130,13 +130,13 @@ def check(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def launch(kernel: str, lib: str, fn: str, *args) -> None:
     """Call C function `fn` of library `lib` with tensors as device
-    pointers and ints as int64, on the current stream; count a launch of
-    `kernel`."""
+    pointers, None as a null pointer and ints as int64, on the current
+    stream; count a launch of `kernel`."""
     f = getattr(_lib(lib), fn)
     cargs, types = [], []
     for a in args:
-        if isinstance(a, torch.Tensor):
-            cargs.append(ctypes.c_void_p(a.data_ptr()))
+        if a is None or isinstance(a, torch.Tensor):
+            cargs.append(ctypes.c_void_p(None if a is None else a.data_ptr()))
             types.append(ctypes.c_void_p)
         else:
             cargs.append(ctypes.c_int64(int(a)))

@@ -3,8 +3,11 @@ digits (csrc/fold.cu), each with its plain PyTorch version.
 
 The JAX package's ops/fold_pallas.py (`fold_lanes`, `smul_lanes`,
 `digits_lanes`) in the port's layout: vectors are (R, 9, P) int64
-canonical scalars (ops/scalar.py), per-proof scalars (9, P).  The wrappers
-take any row and column count (the TPU kernels' 512-column tile and its
+canonical scalars (ops/scalar.py), per-proof scalars (9, P).  K8 has two
+wrappers on one kernel: `fold_pair`, an IPP round's fold of a and b under
+the round's row maps (the JAX package's prover_stages.fold_dyn, one
+launch), and `fold_lanes`, u x + v y of two vectors.  The wrappers take
+any row and column count (the TPU kernels' 512-column tile and its
 `usable` gate were Mosaic limits), check shapes, dtypes and contiguity on
 either device, run the plain version for a CPU tensor and launch the
 kernel for a CUDA tensor.  Outputs are canonical, so a kernel's result
@@ -46,7 +49,7 @@ def fold_plain(x, y, u, v) -> torch.Tensor:
 def fold_lanes(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
     """x, y (R, 9, P), u, v (9, P) per-proof scalars -> (R, 9, P)
-    u x + v y mod l."""
+    u x + v y mod l (kernel K8 with the identity map, one vector)."""
     R, P = _vectors(x, "fold_lanes")
     _check(x, (R, L, P), "fold_lanes x")
     _check(y, (R, L, P), "fold_lanes y")
@@ -58,8 +61,43 @@ def fold_lanes(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor,
         _cuda.check(t, torch.int64)
     out = torch.empty_like(x)
     if x.numel():
-        _cuda.launch("fold", "fold", "bp_fold", x, y, u, v, out, R, P)
+        _cuda.launch("fold", "fold", "bp_fold", x, y, None, None, u, v, None,
+                     None, out, None, R, P)
     return out
+
+
+def fold_pair_plain(a, b, u, uinv, idx, mask):
+    m = mask[:, None, None]
+    na = fold_plain(a, a.index_select(0, idx), u, uinv)
+    nb = fold_plain(b, b.index_select(0, idx), uinv, u)
+    return torch.where(m, na, a), torch.where(m, nb, b)
+
+
+def fold_pair(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
+              uinv: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor):
+    """One IPP round's fold of both vectors, in one launch of kernel K8:
+    a, b (R, 9, P), u, uinv (9, P) per-proof scalars, idx (R,) int64 rows
+    in [0, R), mask (R,) bool -> (a', b') with a'[j] = u a[j] + u^-1
+    a[idx[j]] and b'[j] = u^-1 b[j] + u b[idx[j]] where mask[j], else a[j]
+    and b[j].  The maps are read from device memory, so every round of a
+    prove launches K8 with the same arguments."""
+    R, P = _vectors(a, "fold_pair")
+    for t, what in ((a, "a"), (b, "b")):
+        _check(t, (R, L, P), f"fold_pair {what}")
+    for t, what in ((u, "u"), (uinv, "uinv")):
+        _check(t, (L, P), f"fold_pair {what}")
+    _check(idx, (R,), "fold_pair idx")
+    _check(mask, (R,), "fold_pair mask", torch.bool)
+    if a.device.type == "cpu":
+        return fold_pair_plain(a, b, u, uinv, idx, mask)
+    for t in (a, b, u, uinv, idx):
+        _cuda.check(t, torch.int64)
+    _cuda.check(mask, torch.bool)
+    oa, ob = torch.empty_like(a), torch.empty_like(b)
+    if a.numel():
+        _cuda.launch("fold", "fold", "bp_fold", a, a, b, b, u, uinv, idx,
+                     mask, oa, ob, R, P)
+    return oa, ob
 
 
 # -- K9: smul ----------------------------------------------------------------------

@@ -11,8 +11,9 @@ lane-parallel: the device transcript (ops/transcript_device.py) keeps the
   of 32 bits (held in int64), lane i = words (2i low, 2i + 1 high), little
   endian.  It is vectorised over the 25 lanes (about 30 tensor ops a round)
   rather than written lane by lane.
-* `f1600_state_bytes` is the kernel's wrapper on the (200, P) uint8 states:
-  K13 for a CUDA tensor, the plain version for a CPU tensor.
+* `f1600_state_bytes` is the kernel's wrapper on the (200, P) uint8 states,
+  with the device transcript's pending pad XORed in first when given: K13
+  for a CUDA tensor, the plain version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -116,20 +117,31 @@ def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
     return parts.reshape((200,) + w.shape[1:]).to(torch.uint8)
 
 
-def f1600_state_bytes_plain(st: torch.Tensor) -> torch.Tensor:
+def f1600_state_bytes_plain(st: torch.Tensor,
+                            pad: torch.Tensor = None) -> torch.Tensor:
+    if pad is not None:
+        st = st ^ pad
     return words_to_bytes(f1600_words_plain(bytes_to_words(st)))
 
 
-def f1600_state_bytes(st: torch.Tensor) -> torch.Tensor:
-    """(200, P) uint8 states -> (200, P) uint8 permuted states: kernel K13
-    on a CUDA tensor, the plain version on a CPU tensor."""
+def f1600_state_bytes(st: torch.Tensor, pad: torch.Tensor = None
+                      ) -> torch.Tensor:
+    """(200, P) uint8 states, and optionally a (200, 1) uint8 pad XORed
+    into every state first -> (200, P) uint8 permuted states, a new
+    tensor: kernel K13 (one launch, the pad included) on a CUDA tensor,
+    the plain version on a CPU tensor."""
     if st.dim() != 2 or st.shape[0] != 200 or st.dtype != torch.uint8:
         raise ValueError("f1600_state_bytes takes a (200, P) uint8 tensor")
+    if pad is not None and (tuple(pad.shape) != (200, 1)
+                            or pad.dtype != torch.uint8):
+        raise ValueError("f1600_state_bytes takes a (200, 1) uint8 pad")
     if st.device.type == "cpu":
-        return f1600_state_bytes_plain(st)
+        return f1600_state_bytes_plain(st, pad)
     st = _cuda.check(st, torch.uint8)
+    if pad is not None:
+        _cuda.check(pad, torch.uint8)
     out = torch.empty_like(st)
     if st.shape[1]:
-        _cuda.launch("keccak_f1600", "keccak", "bp_keccak_f1600", st, out,
-                     st.shape[1])
+        _cuda.launch("keccak_f1600", "keccak", "bp_keccak_f1600", st, pad,
+                     out, st.shape[1])
     return out

@@ -200,18 +200,28 @@ def round_base_sets(n: int, nk: int):
     return L_set, R_set
 
 
+def _fold_rows(N: int, h: int):
+    """Row maps (numpy) of a fold into width h over N rows: (idx, mask) with
+    mask[j] = j < h and idx[j] = j + h there, else 0."""
+    j = np.arange(N)
+    return np.where(j < h, j + h, 0), j < h
+
+
+@lru_cache(maxsize=None)
+def _fold_maps(N: int, h: int, device):
+    """_fold_rows on `device` (uploaded once)."""
+    return tuple(torch.as_tensor(t, device=device) for t in _fold_rows(N, h))
+
+
 def round_fold(n: int, nk: int, a, b, gw, hw, u, uinv):
-    """Fold a, b with the round's challenge (kernel K8); update gw, hw
-    (kernel K9).  The folded halves land in slots [0, nk / 2); the stale
-    upper slots are never read.  u, uinv (9, P) are per proof: the kernels
-    read them by proof, so nothing is broadcast over the rows."""
-    h = nk // 2
+    """Fold a, b with the round's challenge (kernel K8, one launch for
+    both); update gw, hw (kernel K9).  The folded halves land in slots
+    [0, nk / 2); the stale upper slots are copied through and never read.
+    u, uinv (9, P) are per proof: the kernels read them by proof, so
+    nothing is broadcast over the rows."""
     hi, *_ = _slot_maps(n, nk)
     lo_m = torch.as_tensor(~hi, device=a.device)
-    na = FO.fold_lanes(a[:h], a[h:nk], u, uinv)
-    nb = FO.fold_lanes(b[:h], b[h:nk], uinv, u)
-    a = torch.cat([na, a[h:]])
-    b = torch.cat([nb, b[h:]])
+    a, b = FO.fold_pair(a, b, u, uinv, *_fold_maps(n, nk // 2, a.device))
     gw = FO.smul_lanes(gw, lo_m, uinv, u)
     hw = FO.smul_lanes(hw, lo_m, u, uinv)
     return a, b, gw, hw
@@ -363,8 +373,8 @@ def _dyn_round_maps(N: int):
             sel_r=(R_bases[:, None] * 64 + w64[None, :]).reshape(-1),
         ))
         if nk < N:
-            folds.append(dict(mask_fold=j < nk,
-                              idx_fold=np.where(j < nk, j + nk, 0),
+            idx_fold, mask_fold = _fold_rows(N, nk)
+            folds.append(dict(mask_fold=mask_fold, idx_fold=idx_fold,
                               glo=(j % (2 * nk)) < nk))
         nk //= 2
     return emit, folds
@@ -391,16 +401,15 @@ def dyn_round_xs(N: int, device) -> dict:
 
 
 def fold_dyn(a, b, gw, hw, u, uinv, mask_fold, idx_fold, glo):
-    """Shape-uniform fold of all N rows: a[j] <- u a[j] + u^-1 a[j + nk] and
-    b with u, u^-1 swapped (kernel K8) where mask_fold (j < nk), the rows
-    above keep their stale values (never read again); gw / hw take u^-1 or
-    u by the lo / hi slot pattern glo (kernel K9)."""
-    na = FO.fold_lanes(a, a.index_select(0, idx_fold), u, uinv)
-    nb = FO.fold_lanes(b, b.index_select(0, idx_fold), uinv, u)
+    """Shape-uniform fold of all N rows, a and b in one launch of kernel
+    K8: a[j] <- u a[j] + u^-1 a[j + nk] and b with u, u^-1 swapped where
+    mask_fold (j < nk), the rows above copied through with their stale
+    values (never read again); gw / hw take u^-1 or u by the lo / hi slot
+    pattern glo (kernel K9)."""
+    a, b = FO.fold_pair(a, b, u, uinv, idx_fold, mask_fold)
     gw = FO.smul_lanes(gw, glo, uinv, u)
     hw = FO.smul_lanes(hw, glo, u, uinv)
-    m = mask_fold[:, None, None]
-    return torch.where(m, na, a), torch.where(m, nb, b), gw, hw
+    return a, b, gw, hw
 
 
 def round_emit_dyn(a, b, gw, hw, w, em):
@@ -521,10 +530,11 @@ def round_step_fused(niels, xs, k, w, a, b, gw, hw, u, uinv, st):
 
 
 def prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by, eb_by):
-    """The last fold (2 -> 1, kernel K8) -> (lr_all (R, 2P, 32), fin (5, P,
-    32) canonical rows [t_x, t_x_blinding, e_blinding, a0, b0])."""
-    a0 = FO.fold_lanes(a[:1], a[1:2], u, uinv)[0]
-    b0 = FO.fold_lanes(b[:1], b[1:2], uinv, u)[0]
+    """The last fold (2 -> 1, kernel K8, one launch for a and b) ->
+    (lr_all (R, 2P, 32), fin (5, P, 32) canonical rows [t_x, t_x_blinding,
+    e_blinding, a0, b0])."""
+    a2, b2 = FO.fold_pair(a[:2], b[:2], u, uinv, *_fold_maps(2, 1, a.device))
+    a0, b0 = a2[0], b2[0]
     fin = torch.stack([tx_by, txb_by, eb_by, sc_to_bytes(a0),
                        sc_to_bytes(b0)])
     return torch.stack(lrs), fin

@@ -12,10 +12,11 @@ reference src/transcript.rs:44-94).
 
 Constant bytes (labels, lengths, frame bytes, the permutation's padding)
 are the same for every transcript.  They are XORed into a host-side
-200-byte pad and applied with one XOR of a device constant just before
-the next per-transcript operation or permutation; each distinct pad is
-uploaded once per device and cached, so a prove makes no host-to-device
-copy (a pageable copy would wait for the card to drain).
+200-byte pad and applied just before the next per-transcript operation
+(one XOR of a device constant) or inside the next permutation (kernel K13
+takes the pad: one launch); each distinct pad is uploaded once per device
+and cached, so a prove makes no host-to-device copy (a pageable copy
+would wait for the card to drain).
 """
 
 from __future__ import annotations
@@ -88,11 +89,14 @@ class DeviceStrobe:
             self._pad = bytearray(200)
 
     def _run_f(self) -> None:
+        """Pad and permute: the pending pad goes into the permutation's
+        one launch (kernel K13 XORs it in before round 0)."""
         self._pad[self.pos] ^= self.pos_begin
         self._pad[self.pos + 1] ^= 0x04
         self._pad[STROBE_R + 1] ^= 0x80
-        self._flush()
-        self._st = f1600_state_bytes(self._st)
+        pad = _pad_tensor(bytes(self._pad), self._st.device)
+        self._pad = bytearray(200)
+        self._st = f1600_state_bytes(self._st, pad)
         self.pos = 0
         self.pos_begin = 0
 

@@ -10,7 +10,8 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      n=64 range proofs on the card on its default route, the device
      transcript (one warm-up, then the best of `--prove-runs`), with the
      launch counts of one run and a breakdown (device time per kernel,
-     host C++ transcript time); runs one half's device rest again under
+     host C++ transcript time; K8 must run once a round per half, a and b
+     in one launch); runs one half's device rest again under
      torch.cuda.set_sync_debug_mode("error") (no op may wait for the
      card); proves once more on the per-stage route with the same rng and
      requires the same proofs, commitments and transcripts;
@@ -24,8 +25,11 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      main-path inputs (one 2048-proof verifier sub-batch, and K3 with its
      binning launch on each of the verify run's four; one IPP round's L
      stream and the S stream, the prover's compressions at each size it
-     makes (12,288 and 8,192 points), one half's transcript states and IPP
-     challenges; K12 beside K6 on the L stream), and the verifier MSM
+     makes (12,288 and 8,192 points), one half's transcript states with
+     their pad (K13, beside the two-launch XOR-then-permute form) and IPP
+     challenges, IPP round 1's fold of a and b (K8, 64 x 4096, beside the
+     six-launch form of an older fold_dyn); K12 beside K6 on the L
+     stream), and the verifier MSM
      against the host curve library on a small input.  At each of the
      prover's fixed-base shapes (m=1 and m=16, IPP L and S streams) each
      K6 form that serves it (one-hot for the witness rows, also direct for
@@ -44,10 +48,11 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      swapped commitments rejected, 2 proofs through the host
      verify_multiple, and n=8, m=2 proofs from the card equal to the CPU
      route's byte for byte;
-  6. holds kernels K5, K8-K12 and K14 against their plain versions on the
+  6. holds kernels K5, K8-K14 against their plain versions on the
      aggregated path's inputs (its compressions at each size, 4,608 and
-     512 points; one fold, one gw update, the S coefficients' digits, one
-     half's IPP challenges,
+     512 points; IPP round 1's fold, 1024 x 256, one gw update, the S
+     coefficients' digits, the 256 transcript states with their pad, the
+     IPP challenges,
      one verifier chunk's and the final MSM's accumulation, K11's binning
      launch there too, K4a on their 128- and 64-lane slabs, the S
      commitment's stream for K12, timed beside K6), and K6 / K7 at the
@@ -69,7 +74,10 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      route, medians; the MSM alone), the six MSM kernels against their
      plain versions on its inputs, and a tampered batch rejected;
  12. prints the kernels' launches, times, plain times and bounds as one
-     JSON line, the card's name and power limit, and last the device line.
+     JSON line (K8's and K13's times by device time: launches queued
+     behind a sleep of the card, `benches.queued`; the others by CUDA
+     events around a loop of launches), the card's name and power limit,
+     and last the device line.
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
 
@@ -137,6 +145,14 @@ def time_cuda(fn, reps: int) -> float:
     by CUDA events."""
     from bulletproofs_tpu_torch.benches import timed
     return timed(fn, reps, DEVICE)[1]
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` launches queued behind a sleep
+    of the card (device time, back to back: where a kernel is shorter
+    than its launch, time_cuda measures the host's pace)."""
+    from bulletproofs_tpu_torch.benches import queued
+    return queued(fn, reps)[1]
 
 
 def max_abs_err(a, b) -> float:
@@ -785,6 +801,7 @@ def main() -> int:
     from bulletproofs_tpu_torch.ops import verify as V
     from bulletproofs_tpu_torch.ops.limbs import sc_ints_to_limbs
     from bulletproofs_tpu_torch.core.scalar import L as ELL
+    from bulletproofs_tpu_torch.utils.keccak import f1600_state
 
     dev = torch.device(DEVICE)
     smi = card_line()
@@ -835,6 +852,79 @@ def main() -> int:
         if got != want:
             failures.append(f"{what}: K6 / K7 launches {got}, expected {want}")
 
+    def check_k8_k13(launches, N, halves, what):
+        """K8 once a round per half (a and b in one launch: log2 N), and
+        K13's launches and the port's kernel launches of the call."""
+        want = (N.bit_length() - 1) * halves
+        log(f"  {what}: K8 fold {launches['fold']} launches (one a round: "
+            f"expected {want}), K13 keccak_f1600 {launches['keccak_f1600']}, "
+            f"{sum(launches.values())} launches of the port's kernels")
+        if launches["fold"] != want:
+            failures.append(f"{what}: {launches['fold']} K8 launches, "
+                            f"expected {want}")
+
+    def fold_check(cap, what):
+        """K8 on a prove's captured round-1 inputs: exact against its plain
+        version and the path's own output; timed by device time and by the
+        events loop, beside the six-launch form of an older fold_dyn (two
+        index_select, two fold_lanes, two where; fold_lanes on this K8 with
+        the identity map) -> (max_abs_err, ms, plain ms, bytes,
+        multiply-adds) for `record`."""
+        a, b, u, ui, idx, mask = cap.args
+        N, P, nk = a.shape[0], a.shape[-1], int(mask.sum())
+        got = FO.fold_pair(*cap.args)
+        want, plain_ms = time_once(lambda: FO.fold_pair_plain(*cap.args))
+        err = max(max_abs_err(got, want), max_abs_err(got, cap.out))
+
+        def six():
+            return FK.fold_six(*cap.args)
+        six_err = max_abs_err(six(), want)
+        ms = queued_ms(lambda: FO.fold_pair(*cap.args), 50)
+        loop_ms = time_cuda(lambda: FO.fold_pair(*cap.args), 50)
+        six_ms, six_loop = queued_ms(six, 50), time_cuda(six, 50)
+        nbytes, mads = FK.fold_work(N, P, nk)
+        b_ms, b_by = bound(nbytes, mads, imads)
+        log(f"  fold_pair on the {what}'s IPP round 1 ({N} x {P}, nk {nk}): "
+            f"max_abs_err {err} ({'ok' if err == 0 else 'MISMATCH'}); "
+            f"{ms:.4f} ms device (events loop {loop_ms:.4f}), {plain_ms:.2f} "
+            f"ms plain, bound {b_ms:.4f} ms ({b_by}; bytes "
+            f"{nbytes / PEAK_BYTES * 1e3:.4f}, operations "
+            f"{mads / imads * 1e3:.4f}); the six-launch form {six_ms:.4f} ms "
+            f"device (events loop {six_loop:.4f}), max_abs_err {six_err} on "
+            f"{smi}")
+        if err != 0 or six_err != 0:
+            failures.append(f"fold_pair on the {what}'s round 1")
+        return err, ms, plain_ms, nbytes, mads
+
+    def keccak_check(cap, what):
+        """K13 on a prove's captured states and pad: exact against its
+        plain version and, for the first and the last state, the host
+        permutation; timed by device time and by the events loop, beside
+        the two-launch form (an XOR, then the permutation) -> (max_abs_err,
+        ms, plain ms) for `record`."""
+        st, pad = cap.args
+        got = K.f1600_state_bytes(st, pad)
+        plain, plain_ms = time_once(
+            lambda: K.f1600_state_bytes_plain(st, pad))
+        err = max_abs_err(got, plain)
+        for p in (0, st.shape[1] - 1):
+            padded = (st[:, p] ^ pad[:, 0]).cpu().numpy().tobytes()
+            if got[:, p].cpu().numpy().tobytes() != f1600_state(padded):
+                err = max(err, 1.0)
+        ms = queued_ms(lambda: K.f1600_state_bytes(st, pad), 50)
+        loop_ms = time_cuda(lambda: K.f1600_state_bytes(st, pad), 50)
+        two_ms = queued_ms(lambda: K.f1600_state_bytes(st ^ pad), 50)
+        b_ms, _ = bound(2 * st.numel() + pad.numel(), 0, imads)
+        log(f"  keccak_f1600 on the {what}'s {st.shape[1]} states, pad "
+            f"included: max_abs_err {err} ({'ok' if err == 0 else 'MISMATCH'}"
+            f"); {ms:.4f} ms device (events loop {loop_ms:.4f}), "
+            f"{plain_ms:.2f} ms plain, bound {b_ms:.5f} ms (bytes), latency "
+            f"floor {FK.keccak_latency_floor_ms(mhz):.4f} ms; the two-launch "
+            f"form (XOR, then K13) {two_ms:.4f} ms device on {smi}")
+        if err != 0:
+            failures.append(f"keccak_f1600 on the {what}'s states")
+        return err, ms, plain_ms
+
     # -- 2. the prover's main path: the device-transcript route ---------------------
     t0 = time.time()
     prover = BatchProver(bp, pc, n, m, device=DEVICE)
@@ -867,7 +957,9 @@ def main() -> int:
     caps1 = {
         "compress": CaptureEach(PS.C, "compress", lambda pts: pts.shape[-1]),
         "keccak": Capture(TD, "f1600_state_bytes",
-                          lambda st: st.shape[1] == half),
+                          lambda st, *pad: st.shape[1] == half),
+        "fold": Capture(PS.FO, "fold_pair",
+                        lambda a, *r: a.shape == (n * m, 9, half)),
         "sinv": Capture(PS.S, "sinv", lambda x: x.shape[1] == half),
         "rest": Capture(PS, "prove_rest")}
     t0 = time.time()
@@ -895,6 +987,7 @@ def main() -> int:
     halves = 2 if args.total >= prover.FUSED_HALVES_FROM \
         and args.total % 2 == 0 else 1
     check_k6_forms(prove_launches, n * m, halves, "m=1 prove")
+    check_k8_k13(prove_launches, n * m, halves, "m=1 prove")
     for r in range(args.prove_runs - 1):
         t0 = time.time()
         prove(102 + r)
@@ -967,9 +1060,10 @@ def main() -> int:
     for k in ("fold", "smul", "digits"):
         if stage_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 per-stage prover")
-    check_k6_forms(stage_launches, n * m,
-                   2 if args.total >= prover.HALVES_FROM
-                   and args.total % 2 == 0 else 1, "m=1 per-stage prove")
+    stage_halves = 2 if args.total >= prover.HALVES_FROM \
+        and args.total % 2 == 0 else 1
+    check_k6_forms(stage_launches, n * m, stage_halves, "m=1 per-stage prove")
+    check_k8_k13(stage_launches, n * m, stage_halves, "m=1 per-stage prove")
 
     # -- 3. the proofs are right -------------------------------------------------------
     bv = BatchVerifier(bp, pc, n=n, m=m, device=DEVICE)
@@ -1305,14 +1399,12 @@ def main() -> int:
                prove_launches)
         k12_against_k6(rniels, rdig, l_name)
 
-        (kst,) = caps1["keccak"].args
-        got = K.f1600_state_bytes(kst)
-        plain, plain_ms = time_once(lambda: K.f1600_state_bytes_plain(kst))
+        kst = caps1["keccak"].args[0]
         record("keccak_f1600", "bulletproofs_tpu_torch/csrc/keccak.cu",
                "bulletproofs_tpu/ops/keccak_device.py:68",
-               max_abs_err(got, plain),
-               time_cuda(lambda: K.f1600_state_bytes(kst), 50), plain_ms,
-               2 * kst.numel(), 0, prove_launches)
+               *keccak_check(caps1["keccak"], "m=1 prove"),
+               2 * kst.numel() + 200, 0, prove_launches)
+        fold_check(caps1["fold"], "m=1 prove")
         (sx,) = caps1["sinv"].args
         got = S.sinv(sx)
         plain, plain_ms = time_once(lambda: S.sinv_plain(sx))
@@ -1389,12 +1481,14 @@ def main() -> int:
     lanes16 = agg // 2 if agg >= prover16.FUSED_HALVES_FROM and agg % 2 == 0 \
         else agg
     shapes16 = FS.ShapeCapture(FS.shape_specs(n, m16, lanes16))
-    pcaps = [Capture(PS.FO, "fold_lanes", lambda x, *a: x.shape[0] == N16),
+    pcaps = [Capture(PS.FO, "fold_pair", lambda a, *r: a.shape[0] == N16),
              Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
              Capture(PS.FO, "digits_lanes",
                      lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1),
              Capture(PS, "prove_rest"),
-             Capture(PS.S, "sinv")]
+             Capture(PS.S, "sinv"),
+             Capture(TD, "f1600_state_bytes",
+                     lambda st, *pad: st.shape[1] == lanes16)]
     k5_16 = CaptureEach(PS.C, "compress", lambda pts: pts.shape[-1])
     t0 = time.time()
     try:
@@ -1444,6 +1538,7 @@ def main() -> int:
             failures.append(f"{k} not launched by the m={m16} prover")
     halves16 = 2 if lanes16 != agg else 1
     check_k6_forms(prove16_launches, N16, halves16, f"m={m16} prove")
+    check_k8_k13(prove16_launches, N16, halves16, f"m={m16} prove")
     no_host_sync(pcaps[3], f"prove_rest (m={m16})")
 
     _cuda.reset_counts()
@@ -1582,20 +1677,15 @@ def main() -> int:
     if any(c.args is None for c in pcaps + vcaps) or len(shapes16.got) != 2:
         failures.append("aggregated-path kernel inputs not captured")
     else:
-        x, y, u, v = pcaps[0].args
-        R, P = x.shape[0], x.shape[-1]
-        log(f"aggregated-path kernel phases (fold {R} x {P}; gw update "
+        P = pcaps[0].args[0].shape[-1]
+        log(f"aggregated-path kernel phases (fold {N16} x {P}; gw update "
             f"{pcaps[1].args[0].shape[0]} x {P}; S digits "
             f"{pcaps[2].args[0].shape[0]} x {P}; K11 on {chunk_pts} and "
             f"{final_pts} points):")
-        got = FO.fold_lanes(x, y, u, v)
         record("fold", "bulletproofs_tpu_torch/csrc/fold.cu",
                "bulletproofs_tpu/ops/fold_pallas.py:42",
-               max_abs_err(got, FO.fold_plain(x, y, u, v)),
-               time_cuda(lambda: FO.fold_lanes(x, y, u, v), 20),
-               time_cuda(lambda: FO.fold_plain(x, y, u, v), 1),
-               (3 * R + 2) * 9 * P * 8, 3 * MONT_MADS * R * P,
-               prove16_launches)
+               *fold_check(pcaps[0], f"m={m16} prove"), prove16_launches)
+        keccak_check(pcaps[5], f"m={m16} prove")
         gx, mask, m1, m0 = pcaps[1].args
         R = gx.shape[0]
         got = FO.smul_lanes(gx, mask, m1, m0)

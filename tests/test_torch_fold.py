@@ -2,7 +2,10 @@
 (ops/fold.py), through their plain PyTorch versions on the CPU, against
 the JAX package's ops/fold_pallas.py kernels in interpret mode (512 and
 1024 columns) and its XLA vec_scalar path (a ragged 300 columns, which
-the Pallas kernels do not take).
+the Pallas kernels do not take); and the prover's three fold forms, each
+one K8 launch for a and b (`fold_dyn` through every round's maps,
+`round_fold` at every width, `prove_fin_fused`), against the JAX
+package's prover_stages.
 
 Tolerance 0: the values are compared as integers mod l (the JAX kernels'
 outputs are lazy, the port's canonical), digits after decoding both
@@ -185,6 +188,104 @@ def test_round_fold_matches_jax(interpret):
         assert _ints(g) == _jax_ints(np.asarray(w).reshape(VS.L, n * P))
 
 
+def _challenges(P, seed):
+    """(port u, port u^-1, JAX u, JAX u^-1) of P nonzero seeded scalars."""
+    u = [v or 1 for v in _vals(P, seed)]
+    uinv = [pow(v, -1, ELL) for v in u]
+    return (_vectors(u, 1, P)[0], _vectors(uinv, 1, P)[0], _jax_cols(u),
+            _jax_cols(uinv))
+
+
+def _same_rows(got, want, N, P):
+    """Every row of the port's (N, 9, P) vectors equal mod l to the JAX
+    package's (20, N, P) ones, the stale rows above the fold included."""
+    for g, w in zip(got, want):
+        assert _ints(g) == _jax_ints(np.asarray(w).reshape(VS.L, N * P))
+
+
+@pytest.mark.parametrize("P", [32, 5])
+def test_fold_dyn_matches_jax_every_round(interpret, P):
+    """The device route's fold (a and b by fold_pair, one K8 launch; gw, hw
+    by K9) through every round's maps at N = 16, chained round to round,
+    against the JAX package's fold_dyn: its Pallas kernels in interpret
+    mode at P = 32 (N P = 512 columns), its XLA path at a ragged P = 5.
+    All rows compared, the stale ones above nk included."""
+    N = 16
+    vecs = [_vals(N * P, 30 + k + P) for k in range(4)]
+    port = [_vectors(t, N, P) for t in vecs]
+    jax_ = [_jax_cols(t).reshape(VS.L, N, P) for t in vecs]
+    xs = PS.dyn_round_xs(N, torch.device("cpu"))
+    _, jfolds = JPS._dyn_round_maps(N)
+    assert len(jfolds) == xs["k"].shape[0] == 3
+    for k, jf in enumerate(jfolds):
+        u, uinv, ju, juinv = _challenges(P, 40 + k + P)
+        port = PS.fold_dyn(*port, u, uinv, xs["mask_fold"][k],
+                           xs["idx_fold"][k], xs["glo"][k])
+        jax_ = JPS.fold_dyn(*jax_, ju, juinv,
+                            *(jnp.asarray(jf[key]) for key in
+                              ("mask_fold", "idx_fold", "glo")))
+        _same_rows(port, jax_, N, P)
+
+
+def test_round_fold_matches_jax_every_width(interpret):
+    """The per-stage route's fold (one K8 launch for a and b over all N
+    rows, the maps of width nk / 2) at every width 16 -> 8 -> 4 -> 2 -> 1,
+    chained, against the JAX package's round_fold (Pallas, interpret mode,
+    where its 512-column tiles fit; XLA below): every row of a, b, gw,
+    hw."""
+    N, P = 16, 64
+    vecs = [_vals(N * P, 50 + k) for k in range(4)]
+    port = [_vectors(t, N, P) for t in vecs]
+    jax_ = [_jax_cols(t).reshape(VS.L, N, P) for t in vecs]
+    nk = N
+    while nk > 1:
+        u, uinv, ju, juinv = _challenges(P, 60 + nk)
+        port = PS.round_fold(N, nk, *port, u, uinv)
+        jax_ = JPS.round_fold(N, nk, *jax_, ju, juinv)
+        _same_rows(port, jax_, N, P)
+        nk //= 2
+
+
+def test_prove_fin_fused_matches_jax():
+    """The last fold 2 -> 1 (a and b in one K8 launch) and the output
+    block: lr_all and the canonical rows of t_x .. b0 byte for byte
+    against the JAX package's prove_fin_fused, with 0 and l - 1 among
+    a0, b0."""
+    N, P = 4, 6
+    a, b = _vals(N * P, 70), _vals(N * P, 71)
+    u, uinv, ju, juinv = _challenges(P, 72)
+    r = np.random.default_rng(73)
+    lrs = [r.integers(0, 256, (2 * P, 32)).astype(np.uint8) for _ in range(2)]
+    tx = [r.integers(0, 256, (P, 32)).astype(np.uint8) for _ in range(3)]
+    got = PS.prove_fin_fused([torch.as_tensor(x) for x in lrs],
+                             _vectors(a, N, P), _vectors(b, N, P), u, uinv,
+                             *(torch.as_tensor(t) for t in tx))
+    want = JPS.prove_fin_fused([jnp.asarray(x) for x in lrs],
+                               _jax_cols(a).reshape(VS.L, N, P),
+                               _jax_cols(b).reshape(VS.L, N, P), ju, juinv,
+                               *(jnp.asarray(t) for t in tx))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_fold_pair_is_the_masked_gather_fold():
+    """fold_pair against its definition on Python ints: a ragged shape, a
+    map that is not a round's (rows gathered from anywhere, the mask
+    scattered), u and u^-1 swapped for b."""
+    R, P = 7, 3
+    a, b = _vals(R * P, 80), _vals(R * P, 81)
+    u, v = _vals(P, 82), _vals(P, 83)
+    idx = [3, 0, 6, 6, 1, 2, 5]
+    mask = [True, False, True, True, False, True, False]
+    got = FO.fold_pair(_vectors(a, R, P), _vectors(b, R, P),
+                       _vectors(u, 1, P)[0], _vectors(v, 1, P)[0],
+                       torch.tensor(idx), torch.tensor(mask))
+    for out, x, (c, d) in zip(got, (a, b), ((u, v), (v, u))):
+        assert _ints(out) == [
+            (c[p] * x[j * P + p] + d[p] * x[idx[j] * P + p]) % ELL
+            if mask[j] else x[j * P + p] for j in range(R) for p in range(P)]
+
+
 @pytest.mark.parametrize("v", [0, 1, ELL - 1, ELL, (1 << 252) - 1, 1 << 252,
                                8 << 252, (1 << 256) - 1, (1 << 261) - 1])
 def test_reduce_top_is_mod_l(v):
@@ -202,6 +303,13 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError):                   # not contiguous
         FO.fold_lanes(x.transpose(0, 2).contiguous().transpose(0, 2), x, u,
                       u)
+    idx, mask = torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        FO.fold_pair(x, x, u, u, idx.to(torch.int32), mask)
+    with pytest.raises(ValueError):
+        FO.fold_pair(x, x, u, u, idx, mask[:3])
+    with pytest.raises(ValueError):
+        FO.fold_pair(x, x[:3], u, u, idx, mask)
     with pytest.raises(ValueError):
         FO.smul_lanes(x, torch.zeros(3, dtype=torch.bool), u, u)
     with pytest.raises(ValueError):

@@ -285,6 +285,13 @@ def test_prove_batch_on_card(cuda):
     proofs[3].verify_single(bp, pc, Transcript(labels[3]), vcs[3], 64)
 
 
+def _device_kernels(prof):
+    """Names of the kernels (and copies) a torch.profiler run saw on the
+    card, in order, without their argument lists."""
+    return [e.name.split("(")[0] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def _sc_vectors(rows, cols, seed, top=ELL):
     r = random.Random(seed)
     vals = [r.randrange(top) for _ in range(rows * cols)]
@@ -305,6 +312,46 @@ def test_fold_kernels_match_plain(cuda):
     assert _cuda.LAUNCHES["fold"] == before["fold"] + 1
     assert _cuda.LAUNCHES["smul"] == before["smul"] + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("N, P", [(64, 4096), (1024, 256), (16, 37)])
+def test_fold_pair_at_every_round(cuda, N, P):
+    """K8's one launch a round against fold_pair_plain (torch.equal) at the
+    m=1 and m=16 provers' round-1 shapes and a ragged one, under every
+    round's device maps (dyn_round_xs) and the last fold's; one K8 launch
+    a call, no other kernel."""
+    from bulletproofs_tpu_torch.ops import fold as FO
+    from bulletproofs_tpu_torch.ops import prover_stages as PS
+    from torch.profiler import ProfilerActivity, profile
+    a, b = _sc_vectors(N, P, 76).to(cuda), _sc_vectors(N, P, 77).to(cuda)
+    u, v = _sc_vectors(1, P, 78)[0].to(cuda), _sc_vectors(1, P, 79)[0].to(cuda)
+    xs = PS.dyn_round_xs(N, cuda)
+    maps = [(xs["idx_fold"][k], xs["mask_fold"][k])
+            for k in range(xs["k"].shape[0])] + [PS._fold_maps(N, 1, cuda)]
+    for idx, mask in maps:
+        before = _cuda.LAUNCHES["fold"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = FO.fold_pair(a, b, u, v, idx, mask)
+            torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["fold"] == before + 1
+        kernels = _device_kernels(prof)
+        if kernels:                       # where the profiler sees the card
+            assert kernels == ["fold_kernel"], kernels
+        want = FO.fold_pair_plain(a, b, u, v, idx, mask)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_prove_launches_k8_once_a_round(cuda):
+    """A device-transcript prove at n = 8, m = 1 (one half) folds a and b in
+    one K8 launch a round: log2(8) = 3 (rounds 1, 2 and the last fold)."""
+    from bulletproofs_tpu_torch import BatchProver
+    bp, pc = BulletproofGens(8, 1), PedersenGens()
+    _cuda.reset_counts()
+    BatchProver(bp, pc, 8, device=cuda).prove_batch(
+        [5, 6, 7], [Scalar(21 + i) for i in range(3)],
+        [Transcript(b"k8 %d" % i) for i in range(3)], rng=Rng(89))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["fold"] == 3
 
 
 def test_digits_kernel_matches_plain(cuda):
@@ -497,6 +544,58 @@ def test_keccak_kernel_matches_plain(cuda):
     assert torch.equal(got, want)
     host = st[:, 7].cpu().numpy().tobytes()
     assert got[:, 7].cpu().numpy().tobytes() == f1600_state(host)
+
+
+@pytest.mark.parametrize("P", [1, 31, 256, 4096, 4097])
+def test_keccak_kernel_with_and_without_a_pad(cuda, P):
+    """K13 at one state, a ragged block, the m=16 and m=1 provers' state
+    counts and one past the last full block, with the transcript's pad
+    XORed in and without: against the plain version and the host
+    permutation of a few states (the first, the last), one launch each."""
+    from bulletproofs_tpu_torch.ops import keccak_device as K
+    from bulletproofs_tpu_torch.utils.keccak import f1600_state
+    r = np.random.default_rng(90 + P)
+    st = torch.as_tensor(r.integers(0, 256, (200, P)).astype(np.uint8)).to(cuda)
+    pad = torch.as_tensor(r.integers(0, 256, (200, 1)).astype(np.uint8)).to(cuda)
+    for pd in (None, pad):
+        before = _cuda.LAUNCHES["keccak_f1600"]
+        got = K.f1600_state_bytes(st, pd)
+        want = K.f1600_state_bytes_plain(st, pd)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["keccak_f1600"] == before + 1
+        assert torch.equal(got, want)
+        padded = st if pd is None else st ^ pd
+        for p in {0, P // 2, P - 1}:
+            assert got[:, p].cpu().numpy().tobytes() == f1600_state(
+                padded[:, p].cpu().numpy().tobytes())
+
+
+def test_transcript_permutation_is_one_launch(cuda):
+    """DeviceStrobe._run_f with a pending pad: one kernel on the card, K13
+    (the pad XORed inside it), no XOR launch of its own; bytes as the CPU
+    strobe's."""
+    from torch.profiler import ProfilerActivity, profile
+    from bulletproofs_tpu_torch.ops.transcript_device import DeviceStrobe
+    st = np.random.default_rng(91).integers(0, 256, (200, 64)).astype(np.uint8)
+
+    def strobe(device):
+        ts = DeviceStrobe(torch.as_tensor(st).to(device), 0, 0, 0)
+        ts.meta_ad_const(b"one launch", False)
+        return ts
+
+    strobe(cuda)._run_f()                 # uploads and caches this pad
+    ts, host = strobe(cuda), strobe("cpu")
+    torch.cuda.synchronize()
+    before = _cuda.LAUNCHES["keccak_f1600"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ts._run_f()
+        torch.cuda.synchronize()
+    host._run_f()
+    assert _cuda.LAUNCHES["keccak_f1600"] == before + 1
+    kernels = _device_kernels(prof)
+    if kernels:                           # where the profiler sees the card
+        assert kernels == ["keccak_f1600_kernel"], kernels
+    assert torch.equal(ts.state().cpu(), host.state())
 
 
 @pytest.mark.parametrize("P", [256, 1000, 4096])

@@ -1,7 +1,8 @@
 """Keccak-f[1600] of the PyTorch port (ops/keccak_device.py, the plain
 version of kernel K13) against the JAX package's ops/keccak_device
 f1600_words and the port's host permutation utils/keccak.f1600_state, on
-seeded random states; and the byte <-> word codecs.  Exact (bitwise)."""
+seeded random states, with and without the device transcript's pad; and
+the byte <-> word codecs.  Exact (bitwise)."""
 
 import numpy as np
 import pytest
@@ -54,8 +55,42 @@ def test_bytes_words_round_trip_and_jax_layout():
     assert np.array_equal(K.words_to_bytes(words).numpy(), st)
 
 
+def _pad(seed):
+    """A transcript's pending pad: constant bytes at a few positions and
+    the permutation's padding (0x04 after the data, 0x80 at 167)."""
+    pad = np.zeros((200, 1), np.uint8)
+    r = np.random.default_rng(seed)
+    pos = int(r.integers(0, 165))
+    pad[:pos, 0] = r.integers(0, 256, pos)
+    pad[pos + 1, 0] ^= 0x04
+    pad[167, 0] ^= 0x80
+    return pad
+
+
+@pytest.mark.parametrize("p, seed", [(1, 81), (7, 82), (33, 83)])
+def test_padded_permutation_matches_jax_and_host(p, seed):
+    """f1600_state_bytes(st, pad) = the JAX package's f1600_words of
+    st ^ pad (the XOR its DeviceStrobe makes before each permutation) and
+    the host permutation of each padded state."""
+    st, pad = _states(p, seed), _pad(seed)
+    got = K.f1600_state_bytes(torch.as_tensor(st), torch.as_tensor(pad))
+    words = np.asarray(JK.bytes_to_words(st ^ pad))
+    want = np.asarray(JK.words_to_bytes(JK.f1600_words(words)))
+    assert np.array_equal(got.numpy(), want)
+    for q in range(p):
+        assert got[:, q].numpy().tobytes() == f1600_state(
+            (st[:, q] ^ pad[:, 0]).tobytes())
+    assert np.array_equal(got.numpy(), K.f1600_state_bytes_plain(
+        torch.as_tensor(st ^ pad)).numpy())
+
+
 def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         K.f1600_state_bytes(torch.zeros((199, 3), dtype=torch.uint8))
     with pytest.raises(ValueError):
         K.f1600_state_bytes(torch.zeros((200, 3), dtype=torch.int64))
+    st = torch.zeros((200, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        K.f1600_state_bytes(st, torch.zeros((200,), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        K.f1600_state_bytes(st, torch.zeros((200, 1), dtype=torch.int32))

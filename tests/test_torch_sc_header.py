@@ -1,6 +1,8 @@
 """The CUDA kernels' inversion mod l (`sc_invert` in `csrc/sc25519.cuh`,
 kernel K14's arithmetic) against Python's `pow(x, -1, l)` and the plain
-version `scalar.sinv_plain`, limb for limb, on the CPU.
+version `scalar.sinv_plain`, limb for limb, on the CPU; and K8's fold
+arithmetic (`sc_mont_mul_sum`, two products under one Montgomery
+reduction, with u R and v R made by `sc_mont_mul`) against Python ints.
 
 The header is compiled with the host g++ (the compiler `core/_native.py`
 uses) behind a small C harness that defines the CUDA qualifiers away.
@@ -40,6 +42,26 @@ void h_invert(const int64_t* x, int64_t* o, int n) {
     sc a;
     for (int k = 0; k < 9; ++k) a.v[k] = (uint32_t)x[9 * i + k];
     const sc r = sc_invert(a);
+    for (int k = 0; k < 9; ++k) o[9 * i + k] = r.v[k];
+  }
+}
+// x, y, u, v, o: (n, 9); o = (x u + y v) R^-1 (raw = 1) or, as K8 folds,
+// sc_mont_mul_sum(x, u R, y, v R) = u x + v y (raw = 0)
+void h_mont_mul_sum(const int64_t* x, const int64_t* y, const int64_t* u,
+                    const int64_t* v, int64_t* o, int n, int raw) {
+  for (int i = 0; i < n; ++i) {
+    sc a, b, c, d;
+    for (int k = 0; k < 9; ++k) {
+      a.v[k] = (uint32_t)x[9 * i + k];
+      c.v[k] = (uint32_t)y[9 * i + k];
+      b.v[k] = (uint32_t)u[9 * i + k];
+      d.v[k] = (uint32_t)v[9 * i + k];
+    }
+    if (!raw) {
+      b = sc_mont_mul(b, sc_const(SC_R2));
+      d = sc_mont_mul(d, sc_const(SC_R2));
+    }
+    const sc r = sc_mont_mul_sum(a, b, c, d);
     for (int k = 0; k < 9; ++k) o[9 * i + k] = r.v[k];
   }
 }
@@ -125,3 +147,40 @@ def test_invert_matches_pow_and_plain(lib, which):
                                        for v in vals]
     x = torch.as_tensor(sc_ints_to_limbs(vals))
     assert np.array_equal(got.T, S.sinv_plain(x).numpy())
+
+
+# -- K8: sc_mont_mul_sum ---------------------------------------------------------------
+
+R_MONT = 1 << 261
+EDGES = [0, 1, 2, ELL - 1, ELL - 2, (ELL - 1) // 2, 1 << 252, (1 << 252) - 1,
+         (1 << 29) - 1, 1 << 29, (1 << 232) - 1]
+
+
+def _mont_mul_sum(lib, x, y, u, v, raw):
+    cols = [np.ascontiguousarray(sc_ints_to_limbs(t).T) for t in (x, y, u, v)]
+    out = np.zeros_like(cols[0])
+    lib.h_mont_mul_sum(*(c.ctypes.data_as(ctypes.c_void_p) for c in cols),
+                       out.ctypes.data_as(ctypes.c_void_p),
+                       ctypes.c_int(len(x)), ctypes.c_int(raw))
+    return sc_limbs_to_ints(out.T)
+
+
+@pytest.mark.parametrize("which", ["edges", "random"])
+def test_mont_mul_sum_matches_ints(lib, which):
+    """(x u + y v) R^-1 mod l, canonical, on every combination of edge
+    values for x, y and u, v (the largest column sums: all four l - 1) and
+    on seeded random ones; then the fold K8 makes, x (u R) + y (v R) under
+    one reduction, against u x + v y mod l."""
+    r = random.Random(92)
+    if which == "edges":
+        quads = [(a, b, c, d) for a in EDGES for b in EDGES
+                 for c in (0, ELL - 1, a) for d in (ELL - 1, b)]
+    else:
+        quads = [tuple(r.randrange(ELL) for _ in range(4))
+                 for _ in range(3000)]
+    x, y, u, v = (list(t) for t in zip(*quads))
+    rinv = pow(R_MONT, -1, ELL)
+    assert _mont_mul_sum(lib, x, y, u, v, 1) == [
+        (a * c + b * d) * rinv % ELL for a, b, c, d in zip(x, y, u, v)]
+    assert _mont_mul_sum(lib, x, y, u, v, 0) == [
+        (a * c + b * d) % ELL for a, b, c, d in zip(x, y, u, v)]

@@ -6,11 +6,13 @@ data, the rate boundary, a key overwrite and the whole range-proof
 schedule.  Exact bytes and counters; seeded data."""
 
 import numpy as np
+import pytest
 import torch
 
 from bulletproofs_tpu.ops.transcript_device import DeviceStrobe as JStrobe
 
 from bulletproofs_tpu_torch.ops import scalar as S
+from bulletproofs_tpu_torch.ops import transcript_device as TD
 from bulletproofs_tpu_torch.ops.limbs import sc_limbs_to_ints
 from bulletproofs_tpu_torch.ops.transcript_device import DeviceStrobe
 from bulletproofs_tpu_torch.transcript import Transcript
@@ -95,6 +97,39 @@ def test_key_overwrite():
         h.key(k, False)
     dev.key_rows(torch.as_tensor(_rows(keys)), False)
     jdev.key_rows(_rows(keys), False)
+    _check(hosts, dev, jdev)
+
+
+def test_permutation_takes_the_pad_in_one_call(monkeypatch):
+    """A permutation is one f1600_state_bytes call with the pending pad (one
+    K13 launch on the card) and no separate XOR of the state: a label and
+    a challenge across the rate, against the host and JAX strobes."""
+    hosts, dev, jdev = _fresh(3)
+    pads = []
+    real = TD.f1600_state_bytes
+
+    def f1600(st, pad=None):
+        pads.append(pad)
+        return real(st, pad)
+
+    def no_flush(self):
+        raise AssertionError("the pad was XORed in a launch of its own")
+
+    monkeypatch.setattr(TD, "f1600_state_bytes", f1600)
+    for h in hosts:
+        h.meta_ad(b"a label of the schedule", False)
+        h.meta_ad(np.uint32(170).tobytes(), True)
+    for d in (dev, jdev):
+        d.meta_ad_const(b"a label of the schedule", False)
+        d.meta_ad_const(np.uint32(170).tobytes(), True)
+    monkeypatch.setattr(DeviceStrobe, "_flush", no_flush)
+    dev._begin_op(TD.FLAG_I | TD.FLAG_A | TD.FLAG_C, False)   # a PRF begins
+    monkeypatch.undo()
+    assert len(pads) == 1 and pads[0] is not None
+    want = [h.prf(170, False) for h in hosts]
+    got = dev._squeeze(170).numpy()
+    assert [got[:, p].tobytes() for p in range(3)] == want
+    assert np.array_equal(got, np.asarray(jdev.prf(170, False)))
     _check(hosts, dev, jdev)
 
 
