@@ -3,7 +3,7 @@
 csrc/sc25519.cuh (K2, K8, K9, K10, K14), and of K13, on one CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.field_kernels [--time]
-        [--reps 20]
+        [--reps 20] [--only smul,digits]
 
 Builds the libraries (decompress, emit, msm, compress, fixed_msm, fold,
 keccak) and prints one JSON line per kernel: ptxas' registers, spill
@@ -35,17 +35,22 @@ them; K8 on the IPP round 1 of the m=1 (64 x 4096) and m=16 (1024 x 256)
 provers: `fold.fold_pair` (one launch for a and b) where the tree has it,
 and the six-launch form of an older `fold_dyn` (two `index_select`, two
 `fold_lanes`, two `where`), with the kernels one `prover_stages.fold_dyn`
-call launches; K13 at 4096 and 256 transcript states with a transcript's
-pad: one launch where the tree's `f1600_state_bytes` takes the pad, and
+call launches; K9 on the same round's gw and hw: `fold.smul_pair` (one
+launch for both) where the tree has it, and two `smul_lanes` launches,
+beside a PyTorch copy of the same bytes (`clone pair`: what the memory
+gives that traffic); K10 (`fold.digits_lanes`) on the m=1 and m=16
+provers' S coefficients (129 x 4096, 2049 x 256); K13 at 4096 and 256
+transcript states with a transcript's pad: one launch where the tree's `f1600_state_bytes` takes the pad, and
 the two-launch form (an XOR, then the permutation), K13 alone on the
 states with no pad, and the tree's K13
 built with its 24 rounds cut to none (loads and stores alone, into
 `_build/cuda/loads_only/`: a measurement, never loaded by the port).
 K2's, K4a's and K13's lines carry their bound and latency floor at the
-card's maximum SM clock.  Dropped into an older tree of the port (with
-this package's benches/__init__.py and benches/accumulate_z.py) it
-reports that tree's kernels; K2's and K4a's resident warps only where the
-tree has their queries.
+card's maximum SM clock, K8's, K9's and K10's their bound.  `--only`
+times only the cases whose names hold one of its words.  Dropped into an
+older tree of the port (with this package's benches/__init__.py and
+benches/accumulate_z.py) it reports that tree's kernels; K2's and K4a's
+resident warps only where the tree has their queries.
 """
 
 from __future__ import annotations
@@ -193,6 +198,12 @@ FOLD_FACTOR_MADS = 2 * 171
 # IPP round 1 of the m=1 prover (one half of 8192 proofs) and of the m=16
 # prover (256 proofs): (N rows, P proofs)
 FOLD_SHAPES = ((64, 4096), (1024, 256))
+# K10's inputs: the S coefficients of the m=1 (2n + 1 = 129 rows, one
+# half's 4096 proofs) and the m=16 prover (2nm + 1 = 2049, 256 proofs);
+# its work: 72 bytes in and 64 out a scalar against the guard's 9 small
+# limb products (18 multiply-adds)
+DIGITS_SHAPES = ((129, 4096), (2049, 256))
+DIGITS_MADS = 18
 # K13's states: one half of the m=1 prover's 8192 transcripts, the m=16
 # prover's 256
 K13_SIZES = (4096, 256)
@@ -214,13 +225,26 @@ def fold_work(N: int, P: int, nk: int):
             2 * nk * P * FOLD_ELEMENT_MADS + 2 * P * FOLD_FACTOR_MADS)
 
 
-def fold_bound(N: int, P: int, nk: int, imads: float) -> dict:
-    """K8's bound on one round (fold_work at the card's rates)."""
-    nbytes, mads = fold_work(N, P, nk)
+def smul_work(N: int, P: int):
+    """(bytes, 32-bit multiply-adds) of K9's round: gw and hw read and
+    written once (and the mask and the two multipliers), against 2 N P
+    products of one Montgomery multiplication and the 2 P factors m1 R,
+    m0 R."""
+    return (4 * N * 9 * 8 * P + 2 * 9 * 8 * P + N,
+            (2 * N * P + 2 * P) * FOLD_FACTOR_MADS)
+
+
+def work_bound(nbytes: float, mads: float, imads: float) -> dict:
+    """The least time of a kernel's work at the card's rates."""
     t_bytes, t_ops = nbytes / 3.35e12 * 1e3, mads / imads * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+def fold_bound(N: int, P: int, nk: int, imads: float) -> dict:
+    """K8's bound on one round (fold_work at the card's rates)."""
+    return work_bound(*fold_work(N, P, nk), imads)
 
 
 def keccak_latency_floor_ms(mhz: float) -> float:
@@ -429,14 +453,14 @@ def kernel_counts(fn, reps: int = 10) -> dict:
                 or getattr(e, "self_cuda_time_total", 0)) > 0}
 
 
-def timings(reps: int, mhz: float) -> dict:
+def timings(reps: int, mhz: float, only=()) -> dict:
     """{kernel at size: {ms, queued_ms, kernel_ms, exact}} of K1 at
     K1_SIZES (with its waves, where the tree has the query), K2 on a
     2048-proof sub-batch, K4a at K4A_POINTS' lane counts (both with their
     bound and latency floor), K4b at the verifier sub-batch's shape, K14
-    at K14_SIZES, K8 at FOLD_SHAPES (with its bound and the launches of
-    one fold_dyn) and K13 at K13_SIZES (with its bound and latency
-    floor)."""
+    at K14_SIZES, K8 and K9 at FOLD_SHAPES (with their bounds and the
+    launches of one fold_dyn), K10 at DIGITS_SHAPES (with its bound) and
+    K13 at K13_SIZES (with its bound and latency floor)."""
     from ..ops import curve as C
     from ..ops import fold as FO
     from ..ops import keccak_device as K
@@ -493,6 +517,31 @@ def timings(reps: int, mhz: float) -> dict:
         extra[f"fold six-launch {N}x{P}"]["fold_dyn_kernels"] = \
             kernel_counts(lambda: PS.fold_dyn(a, b, a, b, u, ui, mask, idx,
                                               mask))
+        # K9 on the same round: gw, hw updated by the glo pattern of round
+        # 1 (j < N / 2 takes u^-1 for gw, u for hw)
+        plain = lambda a=a, b=b, u=u, ui=ui, m=mask: (
+            FO.smul_plain(a, m, ui, u), FO.smul_plain(b, m, u, ui))
+        if hasattr(FO, "smul_pair"):
+            cases.append((f"smul_pair {N}x{P}", lambda a=a, b=b, u=u, ui=ui,
+                          m=mask: FO.smul_pair(a, b, m, ui, u), plain))
+        cases.append((f"smul two-launch {N}x{P}", lambda a=a, b=b, u=u, ui=ui,
+                      m=mask: (FO.smul_lanes(a, m, ui, u),
+                               FO.smul_lanes(b, m, u, ui)), plain))
+        # the same bytes through a PyTorch copy: what the memory gives
+        # this traffic (a reference, not K9's function)
+        cases.append((f"clone pair {N}x{P}", lambda a=a, b=b: (a.clone(),
+                                                               b.clone()),
+                      lambda a=a, b=b: (a, b)))
+        for name in (f"smul_pair {N}x{P}", f"smul two-launch {N}x{P}",
+                     f"clone pair {N}x{P}"):
+            extra[name] = work_bound(*smul_work(N, P), imads)
+    for nb, Q in DIGITS_SHAPES:
+        x = fold_inputs(nb, Q, nb + Q)[0]
+        name = f"digits {nb}x{Q}"
+        cases.append((name, lambda x=x: FO.digits_lanes(x),
+                      lambda x=x: FO.digits_plain(x)))
+        extra[name] = work_bound(nb * Q * (9 * 8 + 64),
+                                 DIGITS_MADS * nb * Q, imads)
     takes_pad = "pad" in inspect.signature(K.f1600_state_bytes).parameters
     loads_only = keccak_loads_only()
     for n in K13_SIZES:
@@ -517,6 +566,8 @@ def timings(reps: int, mhz: float) -> dict:
                            "latency_floor_ms": keccak_latency_floor_ms(mhz)}
     out = {}
     for name, fn, plain in cases:
+        if only and not any(w in name for w in only):
+            continue
         got, ms = timed(fn, reps, "cuda")
         want = plain()
         exact = all(torch.equal(a, b) for a, b in zip(got, want)) \
@@ -526,7 +577,8 @@ def timings(reps: int, mhz: float) -> dict:
                      "exact": exact, **extra.get(name, {})}
     if hasattr(C, "decompress_waves"):
         for n in K1_SIZES:
-            out[f"decompress {n}"]["waves"] = C.decompress_waves(n)
+            if f"decompress {n}" in out:
+                out[f"decompress {n}"]["waves"] = C.decompress_waves(n)
     return out
 
 
@@ -534,6 +586,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose names hold one of these "
+                         "comma-separated words")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("field_kernels: no CUDA device available", file=sys.stderr)
@@ -568,7 +623,8 @@ def main() -> int:
     if args.time:
         mhz = float(AZ.smi("clocks.max.sm").split()[0])
         result["max_sm_mhz"] = mhz
-        result["times"] = timings(args.reps, mhz)
+        result["times"] = timings(args.reps, mhz,
+                                  [w for w in args.only.split(",") if w])
     print(json.dumps(result), flush=True)
     return 0 if all(t["exact"] for t in result.get("times", {}).values()) \
         else 1

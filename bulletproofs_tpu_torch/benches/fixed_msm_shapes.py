@@ -1,5 +1,5 @@
-"""The prover's fixed-base MSM kernels (K6, K7; K12 at the m=16 S stream)
-at the four main-path shapes, on one CUDA card:
+"""The prover's fixed-base MSM kernels (K6, K7, K12) at the four
+main-path shapes, on one CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.fixed_msm_shapes [--reps 3]
 
@@ -7,9 +7,12 @@ Proves `--total` n=64 range proofs (m=1) and `--agg-total` aggregated ones
 (n=64, m=16) once each on the device-transcript route, keeps the first
 input of `fixed_msm.msm_digits_niels` at each shape below, then times K6
 (`accumulate`: the one-hot form, and the direct form where the prover
-sent the rows with consttime=False) and K7 (`reduce`) on those inputs by
-CUDA events, each the mean of `--reps` after a warm-up.  Prints one JSON
-object per shape and the card's name and power limit.
+sent the rows with consttime=False), K12 (`accumulate2`, the two-set
+form `_ILP2` takes) and K7 (`reduce`, on K6's and on K12's slab) on those
+inputs by CUDA events, each the mean of `--reps` after a warm-up, and
+checks that K12's points equal K6's.  Prints the blocks per SM that the
+runtime reports for each kernel, one JSON object per shape and the card's
+name and power limit.
 
     m=1 IPP L stream    (n + 1) 64 rows x half the proofs   (public)
     m=1 S stream        (2n + 1) 64 rows x half the proofs  (witness)
@@ -28,6 +31,7 @@ import sys
 import torch
 
 from . import timed
+from ..ops import curve as C
 from ..ops import fixed_msm as FM
 
 
@@ -95,10 +99,13 @@ def measure(name, niels, digits, consttime: bool, reps: int):
         _, row["k6_direct_ms"] = timed(
             lambda: FM.accumulate(niels, digits, consttime=False), reps,
             "cuda")
-    elif name.startswith("m=16"):
-        # K12 (`_ILP2`) where chip_smoke.py times it, the m=16 S stream
-        _, row["k12_ms"] = timed(lambda: FM.accumulate2(niels, digits), reps,
+    # K12 (`_ILP2`, every row when set) beside K6 one-hot; K7 on its slab
+    slab2, row["k12_ms"] = timed(lambda: FM.accumulate2(niels, digits), reps,
                                  "cuda")
+    _, row["k7_on_k12_ms"] = timed(lambda: FM.reduce(slab2), reps, "cuda")
+    row["k12_split"] = slab2.shape[0]
+    row["k12_points_equal_k6"] = bool(torch.equal(
+        C.compress(FM.reduce(slab2)), C.compress(FM.reduce(slab))))
     return row
 
 
@@ -138,6 +145,8 @@ def main() -> int:
         lanes = total // 2 if total >= prover.FUSED_HALVES_FROM else total
         got.update(capture(prover, vals, bl, lanes, 7 + m))
     smi = card_line()
+    print(json.dumps({"blocks_per_sm": FM.blocks_per_sm(), "card": smi}),
+          flush=True)
     for name, (niels, digits, kw) in got.items():
         row = measure(name, niels, digits, kw.get("consttime", True),
                       args.reps)

@@ -53,15 +53,21 @@
 // in one thread); at a small split (the m=1 prover's 5) G = 1 keeps the
 // warp's 32 threads on 4 lanes' work.  Bound: operations, small beside K6.
 //
-// K12: K6's work per (row, lane) with the same one-hot access to both sets
-// at every row, plus 8 complete additions per thread at the end.  Two sets
-// are 80 KB of shared memory per block of 32 lanes, above the 48 KB of
-// static shared memory, so they are dynamic shared memory
-// (cudaFuncSetAttribute) and 2 blocks fit an SM where K6 fits 5;
-// `pick_splits` aims at 132 x 2 x 32 threads for it.  Each chunk has an
-// even number of rows (the wrapper pads with Niels identities and zero
-// digits).  Its slab differs from K6's only in the points' projective
-// representation, so K7 and compression give the same bytes.
+// K12: K6's one-hot work per (row, lane), the chunk's rows 2i into bucket
+// set 0 and rows 2i + 1 into set 1, plus 8 complete additions per lane
+// and chunk at the end (set 0 + set 1, bucket by bucket).  The TPU
+// kernel ran the two sets as two chains in one thread, for instruction-
+// level parallelism; here the two chains are two threads.  A block of 32
+// threads holds 16 lanes x 2 sets: thread t takes lane t % 16 and set
+// t / 16, and keeps its set as K6's OneHotSet, 1,280 B, so a block has
+// K6's 40 KB of static shared memory and an SM holds K6's 5 blocks (the
+// kernel before kept both sets in one thread in the [bucket][word]
+// [thread] layout: 80 KB of dynamic shared memory a block, 2 blocks an
+// SM, 960 shared-memory instructions a row where OneHotSet takes 240).
+// Each chunk has an even number of rows (the wrapper pads with Niels
+// identities and zero digits).  Its slab differs from K6's only in the
+// points' projective representation, so K7 and compression give the same
+// bytes.
 //
 // Every step is ops/fixed_msm.py's plain version in the same order, so the
 // slab and the points match it limb for limb.
@@ -108,62 +114,19 @@ __device__ __forceinline__ ge_niels signed_point(const int32_t* niels,
   return pt;
 }
 
-// -- the direct form's and K12's bucket sets: [bucket][word][thread] --------
+// -- the direct form's bucket set: [bucket][word][thread] --------------------
 //
 // Bucket word w of bucket b of a thread's set sits at set[(b * 40 + w) *
 // FX_THREADS] (the set pointer is offset by the thread's index).  The
-// pointer is volatile, so that every masked load and store of K12 is
-// issued as written and none is turned into a predicated (digit-dependent)
-// access.  The direct form takes it volatile too: so ptxas keeps it in 254
-// registers with no spills (non-volatile, it spilled 632 B per thread;
-// both ran at the same speed on an H100).
+// pointer is volatile: so ptxas keeps the form in 254 registers with no
+// spills (non-volatile, it spilled 632 B per thread; both ran at the same
+// speed on an H100).
 __device__ __forceinline__ void init_buckets(volatile int32_t* set) {
 #pragma unroll
   for (int b = 0; b < NBUCKET; ++b)
 #pragma unroll
     for (int w = 0; w < 40; ++w)                   // identity (0 : 1 : 1 : 0)
       set[(b * 40 + w) * FX_THREADS] = (w == 10 || w == 20) ? 1 : 0;
-}
-
-// word w of bucket b ORed into cur (read) or replaced by nw (write) under
-// the all-ones / all-zeros mask m
-__device__ __forceinline__ void or_bucket(volatile int32_t* set, int b,
-                                          int32_t m, int32_t cur[40]) {
-#pragma unroll
-  for (int w = 0; w < 40; ++w) cur[w] |= set[(b * 40 + w) * FX_THREADS] & m;
-}
-
-__device__ __forceinline__ void write_bucket(volatile int32_t* set, int b,
-                                             int32_t m, const int32_t nw[40]) {
-#pragma unroll
-  for (int w = 0; w < 40; ++w) {
-    volatile int32_t* p = set + (b * 40 + w) * FX_THREADS;
-    *p = (nw[w] & m) | (*p & ~m);
-  }
-}
-
-// K12: bucket `mag` of the set (the identity's words are never all zero,
-// so digit 0 reads zeros), read under one-hot masks.  The loop over the 8
-// buckets stays a loop: with two chains live the unrolled form runs out
-// of registers and spills.
-__device__ __forceinline__ ge select_bucket(volatile int32_t* set, int mag) {
-  int32_t cur[40];
-#pragma unroll
-  for (int w = 0; w < 40; ++w) cur[w] = 0;
-#pragma unroll 1
-  for (int b = 0; b < NBUCKET; ++b)
-    or_bucket(set, b, -(int32_t)(mag == b + 1), cur);
-  return ge_from_words(cur);
-}
-
-// K12: every bucket written back, bucket `mag` with the new point
-__device__ __forceinline__ void update_buckets(volatile int32_t* set, int mag,
-                                               const ge& pt) {
-  int32_t nw[40];
-  ge_to_words(pt, nw);
-#pragma unroll 1
-  for (int b = 0; b < NBUCKET; ++b)
-    write_bucket(set, b, -(int32_t)(mag == b + 1), nw);
 }
 
 // K6's direct form (public rows): bucket |digit| read and written alone
@@ -225,8 +188,12 @@ struct OneHotSet {
     sts4(base + (uint32_t)((2 * w + 1) * FX_THREADS * 16), v + 4);
   }
 
-  __device__ OneHotSet(int32_t* buckets, int tid)
-      : base((uint32_t)__cvta_generic_to_shared(buckets) + tid * 16) {
+  // the shared address of thread tid's slots in the block's buckets
+  static __device__ __forceinline__ uint32_t slots(int32_t* buckets, int tid) {
+    return (uint32_t)__cvta_generic_to_shared(buckets) + tid * 16;
+  }
+
+  __device__ OneHotSet(int32_t* buckets, int tid) : base(slots(buckets, tid)) {
 #pragma unroll
     for (int w = 0; w < 40; ++w) {               // identity (0 : 1 : 1 : 0)
       const int32_t one = (w == 10 || w == 20) ? 1 : 0;
@@ -264,13 +231,18 @@ struct OneHotSet {
       store8(w, v);
     }
   }
-  __device__ __forceinline__ int32_t word(int b, int w) const {
+  // word w of bucket b of the set whose slots start at `at`
+  static __device__ __forceinline__ int32_t word_at(uint32_t at, int b,
+                                                    int w) {
     int32_t v;
     asm volatile("ld.shared.s32 %0, [%1];"
                  : "=r"(v)
-                 : "r"(base + (uint32_t)(((2 * w + b / 4) * FX_THREADS) * 16 +
-                                         (b % 4) * 4)));
+                 : "r"(at + (uint32_t)(((2 * w + b / 4) * FX_THREADS) * 16 +
+                                       (b % 4) * 4)));
     return v;
+  }
+  __device__ __forceinline__ int32_t word(int b, int w) const {
+    return word_at(base, b, w);
   }
 };
 
@@ -306,48 +278,44 @@ fixed_accumulate_kernel(const int32_t* __restrict__ niels,
   }
 }
 
-// K12: rows 2t of the chunk go to bucket set 0, rows 2t + 1 to set 1.  The
-// two mixed additions are independent chains: set 1 is read while set 0's
-// madd runs and set 0 is written while set 1's runs (the volatile accesses
-// keep this order; the arithmetic is free to interleave).  At
-// the end the sets merge bucket by bucket with complete additions and
-// leave in K6's slab layout.  Two sets are 80 KB per block of 32 lanes:
-// dynamic shared memory, 2 blocks per SM (K6: 40 KB, 5 blocks).
+// K12: lanes a block of 32 threads, each lane's two sets on two threads
+#define FX2_LANES (FX_THREADS / 2)
+
+// Thread t of block (b, c) accumulates rows c rows + 2i + h of lane q = 16
+// b + t % 16 into its own OneHotSet, h = t / 16, as K6's one-hot form
+// does (every bucket read and written at every row, at addresses that do
+// not depend on the digit: witness rows).  After the warp's __syncwarp,
+// thread (q, h) reads buckets 4h..4h+3 of both of its lane's sets, the
+// partner's through the partner's slots, and stores set 0 + set 1.  A
+// lane past Q runs no row but reaches the __syncwarp, which takes the
+// whole warp.
 __global__ void __launch_bounds__(FX_THREADS)
 fixed_accumulate2_kernel(const int32_t* __restrict__ niels,
                          const int8_t* __restrict__ digits,
                          int32_t* __restrict__ slab, int64_t S, int64_t Q,
                          int64_t rows) {
-  extern __shared__ int32_t sets[];              // [set][bucket][word][thread]
-  const int tid = threadIdx.x;
-  const int64_t q = (int64_t)blockIdx.x * FX_THREADS + tid;
+  __shared__ __align__(16) int32_t buckets[NBUCKET * 40 * FX_THREADS];
+  const int tid = threadIdx.x, lane = tid % FX2_LANES, h = tid / FX2_LANES;
+  const int64_t q = (int64_t)blockIdx.x * FX2_LANES + lane;
   const int c = blockIdx.y;
-  if (q >= Q) return;
-  volatile int32_t* set0 = sets + tid;
-  volatile int32_t* set1 = sets + NBUCKET * 40 * FX_THREADS + tid;
-  init_buckets(set0);
-  init_buckets(set1);
-
-  for (int64_t s = c * rows; s < (c + 1) * rows; s += 2) {
-    const int d0 = digits[s * Q + q];
-    const int d1 = digits[(s + 1) * Q + q];
-    const int mag0 = d0 < 0 ? -d0 : d0;
-    const int mag1 = d1 < 0 ? -d1 : d1;
-    const ge new0 = ge_madd(select_bucket(set0, mag0),
-                            signed_point(niels, S, s, d0 < 0));
-    const ge cur1 = select_bucket(set1, mag1);
-    update_buckets(set0, mag0, new0);
-    const ge new1 = ge_madd(cur1, signed_point(niels, S, s + 1, d1 < 0));
-    update_buckets(set1, mag1, new1);
+  OneHotSet set(buckets, tid);
+  if (q < Q) {
+    for (int64_t s = c * rows + h; s < (c + 1) * rows; s += 2) {
+      const int d = digits[s * Q + q];
+      set.add(d < 0 ? -d : d, signed_point(niels, S, s, d < 0));
+    }
   }
-
+  __syncwarp();
+  if (q >= Q) return;
+  const uint32_t set0 = OneHotSet::slots(buckets, lane);
+  const uint32_t set1 = OneHotSet::slots(buckets, lane + FX2_LANES);
 #pragma unroll 1
-  for (int b = 0; b < NBUCKET; ++b) {
+  for (int b = 4 * h; b < 4 * h + 4; ++b) {
     int32_t w0[40], w1[40];
 #pragma unroll
     for (int w = 0; w < 40; ++w) {
-      w0[w] = set0[(b * 40 + w) * FX_THREADS];
-      w1[w] = set1[(b * 40 + w) * FX_THREADS];
+      w0[w] = OneHotSet::word_at(set0, b, w);
+      w1[w] = OneHotSet::word_at(set1, b, w);
     }
     ge_store(slab + ((int64_t)(c * NBUCKET + b) * 40) * Q + q, Q,
              ge_add(ge_from_words(w0), ge_from_words(w1)));
@@ -428,14 +396,8 @@ BP_EXPORT int bp_fixed_accumulate_vt(const int32_t* niels, const int8_t* digits,
 BP_EXPORT int bp_fixed_accumulate2(const int32_t* niels, const int8_t* digits,
                                    int32_t* slab, int64_t S, int64_t Q,
                                    int64_t splits, cudaStream_t stream) {
-  const int smem = 2 * NBUCKET * 40 * FX_THREADS * (int)sizeof(int32_t);
-  // set on every launch: the attribute belongs to the current device
-  const cudaError_t err = cudaFuncSetAttribute(
-      fixed_accumulate2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((Q + FX_THREADS - 1) / FX_THREADS), (unsigned)splits);
-  fixed_accumulate2_kernel<<<grid, FX_THREADS, smem, stream>>>(
+  dim3 grid((unsigned)((Q + FX2_LANES - 1) / FX2_LANES), (unsigned)splits);
+  fixed_accumulate2_kernel<<<grid, FX_THREADS, 0, stream>>>(
       niels, digits, slab, S, Q, S / splits);
   return (int)cudaGetLastError();
 }
@@ -455,19 +417,14 @@ BP_EXPORT int bp_fixed_reduce(const int32_t* slab, int32_t* out, int64_t Q,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out[0] K6 one-hot,
 // out[1] K6 direct, out[2] K12, out[3] K7
 BP_EXPORT int bp_fixed_blocks_per_sm(int* out) {
-  const int smem2 = 2 * NBUCKET * 40 * FX_THREADS * (int)sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fixed_accumulate2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem2);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, fixed_accumulate_kernel<OneHotSet>, FX_THREADS, 0);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fixed_accumulate_kernel<OneHotSet>, FX_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 1, fixed_accumulate_kernel<DirectSet>, FX_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out + 2, fixed_accumulate2_kernel, FX_THREADS, smem2);
+        out + 2, fixed_accumulate2_kernel, FX_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 3, fixed_reduce_kernel, RED_THREADS, 0);

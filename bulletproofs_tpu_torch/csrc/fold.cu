@@ -11,11 +11,11 @@
 // counts, above the operations bound) and its instructions issued one warp
 // at a time (~21,900, at ~2.3 cycles each on an H100).
 //
-// K8 fold replaces ops/fold_pallas.py:42 _fold_kernel (fold_lanes, :88),
+// K8 fold replaces ops/fold_pallas.py:42 _fold_kernel (fold_lanes, :89),
 // u x + v y elementwise, the IPP fold of a and b.  K9 smul replaces :50
-// _smul_kernel (smul_lanes, :95), x m elementwise, the update of the
+// _smul_kernel (smul_lanes, :96), x m elementwise, the update of the
 // generator weights gw and hw.  K10 digits replaces :115 _digits_kernel
-// (digits_lanes, :124), scalars -> signed base-16 digits, which every
+// (digits_lanes, :125), scalars -> signed base-16 digits, which every
 // fixed-base MSM of the prover and the chunked verifier's MSMs take.
 //
 // Layout: the port's vectors are (R, 9, P) int64, 29-bit canonical limbs
@@ -44,12 +44,31 @@
 // half its blocks folded while half copied, and each row waited on two
 // dependent loads.
 //
+// K9 updates gw and hw of one IPP round in one launch (ops/fold.smul_pair,
+// the prover's fold_dyn and round_fold): gw[r] (mask[r] ? m1 : m0) and
+// hw[r] (mask[r] ? m0 : m1), every row.  smul_lanes (one vector) is the
+// same kernel with a null second vector.  A block of SMUL_WARPS rows x 32
+// columns makes m1 R and m0 R mod l once for its columns, after which an
+// element is one sc_mont_mul, x (m R) R^-1 = x m: 171 limb products,
+// where the kernel before made two Montgomery products an element (x m
+// R^-1, then R^2 R^-1), took one launch a vector and found its row by a
+// 64-bit division.  Slower forms, on an H100: a thread a column and 4
+// rows (the factors in registers; 15 warps an SM, each running its rows'
+// loads, products and stores in turn) was slower than the two launches
+// it replaced; a warp's next row loaded before its current row is
+// multiplied (4 to 8 rows a warp) and 8 or 16 rows a block were slower
+// than 4 rows a block.
+//
 // Bound.  K8 moves 4 x 72 bytes per row and proof (a and b read once,
 // written once; the partner rows are a's and b's own) against 504 32-bit
 // multiply-adds per folded element: at a round's nk = N / 2 bytes bound it
-// about 3x (0.0225 ms against 0.0079 at N P = 262,144).  K9 moves 144
-// bytes against 2 multiplications: balanced.  K10 moves 72 bytes in and
-// 64 out against a few dozen integer operations: bytes.  Design: no
+// about 3x (0.0225 ms against 0.0079 at N P = 262,144).  K9 moves the
+// same 4 x 72 bytes per row and proof (gw and hw read once, written once)
+// against 342 multiply-adds per element: bytes bind it about 2x (0.0225
+// ms against 0.0107 at N P = 262,144; on an H100 a PyTorch copy of the
+// same bytes takes 0.028 ms, K9's loads and stores alone 0.027).  K10
+// moves 72 bytes in and 64 out against a few dozen integer operations:
+// bytes.  Design: no
 // shared memory and no reuse to exploit; the kernels are streaming loops
 // whose arithmetic stays in registers (the TPU kernel's Barrett constants
 // and 13-bit limb matrices were VMEM/Mosaic workarounds).
@@ -75,11 +94,6 @@ __device__ __forceinline__ void sc_store64(int64_t* base, int64_t stride,
                                            const sc& a) {
 #pragma unroll
   for (int k = 0; k < 9; ++k) base[k * stride] = (int64_t)a.v[k];
-}
-
-// a b mod l for canonical a, b: (a b R^-1) R^2 R^-1
-__device__ __forceinline__ sc sc_mul(const sc& a, const sc& b) {
-  return sc_mont_mul(sc_mont_mul(a, b), sc_const(SC_R2));
 }
 
 // rows of one K8 thread: r0 and r0 + S, S = ceil(R / 2), so at a first
@@ -152,17 +166,51 @@ fold_kernel(const int64_t* __restrict__ xa, const int64_t* __restrict__ ya,
   }
 }
 
-// out[r] = x[r] (mask[r] ? m1 : m0)
-__global__ void __launch_bounds__(FOLD_THREADS)
-smul_kernel(const int64_t* __restrict__ x, const uint8_t* __restrict__ mask,
-            const int64_t* __restrict__ m1, const int64_t* __restrict__ m0,
-            int64_t* __restrict__ out, int64_t total, int64_t P) {
-  const int64_t e = (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x;
-  if (e >= total) return;
-  const int64_t r = e / P, p = e - r * P;
+// K9's block: SMUL_WARPS rows of 32 columns, a warp a row
+#define SMUL_WARPS 4
+static_assert(SMUL_WARPS >= 2, "warps 0 and 1 make the two factors");
+
+// ox[r] = x[r] (mask[r] ? m1 : m0) and oy[r] = y[r] (mask[r] ? m0 : m1);
+// y == nullptr updates x alone.  Thread (row r, column p) loads its
+// elements first; meanwhile warps 0 and 1 make m1 R and m0 R of the
+// block's 32 columns into shared memory (one product by R^2 each, 2
+// products for every 2 SMUL_WARPS elements); then each element is one
+// product, x (m R) R^-1 = x m.  A warp shares its row, so the mask is the
+// same across it and its factor reads never diverge.
+__global__ void __launch_bounds__(32 * SMUL_WARPS)
+smul_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+            const uint8_t* __restrict__ mask, const int64_t* __restrict__ m1,
+            const int64_t* __restrict__ m0, int64_t* __restrict__ ox,
+            int64_t* __restrict__ oy, int64_t R, int64_t P) {
+  __shared__ uint32_t fac[2][9][32];             // m1 R, m0 R; limb, column
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int64_t p = (int64_t)blockIdx.y * 32 + lane;
+  const int64_t r = (int64_t)blockIdx.x * SMUL_WARPS + w;
+  const bool live = p < P && r < R;
   const int64_t off = r * 9 * P + p;
-  const int64_t* m = mask[r] ? m1 : m0;
-  sc_store64(out + off, P, sc_mul(sc_load64(x + off, P), sc_load64(m + p, P)));
+  sc xv = sc_zero(), yv = sc_zero();
+  bool hi = false;
+  if (live) {
+    hi = mask[r];
+    xv = sc_load_lo(x + off, P);
+    if (y != nullptr) yv = sc_load_lo(y + off, P);
+  }
+  if (w < 2 && p < P) {
+    const sc f = sc_mont_mul(sc_load_lo((w == 0 ? m1 : m0) + p, P),
+                             sc_const(SC_R2));
+#pragma unroll
+    for (int k = 0; k < 9; ++k) fac[w][k][lane] = f.v[k];
+  }
+  __syncthreads();
+  if (!live) return;
+  sc a, b;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    a.v[k] = fac[hi ? 0 : 1][k][lane];
+    b.v[k] = fac[hi ? 1 : 0][k][lane];
+  }
+  sc_store64(ox + off, P, sc_mont_mul(xv, a));
+  if (y != nullptr) sc_store64(oy + off, P, sc_mont_mul(yv, b));
 }
 
 // x (nb, 9, Q) -> out (nb * 64, Q) int8, row j * 64 + w (the fixed-base
@@ -206,12 +254,14 @@ BP_EXPORT int bp_fold(const int64_t* xa, const int64_t* ya, const int64_t* xb,
   return (int)cudaGetLastError();
 }
 
-// x, out (R, 9, P); mask (R,) uint8; m1, m0 (9, P)
-BP_EXPORT int bp_smul(const int64_t* x, const uint8_t* mask, const int64_t* m1,
-                      const int64_t* m0, int64_t* out, int64_t R, int64_t P,
-                      cudaStream_t stream) {
-  smul_kernel<<<blocks_for(R * P), FOLD_THREADS, 0, stream>>>(x, mask, m1, m0,
-                                                              out, R * P, P);
+// x, ox (R, 9, P); y, oy (R, 9, P) or null; mask (R,) uint8; m1, m0 (9, P)
+BP_EXPORT int bp_smul(const int64_t* x, const int64_t* y, const uint8_t* mask,
+                      const int64_t* m1, const int64_t* m0, int64_t* ox,
+                      int64_t* oy, int64_t R, int64_t P, cudaStream_t stream) {
+  const dim3 grid((unsigned)((R + SMUL_WARPS - 1) / SMUL_WARPS),
+                  (unsigned)((P + 31) / 32));
+  smul_kernel<<<grid, 32 * SMUL_WARPS, 0, stream>>>(x, y, mask, m1, m0, ox,
+                                                    oy, R, P);
   return (int)cudaGetLastError();
 }
 

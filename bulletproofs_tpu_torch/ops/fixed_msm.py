@@ -20,8 +20,8 @@ Q output lanes over NB shared bases:
   equal limb for limb: one-hot (`consttime=True`, the default) and direct
   (`consttime=False`, public rows only);
 * K12 `accumulate2` (under `_ILP2`): K6 with two bucket sets per chunk,
-  fed by alternate rows (two independent mixed-addition chains), merged
-  bucket by bucket at the end into K6's slab layout;
+  fed by alternate rows (two independent mixed-addition chains, one thread
+  each), merged bucket by bucket at the end into K6's slab layout;
 * K7 `reduce`: per lane, merge the chunks' buckets with complete additions
   (`red_groups` chunk groups, then a tree) and form sum_b b B_b by a
   suffix scan and a tree sum over the 8 buckets, 8 threads per group.
@@ -63,8 +63,13 @@ NUM_BUCKETS = 8                 # digit magnitudes 1..8
 # gives 5 there; chip_smoke.py logs it), so 132 * 5 * 32 threads fill the
 # card in one wave
 TARGET_THREADS = 21120
-# K12 keeps two bucket sets, 80 KB per block: 2 blocks per SM
-TARGET_THREADS2 = 8448
+# K12 runs a lane's two bucket sets on two threads, 16 lanes a block of
+# 32 at K6's 40 KB (5 blocks per SM resident), and aims at 4 blocks per SM,
+# one warp on each of the SM's four schedulers: 2 * splits * Q = 132 * 4 *
+# 32 threads.  At 256 lanes (split 33) that ran the m=16 S stream in 15.1
+# ms on an H100, where 5 blocks per SM (split 41: one scheduler with two
+# warps) took 17.6-17.8 (benches/fixed_msm_shapes.py)
+TARGET_THREADS2 = 132 * 4 * 32 // 2
 MIN_ROWS_PER_SPLIT = 32
 # K7 sums each bucket's chunks in at most this many groups, one thread
 # per (bucket, group)

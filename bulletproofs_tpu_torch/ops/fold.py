@@ -6,9 +6,11 @@ The JAX package's ops/fold_pallas.py (`fold_lanes`, `smul_lanes`,
 canonical scalars (ops/scalar.py), per-proof scalars (9, P).  K8 has two
 wrappers on one kernel: `fold_pair`, an IPP round's fold of a and b under
 the round's row maps (the JAX package's prover_stages.fold_dyn, one
-launch), and `fold_lanes`, u x + v y of two vectors.  The wrappers take
-any row and column count (the TPU kernels' 512-column tile and its
-`usable` gate were Mosaic limits), check shapes, dtypes and contiguity on
+launch), and `fold_lanes`, u x + v y of two vectors.  K9 too:
+`smul_pair`, an IPP round's update of gw and hw in one launch, and
+`smul_lanes`, one vector.  The wrappers take any row and column count
+(the TPU kernels' 512-column tile and its `usable` gate were Mosaic
+limits), check shapes, dtypes and contiguity on
 either device, run the plain version for a CPU tensor and launch the
 kernel for a CUDA tensor.  Outputs are canonical, so a kernel's result
 equals its plain version's exactly.
@@ -109,21 +111,46 @@ def smul_plain(x, mask, m1, m0) -> torch.Tensor:
 def smul_lanes(x: torch.Tensor, mask: torch.Tensor, m1: torch.Tensor,
                m0: torch.Tensor) -> torch.Tensor:
     """x (R, 9, P), mask (R,) bool, m1, m0 (9, P) per-proof scalars ->
-    (R, 9, P): row r times m1 where mask[r], else times m0, mod l."""
-    R, P = _vectors(x, "smul_lanes")
-    _check(x, (R, L, P), "smul_lanes x")
-    _check(mask, (R,), "smul_lanes mask", torch.bool)
-    _check(m1, (L, P), "smul_lanes m1")
-    _check(m0, (L, P), "smul_lanes m0")
+    (R, 9, P): row r times m1 where mask[r], else times m0, mod l (kernel
+    K9 with one vector)."""
+    return _smul(x, None, mask, m1, m0, "smul_lanes")[0]
+
+
+def smul_pair_plain(x, y, mask, m1, m0):
+    return smul_plain(x, mask, m1, m0), smul_plain(y, mask, m0, m1)
+
+
+def smul_pair(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+              m1: torch.Tensor, m0: torch.Tensor):
+    """One IPP round's update of both generator weight vectors, in one
+    launch of kernel K9: x, y (R, 9, P), mask (R,) bool, m1, m0 (9, P)
+    per-proof scalars -> (x', y') with x'[r] = x[r] (mask[r] ? m1 : m0)
+    and y'[r] = y[r] (mask[r] ? m0 : m1) mod l."""
+    return _smul(x, y, mask, m1, m0, "smul_pair")
+
+
+def _smul(x, y, mask, m1, m0, what: str):
+    """K9 on x and, unless None, y -> (x', y' or None)."""
+    R, P = _vectors(x, what)
+    for t, name in ((x, "x"), (y, "y")):
+        if t is not None:
+            _check(t, (R, L, P), f"{what} {name}")
+    for t, name in ((m1, "m1"), (m0, "m0")):
+        _check(t, (L, P), f"{what} {name}")
+    _check(mask, (R,), f"{what} mask", torch.bool)
     if x.device.type == "cpu":
-        return smul_plain(x, mask, m1, m0)
-    for t in (x, m1, m0):
-        _cuda.check(t, torch.int64)
+        return (smul_plain(x, mask, m1, m0),
+                None if y is None else smul_plain(y, mask, m0, m1))
+    for t in (x, y, m1, m0):
+        if t is not None:
+            _cuda.check(t, torch.int64)
     _cuda.check(mask, torch.bool)
-    out = torch.empty_like(x)
+    ox = torch.empty_like(x)
+    oy = None if y is None else torch.empty_like(y)
     if x.numel():
-        _cuda.launch("smul", "fold", "bp_smul", x, mask, m1, m0, out, R, P)
-    return out
+        _cuda.launch("smul", "fold", "bp_smul", x, y, mask, m1, m0, ox, oy,
+                     R, P)
+    return ox, oy
 
 
 # -- K10: digits --------------------------------------------------------------------

@@ -215,15 +215,14 @@ def _fold_maps(N: int, h: int, device):
 
 def round_fold(n: int, nk: int, a, b, gw, hw, u, uinv):
     """Fold a, b with the round's challenge (kernel K8, one launch for
-    both); update gw, hw (kernel K9).  The folded halves land in slots
-    [0, nk / 2); the stale upper slots are copied through and never read.
-    u, uinv (9, P) are per proof: the kernels read them by proof, so
-    nothing is broadcast over the rows."""
+    both); update gw, hw (kernel K9, one launch for both).  The folded
+    halves land in slots [0, nk / 2); the stale upper slots are copied
+    through and never read.  u, uinv (9, P) are per proof: the kernels
+    read them by proof, so nothing is broadcast over the rows."""
     hi, *_ = _slot_maps(n, nk)
     lo_m = torch.as_tensor(~hi, device=a.device)
     a, b = FO.fold_pair(a, b, u, uinv, *_fold_maps(n, nk // 2, a.device))
-    gw = FO.smul_lanes(gw, lo_m, uinv, u)
-    hw = FO.smul_lanes(hw, lo_m, u, uinv)
+    gw, hw = FO.smul_pair(gw, hw, lo_m, uinv, u)
     return a, b, gw, hw
 
 
@@ -405,10 +404,9 @@ def fold_dyn(a, b, gw, hw, u, uinv, mask_fold, idx_fold, glo):
     K8: a[j] <- u a[j] + u^-1 a[j + nk] and b with u, u^-1 swapped where
     mask_fold (j < nk), the rows above copied through with their stale
     values (never read again); gw / hw take u^-1 or u by the lo / hi slot
-    pattern glo (kernel K9)."""
+    pattern glo (kernel K9, one launch for both)."""
     a, b = FO.fold_pair(a, b, u, uinv, idx_fold, mask_fold)
-    gw = FO.smul_lanes(gw, glo, uinv, u)
-    hw = FO.smul_lanes(hw, glo, u, uinv)
+    gw, hw = FO.smul_pair(gw, hw, glo, uinv, u)
     return a, b, gw, hw
 
 

@@ -10,10 +10,10 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      n=64 range proofs on the card on its default route, the device
      transcript (one warm-up, then the best of `--prove-runs`), with the
      launch counts of one run and a breakdown (device time per kernel,
-     host C++ transcript time; K8 must run once a round per half, a and b
-     in one launch); runs one half's device rest again under
-     torch.cuda.set_sync_debug_mode("error") (no op may wait for the
-     card); proves once more on the per-stage route with the same rng and
+     host C++ transcript time; K8 and K9 must run once a round per half,
+     a and b in one launch, gw and hw in one); runs one half's device
+     rest again under torch.cuda.set_sync_debug_mode("error") (no op may
+     wait for the card); proves once more on the per-stage route with the same rng and
      requires the same proofs, commitments and transcripts;
   2. checks the proofs: the card's BatchVerifier accepts all of them (the
      verifier's main path, with its launch counts), 64 sampled ones pass
@@ -28,7 +28,8 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      makes (12,288 and 8,192 points), one half's transcript states with
      their pad (K13, beside the two-launch XOR-then-permute form) and IPP
      challenges, IPP round 1's fold of a and b (K8, 64 x 4096, beside the
-     six-launch form of an older fold_dyn); K12 beside K6 on the L
+     six-launch form of an older fold_dyn) and its gw / hw update (K9,
+     beside two one-vector launches); K12 beside K6 on the L
      stream), and the verifier MSM
      against the host curve library on a small input.  At each of the
      prover's fixed-base shapes (m=1 and m=16, IPP L and S streams) each
@@ -42,7 +43,8 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      warm-up, then the best of `--agg-runs`, launch counts, breakdown, the
      no-sync check of one rest), once on the per-stage route (its launch
      counts checked) and `--agg-runs` times with fixed_msm._ILP2 set (the
-     two-set kernel K12 in place of K6), all three byte-identical; then
+     two-set kernel K12 in place of K6; its device time by torch.profiler
+     beside the default route's), all three byte-identical; then
      BatchVerifier(m=16) on its chunked route (best of `--agg-runs`); the
      same proofs accepted by the fused route too, a flipped byte and
      swapped commitments rejected, 2 proofs through the host
@@ -50,7 +52,7 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      route's byte for byte;
   6. holds kernels K5, K8-K14 against their plain versions on the
      aggregated path's inputs (its compressions at each size, 4,608 and
-     512 points; IPP round 1's fold, 1024 x 256, one gw update, the S
+     512 points; IPP round 1's fold, 1024 x 256, one gw / hw update, the S
      coefficients' digits, the 256 transcript states with their pad, the
      IPP challenges,
      one verifier chunk's and the final MSM's accumulation, K11's binning
@@ -74,9 +76,10 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      route, medians; the MSM alone), the six MSM kernels against their
      plain versions on its inputs, and a tampered batch rejected;
  12. prints the kernels' launches, times, plain times and bounds as one
-     JSON line (K8's and K13's times by device time: launches queued
-     behind a sleep of the card, `benches.queued`; the others by CUDA
-     events around a loop of launches), the card's name and power limit,
+     JSON line (K8's, K9's, K10's and K13's times by device time:
+     launches queued behind a sleep of the card, `benches.queued`; the
+     others by CUDA events around a loop of launches), the card's name and
+     power limit,
      and last the device line.
 Exits non-zero on any failure, and at once when there is no CUDA device.
 """
@@ -113,9 +116,6 @@ SMEM_BYTES_PER_CLOCK_SM = 128
 # the direct form reads and writes one bucket, and only for a non-zero digit
 ONE_HOT_SMEM_BYTES = 3 * 8 * 40 * 4
 DIRECT_SMEM_BYTES = 2 * 40 * 4
-# multiply-adds of one Montgomery multiplication (9 x (9 + 1 + 9) limb
-# products); field products and squarings are counted by field_mads
-MONT_MADS = 171 * 2
 
 
 class Rng:
@@ -822,6 +822,7 @@ def main() -> int:
                     or (lib in ("fixed_msm", "msm")
                         and "Compiling entry" in line):
                 log(f"  [{lib}] {line.strip()}")
+    failures = []
     per_sm = FM.blocks_per_sm()
     log(f"fixed_msm blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
         f"{per_sm}; K6's split assumes {FM.TARGET_THREADS // (sms * 32)} "
@@ -829,6 +830,8 @@ def main() -> int:
     if per_sm["fixed_accumulate"] * sms * 32 != FM.TARGET_THREADS \
             or per_sm["fixed_accumulate_vt"] != per_sm["fixed_accumulate"]:
         log("  NOTE: K6's occupancy differs from fixed_msm.TARGET_THREADS")
+    if per_sm["fixed_accumulate2"] != per_sm["fixed_accumulate"]:
+        failures.append("K12 holds fewer blocks per SM than K6")
     log(f"msm resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
         f"): {M.warps_per_sm()}")
     log(f"decompress resident points (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
@@ -837,7 +840,6 @@ def main() -> int:
     n, m = 64, 1
     lg, nblk, n_dyn = V.shape(n, m)
     bp, pc = BulletproofGens(n, m), PedersenGens()
-    failures = []
     kernels = []
 
     def check_k6_forms(launches, N, halves, what):
@@ -852,16 +854,24 @@ def main() -> int:
         if got != want:
             failures.append(f"{what}: K6 / K7 launches {got}, expected {want}")
 
-    def check_k8_k13(launches, N, halves, what):
-        """K8 once a round per half (a and b in one launch: log2 N), and
-        K13's launches and the port's kernel launches of the call."""
+    def check_k8_k9_k13(launches, N, halves, what, last_smul):
+        """K8 once a round per half (a and b in one launch: log2 N), K9
+        once a round too (gw and hw in one launch; the device-transcript
+        route's last fold updates neither, the per-stage route's
+        `last_smul` does), and K13's launches and the port's kernel
+        launches of the call."""
         want = (N.bit_length() - 1) * halves
+        want9 = want if last_smul else want - halves
         log(f"  {what}: K8 fold {launches['fold']} launches (one a round: "
-            f"expected {want}), K13 keccak_f1600 {launches['keccak_f1600']}, "
+            f"expected {want}), K9 smul {launches['smul']} (expected "
+            f"{want9}), K13 keccak_f1600 {launches['keccak_f1600']}, "
             f"{sum(launches.values())} launches of the port's kernels")
         if launches["fold"] != want:
             failures.append(f"{what}: {launches['fold']} K8 launches, "
                             f"expected {want}")
+        if launches["smul"] != want9:
+            failures.append(f"{what}: {launches['smul']} K9 launches, "
+                            f"expected {want9}")
 
     def fold_check(cap, what):
         """K8 on a prove's captured round-1 inputs: exact against its plain
@@ -894,6 +904,38 @@ def main() -> int:
             f"{smi}")
         if err != 0 or six_err != 0:
             failures.append(f"fold_pair on the {what}'s round 1")
+        return err, ms, plain_ms, nbytes, mads
+
+    def smul_check(cap, what):
+        """K9 on a prove's captured first gw / hw update: exact against its
+        plain version and the path's own output; timed by device time and
+        by the events loop, beside two one-vector launches (the update
+        before K9 took gw and hw in one launch) -> (max_abs_err, ms, plain
+        ms, bytes, multiply-adds) for `record`."""
+        x, y, mask, m1, m0 = cap.args
+        N, P = x.shape[0], x.shape[-1]
+        got = FO.smul_pair(*cap.args)
+        want, plain_ms = time_once(lambda: FO.smul_pair_plain(*cap.args))
+        err = max(max_abs_err(got, want), max_abs_err(got, cap.out))
+
+        def two():
+            return FO.smul_lanes(x, mask, m1, m0), FO.smul_lanes(y, mask, m0,
+                                                                m1)
+        two_err = max_abs_err(two(), want)
+        ms = queued_ms(lambda: FO.smul_pair(*cap.args), 50)
+        loop_ms = time_cuda(lambda: FO.smul_pair(*cap.args), 50)
+        two_ms = queued_ms(two, 50)
+        nbytes, mads = FK.smul_work(N, P)
+        b_ms, b_by = bound(nbytes, mads, imads)
+        log(f"  smul_pair on the {what}'s first gw / hw update ({N} x {P}): "
+            f"max_abs_err {err} ({'ok' if err == 0 else 'MISMATCH'}); "
+            f"{ms:.4f} ms device (events loop {loop_ms:.4f}), {plain_ms:.2f} "
+            f"ms plain, bound {b_ms:.4f} ms ({b_by}; bytes "
+            f"{nbytes / PEAK_BYTES * 1e3:.4f}, operations "
+            f"{mads / imads * 1e3:.4f}); two one-vector launches {two_ms:.4f} "
+            f"ms device, max_abs_err {two_err} on {smi}")
+        if err != 0 or two_err != 0:
+            failures.append(f"smul_pair on the {what}'s first update")
         return err, ms, plain_ms, nbytes, mads
 
     def keccak_check(cap, what):
@@ -960,6 +1002,8 @@ def main() -> int:
                           lambda st, *pad: st.shape[1] == half),
         "fold": Capture(PS.FO, "fold_pair",
                         lambda a, *r: a.shape == (n * m, 9, half)),
+        "smul": Capture(PS.FO, "smul_pair",
+                        lambda x, *r: x.shape == (n * m, 9, half)),
         "sinv": Capture(PS.S, "sinv", lambda x: x.shape[1] == half),
         "rest": Capture(PS, "prove_rest")}
     t0 = time.time()
@@ -987,7 +1031,7 @@ def main() -> int:
     halves = 2 if args.total >= prover.FUSED_HALVES_FROM \
         and args.total % 2 == 0 else 1
     check_k6_forms(prove_launches, n * m, halves, "m=1 prove")
-    check_k8_k13(prove_launches, n * m, halves, "m=1 prove")
+    check_k8_k9_k13(prove_launches, n * m, halves, "m=1 prove", False)
     for r in range(args.prove_runs - 1):
         t0 = time.time()
         prove(102 + r)
@@ -1063,7 +1107,8 @@ def main() -> int:
     stage_halves = 2 if args.total >= prover.HALVES_FROM \
         and args.total % 2 == 0 else 1
     check_k6_forms(stage_launches, n * m, stage_halves, "m=1 per-stage prove")
-    check_k8_k13(stage_launches, n * m, stage_halves, "m=1 per-stage prove")
+    check_k8_k9_k13(stage_launches, n * m, stage_halves,
+                    "m=1 per-stage prove", True)
 
     # -- 3. the proofs are right -------------------------------------------------------
     bv = BatchVerifier(bp, pc, n=n, m=m, device=DEVICE)
@@ -1405,6 +1450,7 @@ def main() -> int:
                *keccak_check(caps1["keccak"], "m=1 prove"),
                2 * kst.numel() + 200, 0, prove_launches)
         fold_check(caps1["fold"], "m=1 prove")
+        smul_check(caps1["smul"], "m=1 prove")
         (sx,) = caps1["sinv"].args
         got = S.sinv(sx)
         plain, plain_ms = time_once(lambda: S.sinv_plain(sx))
@@ -1482,7 +1528,7 @@ def main() -> int:
         else agg
     shapes16 = FS.ShapeCapture(FS.shape_specs(n, m16, lanes16))
     pcaps = [Capture(PS.FO, "fold_pair", lambda a, *r: a.shape[0] == N16),
-             Capture(PS.FO, "smul_lanes", lambda x, *a: x.shape[0] == N16),
+             Capture(PS.FO, "smul_pair", lambda x, *a: x.shape[0] == N16),
              Capture(PS.FO, "digits_lanes",
                      lambda x: x.dim() == 3 and x.shape[0] == 2 * N16 + 1),
              Capture(PS, "prove_rest"),
@@ -1526,8 +1572,9 @@ def main() -> int:
         + f"); host C++ transcripts {host_ms:.1f} ms; the rest "
         f"{wall - host_ms - dev_ms:.1f} ms if nothing overlapped")
     rows = profiled(lambda: prove16(211))
+    busy16 = sum(r[0] for r in rows)
     if rows:
-        busy = sum(r[0] for r in rows)
+        busy = busy16
         log(f"prove m={m16} device time (torch.profiler, one run): {busy:.1f} "
             f"ms in {sum(r[1] for r in rows)} kernel launches, busy "
             f"{busy / (best * 1e3):.1%} of the best call; largest: "
@@ -1538,7 +1585,8 @@ def main() -> int:
             failures.append(f"{k} not launched by the m={m16} prover")
     halves16 = 2 if lanes16 != agg else 1
     check_k6_forms(prove16_launches, N16, halves16, f"m={m16} prove")
-    check_k8_k13(prove16_launches, N16, halves16, f"m={m16} prove")
+    check_k8_k9_k13(prove16_launches, N16, halves16, f"m={m16} prove",
+                    False)
     no_host_sync(pcaps[3], f"prove_rest (m={m16})")
 
     _cuda.reset_counts()
@@ -1566,12 +1614,20 @@ def main() -> int:
             t0 = time.time()
             prove16(202 + r)
             times.append(time.time() - t0)
+        ilp_rows = profiled(lambda: prove16(212))
     finally:
         FM._ILP2 = False
     log(f"prove_batch m={m16} with _ILP2 (K12 in place of K6): best "
         f"{min(times) * 1e3:.1f} ms of {len(times)} (runs "
         f"{[round(t * 1e3, 1) for t in times]} ms) on {smi}; launches "
         f"{ilp2_launches}")
+    if ilp_rows and busy16:
+        ilp_busy = sum(r[0] for r in ilp_rows)
+        log(f"  _ILP2 prove device time (torch.profiler, one run): "
+            f"{ilp_busy:.1f} ms, {ilp_busy / busy16 - 1:+.1%} against the "
+            f"default route's {busy16:.1f} ms; largest: "
+            + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}"
+                        for ms, c, k in ilp_rows[:3]))
     rounds16 = N16.bit_length() - 1
     if ilp2_launches["fixed_accumulate2"] != (4 + 2 * rounds16) * halves16 \
             or ilp2_launches["fixed_accumulate"] \
@@ -1678,33 +1734,29 @@ def main() -> int:
         failures.append("aggregated-path kernel inputs not captured")
     else:
         P = pcaps[0].args[0].shape[-1]
-        log(f"aggregated-path kernel phases (fold {N16} x {P}; gw update "
-            f"{pcaps[1].args[0].shape[0]} x {P}; S digits "
+        log(f"aggregated-path kernel phases (fold {N16} x {P}; gw / hw "
+            f"update {pcaps[1].args[0].shape[0]} x {P}; S digits "
             f"{pcaps[2].args[0].shape[0]} x {P}; K11 on {chunk_pts} and "
             f"{final_pts} points):")
         record("fold", "bulletproofs_tpu_torch/csrc/fold.cu",
                "bulletproofs_tpu/ops/fold_pallas.py:42",
                *fold_check(pcaps[0], f"m={m16} prove"), prove16_launches)
         keccak_check(pcaps[5], f"m={m16} prove")
-        gx, mask, m1, m0 = pcaps[1].args
-        R = gx.shape[0]
-        got = FO.smul_lanes(gx, mask, m1, m0)
         record("smul", "bulletproofs_tpu_torch/csrc/fold.cu",
                "bulletproofs_tpu/ops/fold_pallas.py:50",
-               max_abs_err(got, FO.smul_plain(gx, mask, m1, m0)),
-               time_cuda(lambda: FO.smul_lanes(gx, mask, m1, m0), 20),
-               time_cuda(lambda: FO.smul_plain(gx, mask, m1, m0), 1),
-               (2 * R + 2) * 9 * P * 8 + R, 2 * MONT_MADS * R * P,
-               prove16_launches)
+               *smul_check(pcaps[1], f"m={m16} prove"), prove16_launches)
         (coef,) = pcaps[2].args
         nb = coef.shape[0]
         got = FO.digits_lanes(coef)
+        log(f"  digits on the m={m16} prove's S coefficients: events loop "
+            f"{time_cuda(lambda: FO.digits_lanes(coef), 20):.4f} ms (the "
+            f"host's launch pace; the line below: device time)")
         # the guard's reduction: 9 small limb products (18 multiply-adds)
         # per scalar
         record("digits", "bulletproofs_tpu_torch/csrc/fold.cu",
                "bulletproofs_tpu/ops/fold_pallas.py:115",
                max_abs_err(got, FO.digits_plain(coef)),
-               time_cuda(lambda: FO.digits_lanes(coef), 20),
+               queued_ms(lambda: FO.digits_lanes(coef), 50),
                time_cuda(lambda: FO.digits_plain(coef), 1),
                nb * P * (9 * 8 + 64), 18 * nb * P, prove16_launches)
         (sx16,) = pcaps[4].args

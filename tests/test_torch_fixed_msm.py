@@ -323,6 +323,19 @@ def test_accumulate2_pads_odd_streams(tables):
         FM.reduce(FM.accumulate_plain(niels, digits)))
 
 
+@pytest.mark.parametrize("rows, lanes", [(4160, 4096), (8256, 4096),
+                                         (65600, 256), (131136, 256)])
+def test_k12_split_fills_one_wave(rows, lanes):
+    """At the prover's four fixed-base shapes (m=1 IPP L and S streams over
+    one half's 4096 proofs, m=16 over 256), K12's 2 * splits * lanes
+    threads (a lane's two bucket sets on two threads) are the most that
+    put one warp on each scheduler of an H100's 132 SMs (4 each), and its
+    chunks have an even row count."""
+    splits = FM.pick_splits(rows, lanes, FM.TARGET_THREADS2)
+    assert 2 * splits * lanes <= 132 * 4 * 32 < 2 * (splits + 1) * lanes
+    assert (rows + (-rows) % (2 * splits)) // splits % 2 == 0
+
+
 def test_ilp2_switches_accumulate_to_k12(tables, monkeypatch):
     niels = FM.StreamSubsetTables(tables[0], range(64)).niels
     digits = torch.as_tensor(np.random.default_rng(57).integers(

@@ -119,6 +119,30 @@ def test_smul_matches_jax_interpret(interpret, cols):
 
 
 @pytest.mark.parametrize("cols", [512, 1024])
+def test_smul_pair_matches_jax_interpret(interpret, cols):
+    """K9's pair form (one launch for gw and hw on the card; its plain
+    version here): both vectors against the JAX kernel, hw with the
+    multipliers swapped, under a mask that is neither all set nor all
+    clear."""
+    rows = 8
+    P = cols // rows
+    x, y = _vals(cols, 15 + cols), _vals(cols, 16 + cols)
+    m1, m0 = _vals(P, 17 + cols), _vals(P, 18 + cols)
+    mask = torch.tensor([r % 4 < 2 for r in range(rows)])
+    xv, yv = _vectors(x, rows, P), _vectors(y, rows, P)
+    m1v, m0v = _vectors(m1, 1, P)[0], _vectors(m0, 1, P)[0]
+    got = FO.smul_pair(xv, yv, mask, m1v, m0v)
+    for g, w in zip(got, FO.smul_pair_plain(xv, yv, mask, m1v, m0v)):
+        assert torch.equal(g, w)
+    mx = [(m1 if mask[r] else m0)[p] for r in range(rows) for p in range(P)]
+    my = [(m0 if mask[r] else m1)[p] for r in range(rows) for p in range(P)]
+    assert _ints(got[0]) == _jax_ints(FP.smul_lanes(_jax_cols(x),
+                                                    _jax_cols(mx)))
+    assert _ints(got[1]) == _jax_ints(FP.smul_lanes(_jax_cols(y),
+                                                    _jax_cols(my)))
+
+
+@pytest.mark.parametrize("cols", [512, 1024])
 def test_digits_match_jax_interpret(interpret, cols):
     """Canonical values and, as JAX's own test does, values in [l, 2^256),
     which the guard reduces before the recode."""
@@ -316,6 +340,24 @@ def test_wrappers_reject_bad_arguments():
         FO.digits_lanes(torch.zeros((2, 10, 8), dtype=torch.int64))
     assert FO.digits_lanes(torch.zeros((0, 9, 8), dtype=torch.int64)) \
         .shape == (0, 8)
+
+
+def test_smul_pair_rejects_bad_arguments():
+    x = torch.zeros((4, 9, 8), dtype=torch.int64)
+    u = torch.zeros((9, 8), dtype=torch.int64)
+    mask = torch.ones(4, dtype=torch.bool)
+    bad = [(x, x[:3], mask, u, u),                     # rows differ
+           (x, x, mask, u, torch.zeros((9, 7), dtype=torch.int64)),
+           (x.to(torch.int32), x, mask, u, u),
+           (x, x, mask.to(torch.uint8), u, u),
+           (x, x, mask[:3], u, u),
+           (x, x.transpose(0, 2).contiguous().transpose(0, 2), mask, u, u),
+           (x[..., None], x, mask, u, u)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            FO.smul_pair(*args)
+    got = FO.smul_pair(x[:0], x[:0], mask[:0], u, u)
+    assert got[0].shape == got[1].shape == (0, 9, 8)
 
 
 # -- K14: sinv (vec_scalar.sinv, XLA in the JAX package) -------------------------------

@@ -354,6 +354,48 @@ def test_prove_launches_k8_once_a_round(cuda):
     assert _cuda.LAUNCHES["fold"] == 3
 
 
+@pytest.mark.parametrize("N, P", [(64, 4096), (1024, 256), (13, 37)])
+def test_smul_pair_matches_plain(cuda, N, P):
+    """K9's one launch for gw and hw against smul_pair_plain (torch.equal)
+    at the m=1 and m=16 provers' round-1 shapes and a ragged one, under a
+    mask that is neither all set nor all clear; one K9 launch, no other
+    kernel."""
+    from bulletproofs_tpu_torch.ops import fold as FO
+    from torch.profiler import ProfilerActivity, profile
+    x, y = _sc_vectors(N, P, 90).to(cuda), _sc_vectors(N, P, 91).to(cuda)
+    m1, m0 = (_sc_vectors(1, P, 92)[0].to(cuda),
+              _sc_vectors(1, P, 93)[0].to(cuda))
+    mask = torch.arange(N, device=cuda) % 4 < 2
+    before = _cuda.LAUNCHES["smul"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = FO.smul_pair(x, y, mask, m1, m0)
+        torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["smul"] == before + 1
+    kernels = _device_kernels(prof)
+    if kernels:                           # where the profiler sees the card
+        assert kernels == ["smul_kernel"], kernels
+    want = FO.smul_pair_plain(x, y, mask, m1, m0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_prove_launches_k9_once_a_round(cuda):
+    """A device-transcript prove at n = 8, m = 1 (one half) updates gw and
+    hw in one K9 launch a round: rounds 1 and 2 (the last fold updates
+    neither); the per-stage route's round_fold updates them in its last
+    fold too: 3."""
+    from bulletproofs_tpu_torch import BatchProver
+    bp, pc = BulletproofGens(8, 1), PedersenGens()
+    prover = BatchProver(bp, pc, 8, device=cuda)
+    for fused, want in ((True, 2), (False, 3)):
+        prover.fused = fused
+        _cuda.reset_counts()
+        prover.prove_batch(
+            [5, 6, 7], [Scalar(21 + i) for i in range(3)],
+            [Transcript(b"k9 %d" % i) for i in range(3)], rng=Rng(94))
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["smul"] == want, fused
+
+
 def test_digits_kernel_matches_plain(cuda):
     """Canonical coefficients and values up to 2^261 (the guard's
     reduction), as the fixed-base stream (nb * 64, Q)."""
@@ -531,6 +573,56 @@ def test_fixed_accumulate2_matches_plain(cuda):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["fixed_accumulate2"] == before + 1
     assert torch.equal(got, want)
+
+
+def _k12_stream(cuda, rows, lanes, seed):
+    """A Niels stream of `rows` rows (five bases' tables, repeated) and
+    seeded digits (rows, lanes) on the card."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    r = random.Random(seed)
+    bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+             for _ in range(5)]
+    niels = FM.FixedBaseTables(bases, cuda).niels
+    niels = niels.repeat(1, 1, -(-rows // niels.shape[-1]))[:, :, :rows]
+    digits = torch.as_tensor(np.random.default_rng(seed).integers(
+        -7, 9, (rows, lanes)).astype(np.int8)).to(cuda)
+    return niels.contiguous(), digits
+
+
+@pytest.mark.parametrize("splits, lanes", [(7, 37), (3, 16), (1, 5)])
+def test_fixed_accumulate2_two_rows_a_chunk(cuda, splits, lanes):
+    """K12 launched directly with 2 rows a chunk (each of a lane's two
+    threads adds one row), lanes not a multiple of 16: its slab equals
+    the plain version's at that split limb for limb."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    niels, digits = _k12_stream(cuda, 2 * splits, lanes, 95 + splits)
+    slab = torch.empty((splits, 8, 4, 10, lanes), dtype=torch.int32,
+                       device=cuda)
+    _cuda.launch("fixed_accumulate2", "fixed_msm", "bp_fixed_accumulate2",
+                 niels, digits, slab, 2 * splits, lanes, splits)
+    assert torch.equal(slab, FM._accumulate2_plain(niels, digits, splits))
+
+
+def test_fixed_accumulate2_at_the_m16_s_stream(cuda):
+    """K12 at the m=16 prover's S stream shape (131,136 rows x 256
+    lanes, its split of 33 chunks): equal to its plain version, and its
+    points, reduced and compressed, to K6's."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    niels, digits = _k12_stream(cuda, 131136, 256, 96)
+    slab = FM.accumulate2(niels, digits)
+    assert slab.shape[0] == 33
+    assert torch.equal(slab, FM.accumulate2_plain(niels, digits))
+    assert torch.equal(C.compress(FM.reduce(slab)),
+                       C.compress(FM.reduce(FM.accumulate(niels, digits))))
+
+
+def test_fixed_accumulate2_residency_equals_k6s(cuda):
+    """One bucket set a thread keeps K12 at K6's 40 KB of static shared
+    memory a block, so the runtime gives it as many blocks per SM."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    FM.accumulate2(*_k12_stream(cuda, 64, 16, 97))       # built and loaded
+    per_sm = FM.blocks_per_sm()
+    assert per_sm["fixed_accumulate2"] == per_sm["fixed_accumulate"] >= 5
 
 
 def test_keccak_kernel_matches_plain(cuda):
