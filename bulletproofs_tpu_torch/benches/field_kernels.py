@@ -1,12 +1,13 @@
 """What the compiler made of every kernel that includes csrc/fe25519.cuh
 (K1, K3, K4a, K4b, K5, K6 in both forms, K7, K11, K12) or
-csrc/sc25519.cuh (K2, K8, K9, K10, K14), and of K13, on one CUDA card:
+csrc/sc25519.cuh (K2, K8, K9, K10, K14), and of K13, K15 and K16, on one
+CUDA card:
 
     python -m bulletproofs_tpu_torch.benches.field_kernels [--time]
         [--reps 20] [--only smul,digits]
 
 Builds the libraries (decompress, emit, msm, compress, fixed_msm, fold,
-keccak) and prints one JSON line per kernel: ptxas' registers, spill
+keccak, fmul13) and prints one JSON line per kernel: ptxas' registers, spill
 stores and loads and static shared memory (`-Xptxas -v`), the resident
 warps per SM those allow at the kernel's block size
 (`accumulate_z.occupancy_from_ptxas`; not for K2 and K4a, whose residency
@@ -45,6 +46,9 @@ the two-launch form (an XOR, then the permutation), K13 alone on the
 states with no pad, and the tree's K13
 built with its 24 rounds cut to none (loads and stores alone, into
 `_build/cuda/loads_only/`: a measurement, never loaded by the port).
+K15 and K16 (`fmul13.chain_vpu`, `chain_mxu`) at 512 and 16,384 lanes,
+T = 1024 (benches/fmul13_chain.py times them alone, with a sweep of
+their shapes), with their bound and latency floor.
 K2's, K4a's and K13's lines carry their bound and latency floor at the
 card's maximum SM clock, K8's, K9's and K10's their bound.  `--only`
 times only the cases whose names hold one of its words.  Dropped into an
@@ -69,7 +73,7 @@ import torch
 from . import accumulate_z as AZ
 
 LIBS = ("decompress", "emit", "msm", "compress", "fixed_msm", "fold",
-        "keccak")
+        "keccak", "fmul13")
 # (kernel name, template instance?) -> threads a block; K1 ran blocks of
 # 128 before its blocks of one warp, K3 of 32 and K5 of 128 before their
 # template forms; msm_bin `lanes`.  K2's and K4a's resident warps come from
@@ -85,7 +89,8 @@ THREADS = {("decompress_kernel", False): 32,
            ("fixed_accumulate2_kernel", False): 32,
            ("fixed_reduce_kernel", False): 128,
            ("fold_kernel", False): 128, ("smul_kernel", False): 128,
-           ("digits_kernel", False): 128, ("sinv_kernel", False): 128}
+           ("digits_kernel", False): 128, ("sinv_kernel", False): 128,
+           ("fmul13_chain_kernel", False): 128}
 
 # the least latency of a dependent arithmetic instruction, in cycles (as
 # benches/horner.py): every latency floor below counts its chain's
@@ -250,6 +255,33 @@ def fold_bound(N: int, P: int, nk: int, imads: float) -> dict:
 def keccak_latency_floor_ms(mhz: float) -> float:
     """Least milliseconds of K13's 24 rounds at an SM clock of mhz."""
     return 24 * KECCAK_ROUND_CYCLES / (mhz * 1e3)
+
+
+# K15's and K16's latency floor: one step's dependent path, (dependent
+# instructions, shuffle or shared-memory round trips of SMEM_TRIP cycles),
+# x T, read off the compiled step loops (cuobjdump -sass;
+# benches/fmul13_chain.py --sass).  K15: the gather of the limbs (a trip),
+# a column sum's chain of 20 IMAD, the difference and its select (2), the
+# fold (a SHFL.UP trip, then SHF, IMAD, SEL, IADD: 4), three carry rounds
+# and the step's carry (a SHFL.IDX trip and SHF, IMAD each), the sum of
+# the three products (an IADD3).  K16: the lanes' split (an LDS trip), the
+# mma (a trip), the combination (IADD, IMAD, IMAD), the column sums
+# through shared memory across a barrier (2 trips), the tail (the fold,
+# four carry rounds: 5 trips, 12 instructions, the sum), the new split (2)
+# to shared memory across a barrier (a trip).
+FMUL13_CHAIN = {"K15": (20 + 2 + 4 + 4 * 2 + 1, 1 + 1 + 4),
+                "K16": (3 + 3 + 4 * 2 + 1 + 2, 1 + 1 + 2 + 5 + 1)}
+# the probe's lane counts (512) and 124 lanes an SM (16,384), T = 1024
+FMUL13_LANES = (512, 16384)
+FMUL13_STEPS = 1024
+
+
+def fmul13_latency_floor_ms(mhz: float, kernel: str = "K15",
+                            steps: int = FMUL13_STEPS) -> float:
+    """Least milliseconds of a chain of `steps` steps of K15 or K16 at an SM
+    clock of mhz (every lane's chain runs at once: one wave)."""
+    instr, trips = FMUL13_CHAIN[kernel]
+    return steps * (LEAST_LATENCY * instr + SMEM_TRIP * trips) / (mhz * 1e3)
 
 
 def base_name(mangled: str):
@@ -564,6 +596,29 @@ def timings(reps: int, mhz: float, only=()) -> dict:
                      f"keccak no pad {n}"):
             extra[name] = {"bound_ms": 400 * n / 3.35e12 * 1e3,
                            "latency_floor_ms": keccak_latency_floor_ms(mhz)}
+    from ..ops import fmul13 as F13
+    from .fmul13_chain import chain_inputs
+    for q in FMUL13_LANES:
+        a, b3, m3 = chain_inputs(q, FMUL13_STEPS, q)
+        steps = q * FMUL13_STEPS
+        cases.append((f"fmul13_chain {q}", lambda a=a, b3=b3:
+                      F13.chain_vpu(a, b3),
+                      lambda a=a, b3=b3: F13.chain_vpu_plain(a, b3)))
+        cases.append((f"fmul13_chain_mma {q}", lambda a=a, m3=m3:
+                      F13.chain_mxu(a, m3),
+                      lambda a=a, m3=m3: F13.chain_mxu_plain(a, m3)))
+        extra[f"fmul13_chain {q}"] = {
+            **work_bound(a.numel() * 8 + b3.numel() * 4,
+                         steps * (3 * 441 + 1), imads),
+            "latency_floor_ms": fmul13_latency_floor_ms(mhz, "K15")}
+        int8_ms = 3 * steps * F13.MROWS * F13.MCOLS / 9.895e14 * 1e3
+        b = work_bound(a.numel() * 8 + m3.numel(), steps * (3 * 41 + 1),
+                       imads)
+        if int8_ms > b["bound_ms"]:
+            b.update(bound_ms=int8_ms, bound_by="operations")
+        extra[f"fmul13_chain_mma {q}"] = {
+            **b, "int8_ms": int8_ms,
+            "latency_floor_ms": fmul13_latency_floor_ms(mhz, "K16")}
     out = {}
     for name, fn, plain in cases:
         if only and not any(w in name for w in only):

@@ -33,7 +33,7 @@ SOURCES = {"decompress": "decompress.cu", "emit": "emit.cu", "msm": "msm.cu",
            "compress": "compress.cu", "fixed_msm": "fixed_msm.cu",
            "fold": "fold.cu", "keccak": "keccak.cu", "fmul13": "fmul13.cu"}
 HEADERS = ("fe25519.cuh", "sc25519.cuh", "common.cuh", "emit.cuh",
-           "reduce.cuh", "keccak.cuh")
+           "reduce.cuh", "keccak.cuh", "fmul13.cuh")
 
 # kernel name -> number of launches since the last reset_counts()
 LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,

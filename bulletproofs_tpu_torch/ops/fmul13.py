@@ -24,7 +24,8 @@ every lane: a <- carry(fmul(a, b1) + fmul(a, b2) + fmul(a, b3)).
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import ctypes
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -179,8 +180,9 @@ def _check_a(a: torch.Tensor) -> int:
 
 
 def chain_vpu(a: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
-    """Kernel K15 (CUDA cores) on CUDA tensors, chain_vpu_plain on CPU
-    tensors: a (20, Q) int32, b3 (3, 20, T) int32 -> (20, Q) int32."""
+    """Kernel K15 (CUDA cores: a warp a lane, a thread a limb) on CUDA
+    tensors, chain_vpu_plain on CPU tensors: a (20, Q) int32, b3 (3, 20,
+    T) int32 -> (20, Q) int32."""
     q = _check_a(a)
     if b3.dim() != 3 or b3.shape[:2] != (3, L) or b3.dtype != torch.int32:
         raise ValueError("chain_vpu takes b3 (3, 20, T) int32")
@@ -196,9 +198,13 @@ def chain_vpu(a: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
 
 
 def chain_mxu(a: torch.Tensor, m3: torch.Tensor) -> torch.Tensor:
-    """Kernel K16 (int8 tensor cores) on CUDA tensors, chain_mxu_plain on
-    CPU tensors: a (20, Q) int32, m3 (3, T, 156, 40) int8 -> (20, Q)
-    int32, limb for limb chain_vpu's."""
+    """Kernel K16 (int8 tensor cores: the matrices in a ring of shared
+    memory, product warps beside lane warps that run the tails, ten
+    threads a lane) on CUDA tensors, chain_mxu_plain
+    on CPU tensors: a (20, Q) int32, m3 (3, T, 156, 40) int8, 16-byte
+    aligned -> (20, Q) int32, limb for limb chain_vpu's.  The kernel takes
+    the zero halves of each matrix (columns 20-39 of P1 / P3 rows, 0-19 of
+    P2 / P4 rows) as zero, as band_matrices makes them."""
     q = _check_a(a)
     if m3.dim() != 4 or m3.shape[0] != 3 or m3.shape[2:] != (MROWS, MCOLS) \
             or m3.dtype != torch.int8:
@@ -212,3 +218,20 @@ def chain_mxu(a: torch.Tensor, m3: torch.Tensor) -> torch.Tensor:
         _cuda.launch("fmul13_chain_mma", "fmul13", "bp_fmul13_chain_mma", a,
                      m3, out, q, m3.shape[1])
     return out
+
+
+def residency() -> Dict[str, int]:
+    """The kernels' shapes and the blocks one SM of the current CUDA device
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, K16 with
+    its dynamic shared memory): K15's blocks and threads, K16's blocks,
+    threads, dynamic shared memory bytes, ring stages and lanes a block."""
+    out = (ctypes.c_int * 7)()
+    f = _cuda._lib("fmul13").bp_fmul13_residency
+    f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    err = f(out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    return dict(zip(("vpu_blocks_per_sm", "vpu_threads", "mma_blocks_per_sm",
+                     "mma_threads", "mma_smem", "mma_stages", "mma_lanes"),
+                    out))
+

@@ -404,11 +404,12 @@ def runs_text(ms) -> str:
             f"{[round(x, 1) for x in ms]}")
 
 
-def probe_phase(args, dev, smi, record, failures):
+def probe_phase(args, dev, smi, record, failures, mhz):
     """9. The MXU probe's main path (benches/mxu_fmul_probe.run: K15 and
     K16 at Q = 512, T = --probe-steps), then both kernels against their
     plain versions and each other, limb for limb over the whole chain, and
     14 lanes against the Python-int oracle."""
+    from bulletproofs_tpu_torch.benches import field_kernels as FK
     from bulletproofs_tpu_torch.benches import mxu_fmul_probe as PROBE
     from bulletproofs_tpu_torch.ops import _cuda
     from bulletproofs_tpu_torch.ops import fmul13 as F13
@@ -446,14 +447,22 @@ def probe_phase(args, dev, smi, record, failures):
     record("fmul13_chain", "bulletproofs_tpu_torch/csrc/fmul13.cu",
            "benches/_mxu_fmul_probe.py:135", max_abs_err(v, pv),
            res["vpu_ms"], pv_ms, a.numel() * 8 + b3.numel() * 4,
-           per_lane_step * (3 * 441 + 1), launches)
+           per_lane_step * (3 * 441 + 1), launches,
+           floor_ms=FK.fmul13_latency_floor_ms(mhz, "K15", t))
     # the 156 x 40 int8 product on the tensor cores; on the CUDA cores the
     # tail's 41 multiplications by 608 per product and one per step (the
     # fold's 128 and 16384 are shifts)
     record("fmul13_chain_mma", "bulletproofs_tpu_torch/csrc/fmul13.cu",
            "benches/_mxu_fmul_probe.py:147", max_abs_err(m, pm),
            res["mxu_ms"], pm_ms, a.numel() * 8 + m3.numel(),
-           per_lane_step * (3 * 41 + 1), launches, int8_macs=3 * per_lane_step * F13.MROWS * F13.MCOLS)
+           per_lane_step * (3 * 41 + 1), launches,
+           floor_ms=FK.fmul13_latency_floor_ms(mhz, "K16", t),
+           int8_macs=3 * per_lane_step * F13.MROWS * F13.MCOLS)
+    # the zero-skipping tiles: 30 m16n8k32 a step for 8 lanes
+    issued = per_lane_step * 30 * 16 * 8 * 32 // 8
+    log(f"  K16 issues {issued:,} int8 multiply-adds (30 mma a step for 8 "
+        f"lanes) against the dense product's "
+        f"{3 * per_lane_step * F13.MROWS * F13.MCOLS:,}")
     # for reference only (the port never calls it): the same 3 T int8
     # products alone, one library call each, the JAX probe's "int8 matmul
     # alone" row
@@ -1833,7 +1842,7 @@ def main() -> int:
         record("fixed_accumulate2", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:206", err, ms, plain_ms,
                nbytes, mads, ilp2_launches)
-    probe_phase(args, dev, smi, record, failures)
+    probe_phase(args, dev, smi, record, failures, mhz)
     r1cs_phase(args, smi, imads, failures)
     linear_phase(args, smi, imads, failures)
     if failures:

@@ -772,22 +772,45 @@ def _chain_inputs(q, t, seed):
 
 def test_fmul13_kernels_match_plain(cuda):
     """K15 and K16 against their plain versions on the card and against
-    each other, limb for limb, T = 16, at Q = 64 and at Q = 70 (a ragged
-    last block for both: K15 takes 32 lanes a block, K16 8)."""
+    each other, limb for limb, each call one launch of each: Q = 1, 64, 70
+    and 520 (ragged last blocks: K15 takes 4 lanes a block, K16 8) at T =
+    16, and Q = 70 at T = 1 and 13 (K16's ring of 4 stages: T below, not a
+    multiple of and a multiple of its stages)."""
     from bulletproofs_tpu_torch.ops import fmul13 as F
-    for q in (64, 70):
-        a, b3, m3 = (x.to(cuda) for x in _chain_inputs(q, 16, 86))
+    for q, t in ((1, 16), (64, 16), (70, 16), (520, 16), (70, 1), (70, 13)):
+        a, b3, m3 = (x.to(cuda) for x in _chain_inputs(q, t, 86 + q + t))
         before = dict(_cuda.LAUNCHES)
         v = F.chain_vpu(a, b3)
         m = F.chain_mxu(a, m3)
-        pv = F.chain_vpu_plain(a, b3)
-        pm = F.chain_mxu_plain(a, m3)
         torch.cuda.synchronize()
         assert _cuda.LAUNCHES["fmul13_chain"] == before["fmul13_chain"] + 1
         assert _cuda.LAUNCHES["fmul13_chain_mma"] == \
             before["fmul13_chain_mma"] + 1
-        assert torch.equal(v, pv) and torch.equal(m, pm)
-        assert torch.equal(v, m)
+        pv = F.chain_vpu_plain(a, b3)
+        pm = F.chain_mxu_plain(a, m3)
+        assert torch.equal(v, pv) and torch.equal(m, pm), (q, t)
+        assert torch.equal(v, m), (q, t)
+
+
+def test_fmul13_residency_is_the_designs(cuda):
+    """K16's dynamic shared memory is its ring of 4 stages (18,720 bytes
+    and a zero row each), a step's column sums and the lanes' split, and
+    that memory alone sets its blocks per SM (2 of 8 lanes: 3 lane warps,
+    15 product warps, a pair each, and the copying warp), by the card's
+    occupancy query;
+    K15 runs blocks of 4 lane warps, 4 of them an SM (its registers)."""
+    from bulletproofs_tpu_torch.ops import fmul13 as F
+    a, b3, m3 = (x.to(cuda) for x in _chain_inputs(8, 2, 85))
+    F.chain_mxu(a, m3)                                    # built and loaded
+    r = F.residency()
+    assert (r["mma_stages"], r["mma_lanes"], r["mma_threads"]) == (4, 8, 608)
+    # the ring (a stage: 3 matrices and a 32-byte zero row), the column
+    # sums (40 words a lane and operand), the split (80 bytes a lane), an
+    # mbarrier a stage
+    assert r["mma_smem"] == 4 * (3 * 156 * 40 + 32) + 8 * (3 * 40 * 4 + 80) \
+        + 4 * 8 == 79520
+    assert r["mma_blocks_per_sm"] == 233472 // (r["mma_smem"] + 1024) == 2
+    assert (r["vpu_threads"], r["vpu_blocks_per_sm"]) == (128, 4)
 
 
 def test_r1cs_device_route_on_card(cuda, monkeypatch):
