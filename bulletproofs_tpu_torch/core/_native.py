@@ -71,6 +71,7 @@ _C, _SZ, _U64 = ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64
 _SIGNATURES = {
     "rist_msm": ([_SZ, _C, _C, _C], None),
     "rist_msm_ct": ([_SZ, _C, _C, _C], None),
+    "rist_msm_rows": ([_SZ, _SZ, _C, _C, _C], None),
     "rist_msm_rows_ct": ([_SZ, _SZ, _C, _C, _C], None),
     "rist_bit_commit": ([_SZ, _U64, _C, _C, _C, _C, _C], None),
     "rist_scalar_mul": ([_C] * 3, None),
@@ -95,6 +96,17 @@ _SIGNATURES = {
     "rp_ts_x": ([_U64, _C, _U64, _C, _C], ctypes.c_int),
     "rp_ts_w": ([_U64, _C, _U64, _U64, _C, _C], ctypes.c_int),
     "rp_ts_round": ([_U64, _C, _U64, _C, _C, _C], ctypes.c_int),
+    # the host prove engine (m = 1): per-proof state of rp_state_size(n)
+    # bytes, advanced stage by stage
+    "rp_state_size": ([_U64], _U64),
+    "rp_prove_stage0": ([_U64, _U64, ctypes.POINTER(_U64)] + [_C] * 4,
+                        ctypes.c_int),
+    "rp_prove_stage1": ([_U64, _U64, _C, _U64] + [_C] * 4, ctypes.c_int),
+    "rp_prove_stage2": ([_U64, _U64, _C, _U64, _C, _C], ctypes.c_int),
+    "rp_prove_round_coefs": ([_U64] * 3 + [_C] * 2, ctypes.c_int),
+    "rp_prove_round_absorb": ([_U64] * 3 + [_C, _U64, _C, _C],
+                              ctypes.c_int),
+    "rp_prove_finish": ([_U64, _U64, _C, _C], ctypes.c_int),
     # the R1CS prover's and verifier's vector stages (native/sc_vec.cpp)
     "r1cs_lr_polys": ([_SZ] + [_C] * 17, None),
     "r1cs_lr_eval": ([_SZ, _SZ] + [_C] * 11, None),

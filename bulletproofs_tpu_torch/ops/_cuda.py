@@ -131,7 +131,14 @@ def check(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def launch(kernel: str, lib: str, fn: str, *args) -> None:
     """Call C function `fn` of library `lib` with tensors as device
     pointers, None as a null pointer and ints as int64, on the current
-    stream; count a launch of `kernel`."""
+    stream of the tensors' device, made the current device for the call
+    (a sharded MSM launches on every card of its mesh from one thread);
+    count a launch of `kernel`."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{fn} takes tensors on one device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
     f = getattr(_lib(lib), fn)
     cargs, types = [], []
     for a in args:
@@ -143,7 +150,9 @@ def launch(kernel: str, lib: str, fn: str, *args) -> None:
             types.append(ctypes.c_int64)
     f.argtypes = types + [ctypes.c_void_p]
     f.restype = ctypes.c_int
-    err = f(*cargs, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    with torch.cuda.device(dev):
+        err = f(*cargs,
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed: cudaError {err}")
     LAUNCHES[kernel] += 1

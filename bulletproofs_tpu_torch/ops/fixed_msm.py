@@ -38,6 +38,11 @@ written alone, zero digits skipped.  The same additions in the same order,
 so both forms' slabs equal `accumulate_plain`'s.
 The plain versions here repeat each kernel's arithmetic step for step, so
 a kernel's output equals its plain version's limb for limb.
+
+`msm_rows` / `msm_rows_compressed` take coefficient rows as bytes (the
+host prover's form, fixed_msm.msm_rows): on tables on a card, digits by
+K10 (`digit_stream`), then K6 and K7 (and K5); on host-only or CPU tables,
+one C++ row MSM over the packed bases (`ensure_host_packed`).
 """
 
 from __future__ import annotations
@@ -51,7 +56,9 @@ import torch
 from . import _cuda
 from . import curve as C
 from . import field as F
-from .limbs import FE_LIMBS, from_jax_lanes
+from . import fold as FO
+from . import scalar as S
+from .limbs import FE_LIMBS, fe_from_bytes, from_jax_lanes
 
 L = FE_LIMBS
 WINDOW_BITS = 4
@@ -109,12 +116,35 @@ def tables_from_jax(niels_np) -> torch.Tensor:
     return torch.as_tensor(from_jax_lanes(np.asarray(niels_np)[..., 0]))
 
 
-class FixedBaseTables:
-    """Window tables of a fixed base list, resident on `device`."""
+class _HostBasis:
+    """The bases as host points (`host_points`), for the C++ row MSM."""
+
+    _host_packed = None
+
+    @property
+    def device(self) -> torch.device:
+        """The tables' device; the CPU for host-only tables."""
+        return torch.device("cpu") if self.niels is None else self.niels.device
+
+    def ensure_host_packed(self) -> bytes:
+        """The bases packed once in the C++ backend's extended-coordinate
+        format (fixed_msm.FixedBaseTables.ensure_host_packed)."""
+        if self._host_packed is None:
+            from ..core.ristretto import pack_points
+            self._host_packed = pack_points(self.host_points)
+        return self._host_packed
+
+
+class FixedBaseTables(_HostBasis):
+    """Window tables of a fixed base list, resident on `device`; with
+    device None, host tables only (`niels` None: the rows go to the C++
+    row MSM)."""
 
     def __init__(self, points_host: Sequence, device):
-        self.niels = make_tables(torch.as_tensor(
-            C.points_to_lanes(points_host)).to(device))
+        self.host_points = list(points_host)
+        self.num_bases = len(self.host_points)
+        self.niels = None if device is None else make_tables(torch.as_tensor(
+            C.points_to_lanes(self.host_points)).to(device))
 
 
 class StreamSubsetTables:
@@ -124,16 +154,19 @@ class StreamSubsetTables:
 
     def __init__(self, full: FixedBaseTables, sel):
         self._sel = np.asarray(sel, np.int64)
-        self.niels = full.niels[:, :, torch.as_tensor(
-            self._sel, device=full.niels.device)].contiguous()
+        self.niels = None if full.niels is None else full.niels[
+            :, :, torch.as_tensor(self._sel, device=full.niels.device)
+        ].contiguous()
 
 
-class SubsetTables(StreamSubsetTables):
+class SubsetTables(StreamSubsetTables, _HostBasis):
     """All 64 windows of a base subset of a FixedBaseTables (the IPP
     round's active generators)."""
 
     def __init__(self, full: FixedBaseTables, base_idx):
         base_idx = np.asarray(base_idx, np.int64)
+        self.host_points = [full.host_points[j] for j in base_idx]
+        self.num_bases = len(base_idx)
         super().__init__(full, (base_idx[:, None] * NUM_WINDOWS
                                 + np.arange(NUM_WINDOWS)[None, :]).reshape(-1))
 
@@ -365,3 +398,78 @@ def msm_digits_niels(niels: torch.Tensor, digits: torch.Tensor,
     the inputs' device.  `consttime=False` only for public rows (K6's
     direct form; the JAX package's keyword of the same name)."""
     return reduce(accumulate(niels, digits, consttime))
+
+
+# -- coefficient rows: the host prover's MSMs ----------------------------------------
+
+def _check_rows(tables, coef_bytes) -> None:
+    if coef_bytes.ndim != 3 or coef_bytes.shape[1:] != (tables.num_bases, 32):
+        raise ValueError(f"takes (Q, {tables.num_bases}, 32) coefficient "
+                         f"bytes, got {tuple(coef_bytes.shape)}")
+
+
+def digit_stream(coef_bytes: torch.Tensor) -> torch.Tensor:
+    """(Q, NB, 32) uint8 canonical scalars -> (NB * 64, Q) int8 signed
+    digit stream, row j * 64 + w (fixed_msm._device_digit_stream): kernel
+    K10 on a CUDA tensor, its plain version on a CPU tensor."""
+    q, nb, _ = coef_bytes.shape
+    limbs = S.from_bytes32(coef_bytes.reshape(q * nb, 32))      # (9, Q NB)
+    return FO.digits_lanes(limbs.reshape(-1, q, nb).permute(2, 0, 1)
+                           .contiguous())
+
+
+def _device_rows(tables, coef_bytes, consttime: bool = False) -> torch.Tensor:
+    """msm_rows' card branch on the tables' device: digits by K10, then K6
+    (one-hot when `consttime`, else direct) and K7 -> (4, 10, Q) int32; the
+    plain versions on CPU tables."""
+    _check_rows(tables, coef_bytes)
+    coef = torch.as_tensor(coef_bytes).to(tables.niels.device)
+    return msm_digits_niels(tables.niels, digit_stream(coef), consttime)
+
+
+def _host_rows(tables, coef_bytes: np.ndarray, consttime: bool):
+    """One C++ call over the packed basis (rist_msm_rows_ct when
+    `consttime`, else rist_msm_rows) -> (Q, ctypes buffer of Q 128-byte
+    extended points)."""
+    from ..core import ristretto as R
+    if R._NATIVE is None:
+        raise RuntimeError("the host row MSM needs the native host library "
+                           "(core/_native.py)")
+    _check_rows(tables, coef_bytes)
+    q = coef_bytes.shape[0]
+    out = ctypes.create_string_buffer(128 * q)
+    fn = R._NATIVE.rist_msm_rows_ct if consttime else R._NATIVE.rist_msm_rows
+    fn(q, tables.num_bases, np.ascontiguousarray(coef_bytes).tobytes(),
+       tables.ensure_host_packed(), out)
+    return q, out
+
+
+def msm_rows(tables, coef_bytes, consttime: bool = False) -> torch.Tensor:
+    """(Q, NB, 32) canonical coefficient rows -> (4, 10, Q) int32 points,
+    row q sum_j coef[q, j] Base_j (fixed_msm.msm_rows).  The tables' device
+    picks the branch: on a card `_device_rows` (K10, K6, K7), else the C++
+    row MSM (`consttime` picks its constant-time form there and K6's
+    one-hot form on a card; the witness rows V / A / S and T_1 / T_2 pass
+    True)."""
+    if tables.device.type == "cuda":
+        return _device_rows(tables, coef_bytes, consttime)
+    q, out = _host_rows(tables, np.asarray(coef_bytes), consttime)
+    ext = torch.frombuffer(bytearray(out.raw), dtype=torch.uint8)
+    coords = ext.reshape(q, 4, 32).permute(1, 0, 2)
+    return torch.stack([fe_from_bytes(c.contiguous()) for c in coords]) \
+        .to(torch.int32)
+
+
+def msm_rows_compressed(tables, coef_bytes, consttime: bool = False
+                        ) -> np.ndarray:
+    """(Q, NB, 32) coefficient rows -> (Q, 32) uint8 compressed points
+    (fixed_msm.msm_rows_compressed): on a card msm_rows then K5, else one
+    C++ row MSM and one rist_batch_compress."""
+    if tables.device.type == "cuda":
+        return C.compress(_device_rows(tables, coef_bytes, consttime)) \
+            .cpu().numpy()
+    from ..core import ristretto as R
+    q, out = _host_rows(tables, np.asarray(coef_bytes), consttime)
+    comp = ctypes.create_string_buffer(32 * q)
+    R._NATIVE.rist_batch_compress(q, out, comp)
+    return np.frombuffer(comp.raw, np.uint8).reshape(q, 32).copy()

@@ -32,12 +32,32 @@ settings.verify_chunk_pts dynamic points:
      points of any Z), K4a and K4b.
 Then one final MSM over the static points and the partial results (scalar
 1 each; their Z is arbitrary, hence K11 and not K3) gives the flag, ANDed
-with every chunk's validity.
+with every chunk's validity.  With a mesh (`mesh=`, parallel/sharded_msm),
+every aggregation takes the chunked route, and when the mesh has more than
+one entry each chunk's MSM and the final one are sharded over it
+(sharded_msm_lanes); K1 and the replay stay on the verifier's device, the
+mesh's first.
+
+Two more routes, the JAX package's:
+* `prefer_host=True` (with the native library and no mesh), `_verify_host`:
+  all in C++, one rangeproof_verify_prep_batch over the batch, one
+  rist_batch_decompress, one rist_msm over the static and dynamic points;
+* `use_native=False`, `_verify_python`: each proof's Python replay
+  (RangeProof.verification_scalars_ints) and 64 rng bytes of weight, then
+  K1 on the dynamic points and one MSM (K10, K11, K4a, K4b) on the device,
+  or sharded over the mesh.
+`prefer_host=None` (the default) keeps the device routes: unlike the JAX
+package, which takes the host route whenever no TPU is attached, the port
+never moves to the host unasked.
+
+`host_verify_one` verifies one proof on the C++ route with a verifier
+cached per generators; RangeProof.verify_multiple takes it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import List, Sequence
 
 import numpy as np
@@ -45,6 +65,8 @@ import torch
 
 from ..config import settings
 from ..core._native import LIB as _NATIVE
+from ..core.ristretto import pack_points
+from ..core.scalar import L as ELL
 from ..device import resolve_device
 from ..errors import ProofError
 from ..generators import BulletproofGens, PedersenGens
@@ -53,25 +75,37 @@ from ..ops import msm as M
 from ..ops import verify as V
 from ..proofs.rangeproof import SystemRandom
 from ..transcript import Transcript
+from .sharded_msm import Mesh, sharded_msm_lanes
 
 
 class BatchVerifier:
     """Device-resident generators for (n, m) and batched verification of
     aggregated range proofs: one fused MSM per sub-batch, or for large nm
-    one MSM per chunk and a final one."""
+    or a mesh one MSM per chunk and a final one; or the C++ route
+    (`prefer_host=True`) or the Python replay (`use_native=False`).  With
+    a mesh, `device` is ignored: the verifier's device is the mesh's
+    first."""
 
     SUB_BATCH = 2048
 
     def __init__(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
-                 n: int, m: int = 1, device="cuda"):
-        if _NATIVE is None:
-            raise RuntimeError("the batch verifier needs the native host "
-                               "library (core/_native.py)")
+                 n: int, m: int = 1, mesh: Mesh = None,
+                 use_native: bool = True, prefer_host=None, device="cuda"):
+        if use_native and _NATIVE is None:
+            raise RuntimeError("the batch verifier's native routes need the "
+                               "native host library (core/_native.py); "
+                               "use_native=False takes the Python replay")
         self.bp_gens, self.pc_gens = bp_gens, pc_gens
         self.n, self.m = n, m
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.use_native = use_native
+        self.prefer_host = prefer_host
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         static = ([pc_gens.B_blinding, pc_gens.B]
                   + bp_gens.G(n, m) + bp_gens.H(n, m))
+        self._static_host = static
+        self._static_packed = None          # packed by the C++ route
         # Z = 1 copies (a change of representation only), so the MSM runs
         # the Niels mixed addition for every input
         self.static_lanes = C.points_to_lanes(C.normalized(static))
@@ -94,11 +128,18 @@ class BatchVerifier:
             raise ValueError("verify_batch requires at least one proof "
                              "(an empty batch would vacuously accept)")
         rng = rng or SystemRandom()
+        if not self.use_native:
+            return self._verify_python(proofs, value_commitments, transcripts,
+                                       rng)
         lg, _, n_dyn = V.shape(self.n, self.m)
         plen = 32 * (9 + 2 * lg)
         proofs_blob, vcs_blob, dyn_raw = self._serialize(
             proofs, value_commitments, lg, n_dyn, plen)
-        if self.n * self.m > settings.fused_verify_max_nm:
+        if self.prefer_host and self.mesh is None:
+            return self._verify_host(proofs_blob, vcs_blob, dyn_raw,
+                                     transcripts, rng)
+        if self.mesh is not None \
+                or self.n * self.m > settings.fused_verify_max_nm:
             ok = self._verify_chunked(proofs_blob, vcs_blob, dyn_raw,
                                       transcripts, rng, n_dyn, plen)
             if not bool(ok.all()):
@@ -200,6 +241,21 @@ class BatchVerifier:
         for i, t in enumerate(transcripts):
             t.strobe.buf.raw = sraw[i * strobe_size: (i + 1) * strobe_size]
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the MSMs are sharded: a mesh of more than one entry."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _msm_flag(self, points: torch.Tensor, scalars: np.ndarray):
+        """One MSM of the verifier: (4, 10, N) points and (N, 32) uint8
+        scalar rows -> (point (4, 10, 1), is-identity flag (1,)) on the
+        verifier's device; sharded over the mesh when it has more than one
+        entry."""
+        if self.sharded:
+            out = sharded_msm_lanes(points, scalars, self.mesh)
+            return out, C.is_identity(C.to_coords(out))
+        return M.msm_lanes_flag(points, self._upload(scalars))
+
     def _verify_chunked(self, proofs_blob, vcs_blob, dyn_raw, transcripts,
                         rng, n_dyn: int, plen: int) -> torch.Tensor:
         """The chunked route (module docstring) -> (1,) accept flag on the
@@ -218,13 +274,87 @@ class BatchVerifier:
             dyn_sc = self.prep(proofs_blob[lo * plen: hi * plen],
                                vcs_blob[lo * 32 * m: hi * 32 * m],
                                transcripts[lo:hi], rng, static_acc)
-            partials.append(M.msm_lanes(pts, self._upload(dyn_sc)))
+            partials.append(self._msm_flag(pts, dyn_sc)[0])
         scalars = np.zeros((n_static + len(partials), 32), np.uint8)
         scalars[:n_static] = np.frombuffer(static_acc.raw, np.uint8).reshape(
             n_static, 32)
         scalars[n_static:, 0] = 1
-        _, flag = M.msm_lanes_flag(torch.cat([self.static_pts] + partials,
-                                             dim=-1),
-                                   self._upload(scalars))
+        _, flag = self._msm_flag(torch.cat([self.static_pts] + partials,
+                                           dim=-1), scalars)
         return flag & torch.stack(valid).all()
 
+    def _verify_host(self, proofs_blob, vcs_blob, dyn_raw, transcripts, rng):
+        """The C++ route (JAX _verify_host): one replay of the batch that
+        emits every dynamic point's scalar and the static sums (128 rng
+        bytes a proof; the transcripts are written back), one batch
+        decompression, one vartime MSM over the static points (packed
+        once) and the dynamic ones."""
+        n_dyn = dyn_raw.shape[0]
+        n_static = len(self._static_host)
+        static_sc = ctypes.create_string_buffer(32 * n_static)
+        dyn_sc = self.prep(proofs_blob, vcs_blob, transcripts, rng,
+                           static_sc)
+        dyn_ext = ctypes.create_string_buffer(128 * n_dyn)
+        ok = ctypes.create_string_buffer(n_dyn)
+        if _NATIVE.rist_batch_decompress(n_dyn, dyn_raw.tobytes(), dyn_ext,
+                                         ok) != n_dyn:
+            raise ProofError.verification()
+        if self._static_packed is None:
+            self._static_packed = pack_points(self._static_host)
+        out = ctypes.create_string_buffer(128)
+        _NATIVE.rist_msm(n_static + n_dyn, static_sc.raw + dyn_sc.tobytes(),
+                         self._static_packed + dyn_ext.raw, out)
+        if not _NATIVE.rist_is_identity(out):
+            raise ProofError.verification()
+
+    def _verify_python(self, proofs, value_commitments, transcripts, rng):
+        """The Python replay (JAX _verify_python): per proof its
+        verification scalars, then 64 rng bytes of its weight r; K1 on
+        the dynamic points and one MSM of the dynamic and the static
+        points on the device, or sharded over the mesh."""
+        n_static = len(self._static_host)
+        dyn_ints, dyn_bytes = [], []
+        static_acc = [0] * n_static
+        for proof, vcs, transcript in zip(proofs, value_commitments,
+                                          transcripts):
+            if len(vcs) != self.m:
+                raise ProofError.verification()
+            dyn_s, static_s, dyn_pts = proof.verification_scalars_ints(
+                self.bp_gens, self.pc_gens, transcript, vcs, self.n, rng=rng)
+            r = int.from_bytes(rng.randbytes(64), "little") % ELL
+            dyn_ints.extend(r * s % ELL for s in dyn_s)
+            dyn_bytes.extend(dyn_pts)
+            for j, s in enumerate(static_s):
+                static_acc[j] = (static_acc[j] + r * s) % ELL
+        dyn_raw = np.frombuffer(b"".join(dyn_bytes), np.uint8).reshape(-1, 32)
+        valid, dyn_pts = C.decompress(self._upload(dyn_raw))
+        scalars = np.frombuffer(b"".join(
+            s.to_bytes(32, "little") for s in dyn_ints + static_acc),
+            np.uint8).reshape(-1, 32)
+        _, flag = self._msm_flag(torch.cat([dyn_pts, self.static_pts],
+                                           dim=-1), scalars)
+        if not bool((flag & valid.all()).all()):
+            raise ProofError.verification()
+
+
+
+# verifiers of the C++ route, per generators and then per (n, m)
+_HOST_CTX = weakref.WeakKeyDictionary()
+
+
+def host_verify_one(proof, bp_gens, pc_gens, transcript, value_commitments,
+                    n: int, rng) -> None:
+    """Verify one (possibly aggregated) range proof on the C++ route
+    (replay, batch decompression, one MSM) with a BatchVerifier cached per
+    generators (JAX host_verify_one); raises ProofError.  Takes no
+    device."""
+    m = len(value_commitments)
+    per_gens = _HOST_CTX.get(bp_gens)
+    if per_gens is None:
+        per_gens = _HOST_CTX[bp_gens] = {}
+    bv = per_gens.get((n, m))
+    if bv is None or bv.pc_gens is not pc_gens:
+        bv = BatchVerifier(bp_gens, pc_gens, n=n, m=m, prefer_host=True,
+                           device="cpu")
+        per_gens[(n, m)] = bv
+    bv.verify_batch([proof], [value_commitments], [transcript], rng=rng)

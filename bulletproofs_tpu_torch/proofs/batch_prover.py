@@ -19,7 +19,15 @@ Two routes, both the JAX package's device routes:
   device stages, with the host's C++ transcript (rp_ts_yz, rp_ts_x,
   rp_ts_w, rp_ts_round) between two of them.
 
-Both give the same proofs for the same inputs and rng bytes.  Points are
+Both give the same proofs for the same inputs and rng bytes.
+
+With `prefer_host=True` the prover takes the JAX package's off-TPU route
+instead and builds no device tables: for m = 1 the C++ stage engine
+(`_prove_batch_host`: native/prove_prep.cpp rp_prove_stage0/1/2,
+rp_prove_round_coefs / absorb, rp_prove_finish, with the row MSMs by the
+C++ rist_msm_rows(_ct) over the packed bases), for m > 1
+RangeProof.prove_multiple per proof.  It draws the rng as JAX's host route
+does and gives its proofs byte for byte.  Points are
 fixed-base MSMs over [B, B~, G.., H..] (kernels K6 or K12, and K7),
 compressed by K5; the mod-l vectors go through K8-K10 and plain PyTorch.
 Large batches run as two interleaved halves (from 2048 proofs on the
@@ -71,7 +79,7 @@ class BatchProver:
     FUSED_HALVES_FROM = 2048    # even) run as halves; device-transcript route
 
     def __init__(self, bp_gens: BulletproofGens, pc_gens: PedersenGens,
-                 n: int, m: int = 1, device="cuda"):
+                 n: int, m: int = 1, device="cuda", prefer_host: bool = False):
         if n not in (8, 16, 32, 64):
             raise MPCError(MPCError.INVALID_BITSIZE)
         if m == 0 or m & (m - 1):
@@ -83,10 +91,16 @@ class BatchProver:
         self.bp_gens, self.pc_gens = bp_gens, pc_gens
         self.device = resolve_device(device)
         self.fused = True           # False: the per-stage route
+        # the host route (module docstring), fixed at construction: its
+        # tables are host-only, so its rows go to the C++ row MSM
+        self.prefer_host = prefer_host
         bases = [pc_gens.B, pc_gens.B_blinding] + bp_gens.G(n, m) \
             + bp_gens.H(n, m)
-        self.tables = fixed_msm.FixedBaseTables(bases, self.device)
+        self.tables = fixed_msm.FixedBaseTables(
+            bases, None if prefer_host else self.device)
         self.tables_bb = fixed_msm.SubsetTables(self.tables, [0, 1])
+        if prefer_host:
+            return
         # compact stage-0 streams: A touches only window 0 of each G / H
         # (coefficients in {0, +-1}); S drops the zero-coefficient B
         self.a_tables = fixed_msm.StreamSubsetTables(
@@ -132,11 +146,112 @@ class BatchProver:
                 if v < 0 or v >> self.n:
                     raise ValueError(
                         f"value out of range for {self.n}-bit proof")
+        if self.prefer_host:
+            return self._prove_host(values, blindings, transcripts, rng)
         if not self.fused:
             return self._prove_halves(self._prove_half_gen, self.HALVES_FROM,
                                       values, blindings, transcripts, rng)
         return self._prove_batch_device_fused(values, blindings, transcripts,
                                               rng)
+
+    def _prove_host(self, values, blindings, transcripts, rng):
+        """JAX's off-TPU routing: the C++ stage engine for m = 1, the
+        protocol's prove_multiple (dealer and parties on the host curve
+        backend) per proof for m > 1."""
+        if self.m == 1:
+            return self._prove_batch_host([vs[0] for vs in values],
+                                          [bs[0] for bs in blindings],
+                                          transcripts, rng)
+        proofs, vcs = [], []
+        for vs, bs, t in zip(values, blindings, transcripts):
+            p, vc = RangeProof.prove_multiple(self.bp_gens, self.pc_gens, t,
+                                              vs, bs, self.n, rng=rng)
+            proofs.append(p)
+            vcs.append(vc)
+        return proofs, vcs
+
+    def _prove_batch_host(self, values, blindings, transcripts, rng):
+        """The C++ stage engine, m = 1 (JAX _prove_batch_host): per stage
+        one C++ call over every proof's state, the row MSMs between; rng
+        draws count * (2 + 2n) * 64 bytes (blindings, sL, sR), then
+        count * 128 (the T blindings).  The transcripts advance in
+        place."""
+        n, nb = self.n, self.tables.num_bases
+        count = len(values)
+        state = ctypes.create_string_buffer(_NATIVE.rp_state_size(n) * count)
+        strobe_size = len(transcripts[0].strobe.buf.raw)
+        strobes = ctypes.create_string_buffer(
+            b"".join(t.strobe.buf.raw for t in transcripts),
+            strobe_size * count)
+
+        # stage 0: blindings -> V / A / S coefficient rows; they carry the
+        # witness (values, bits, blindings): constant-time rows
+        vals = (ctypes.c_uint64 * count)(*values)
+        vblind = b"".join(b.to_bytes() for b in blindings)
+        rand0 = rng.randbytes(count * (2 + 2 * n) * 64)
+        coef0 = np.zeros((3 * count, nb, 32), np.uint8)
+        _check_rc(_NATIVE.rp_prove_stage0(
+            count, n, vals, vblind, rand0, state,
+            coef0.ctypes.data_as(ctypes.c_char_p)), "rp_prove_stage0")
+        vas = fixed_msm.msm_rows_compressed(self.tables, coef0,
+                                            consttime=True)
+
+        # stage 1: y, z; l / r polynomials; T_1 / T_2 rows (the secret
+        # t-polynomial: constant-time rows)
+        rand1 = rng.randbytes(count * 128)
+        coef1 = np.zeros((2 * count, 2, 32), np.uint8)
+        _check_rc(_NATIVE.rp_prove_stage1(
+            count, n, strobes, strobe_size, vas.tobytes(), rand1, state,
+            coef1.ctypes.data_as(ctypes.c_char_p)), "rp_prove_stage1")
+        tb = fixed_msm.msm_rows_compressed(self.tables_bb, coef1,
+                                           consttime=True)
+
+        # stage 2: x; the share scalars; w; the IPP's start
+        _check_rc(_NATIVE.rp_prove_stage2(
+            count, n, strobes, strobe_size, tb.tobytes(), state),
+            "rp_prove_stage2")
+
+        # IPP rounds: L / R rows are public (vartime rows)
+        L_rows, R_rows = [], []
+        nk = n
+        coefr = np.zeros((2 * count, nb, 32), np.uint8)
+        while nk > 1:
+            _check_rc(_NATIVE.rp_prove_round_coefs(
+                count, n, nk, state, coefr.ctypes.data_as(ctypes.c_char_p)),
+                "rp_prove_round_coefs")
+            lr = fixed_msm.msm_rows_compressed(self.tables, coefr)
+            L_rows.append(lr[:count])
+            R_rows.append(lr[count:])
+            _check_rc(_NATIVE.rp_prove_round_absorb(
+                count, n, nk, strobes, strobe_size, lr.tobytes(), state),
+                "rp_prove_round_absorb")
+            nk //= 2
+
+        scal = ctypes.create_string_buffer(count * 5 * 32)
+        _check_rc(_NATIVE.rp_prove_finish(count, n, state, scal),
+                  "rp_prove_finish")
+        sraw = strobes.raw
+        for i, t in enumerate(transcripts):
+            t.strobe.buf.raw = sraw[i * strobe_size: (i + 1) * strobe_size]
+
+        out = scal.raw
+
+        def sc(off) -> Scalar:
+            return Scalar.from_canonical_bytes(out[off: off + 32])
+
+        proofs = []
+        for p in range(count):
+            off = p * 160
+            ipp = InnerProductProof(
+                L_vec=[bytes(rows[p]) for rows in L_rows],
+                R_vec=[bytes(rows[p]) for rows in R_rows],
+                a=sc(off + 96), b=sc(off + 128))
+            proofs.append(RangeProof(
+                A=bytes(vas[count + p]), S=bytes(vas[2 * count + p]),
+                T_1=bytes(tb[p]), T_2=bytes(tb[count + p]), t_x=sc(off),
+                t_x_blinding=sc(off + 32), e_blinding=sc(off + 64),
+                ipp_proof=ipp))
+        return proofs, [bytes(vas[p]) for p in range(count)]
 
     def _prove_batch_device_fused(self, values, blindings, transcripts, rng):
         """The device-transcript route.  With interleaved halves, one half

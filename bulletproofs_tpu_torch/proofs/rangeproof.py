@@ -8,7 +8,11 @@ Verification replays the transcript and reduces to ONE mega-MSM over
 TPU path shards across chips (bulletproofs_tpu_torch.parallel.batch_verify).
 
 `verify_multiple` accepts an optional `msm` callable so the device MSM can
-be injected; the default is the host Pippenger oracle.
+be injected.  Without one it takes the batch verifier's C++ route
+(parallel/batch_verify.host_verify_one) where the JAX package does: the
+native library built, n in {8, 16, 32, 64}, m a power of two within the
+generators' capacities, a native-backed transcript; else it replays in
+Python and runs the host Pippenger MSM.
 """
 
 from __future__ import annotations
@@ -284,6 +288,23 @@ class RangeProof:
     def verify_multiple(self, bp_gens, pc_gens, transcript,
                         value_commitments: List[bytes], n: int,
                         rng=None, msm=None):
+        # one C++ call (replay, batch decompression, one Pippenger MSM)
+        # shared with the batch verifier, under the JAX package's
+        # conditions: the native library built, a supported shape, a
+        # native-backed transcript and no injected msm
+        if msm is None:
+            from ..core.ristretto import _NATIVE
+            m = len(value_commitments)
+            if (_NATIVE is not None
+                    and n in (8, 16, 32, 64)
+                    and m >= 1 and (m & (m - 1)) == 0
+                    and bp_gens.gens_capacity >= n
+                    and bp_gens.party_capacity >= m
+                    and hasattr(transcript.strobe, "buf")):
+                from ..parallel.batch_verify import host_verify_one
+                return host_verify_one(self, bp_gens, pc_gens, transcript,
+                                       value_commitments, n,
+                                       rng or SystemRandom())
         scalars, compressed, static_pts, vcs = self.verification_scalars_and_points(
             bp_gens, pc_gens, transcript, value_commitments, n, rng=rng)
 

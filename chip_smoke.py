@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--total 8192] [--prove-runs 3] [--runs 5]
                           [--agg-total 256] [--agg-runs 3]
                           [--probe-steps 1024] [--r1cs-k 32768]
-                          [--linear-items 2048]
+                          [--linear-items 2048] [--host-prove 256]
+                          [--sharded-points 65536]
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   1. drives the prover's main path: BatchProver.prove_batch of `--total`
@@ -75,7 +76,21 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      the forced device route (cold, then 3 runs alternating with the host
      route, medians; the MSM alone), the six MSM kernels against their
      plain versions on its inputs, and a tampered batch rejected;
- 12. prints the kernels' launches, times, plain times and bounds as one
+ 12. the host and Python routes and the mesh, on 2's proofs: the C++
+     route (BatchVerifier(prefer_host=True), timed beside the fused
+     route), the mesh verifier (chunked, every MSM sharded) over every
+     card present and over a virtual 4-shard mesh on card 0 (launches a
+     shard a chunk, each shard under its own device, timed), the
+     `--sharded-points` (2^16) MSM sharded over both beside the unsharded one (a
+     one-scalar oracle; one shard's K10, K11, K4a, K4b against their plain
+     versions), use_native=False on 256 proofs with and without the
+     4-shard mesh, an R1CS k = 8 shuffle verified with msm= over each
+     mesh, BatchProver(prefer_host=True) on `--host-prove` proofs (its
+     proofs accepted on the card, its stage-0 and IPP round-1 rows redone
+     by msm_rows_compressed on the card byte for byte) and 2 m=16 proofs
+     of prove_multiple on the chunked route; every route accepts, rejects
+     tampering and leaves the fused route's transcripts;
+ 13. prints the kernels' launches, times, plain times and bounds as one
      JSON line (K8's, K9's, K10's and K13's times by device time:
      launches queued behind a sleep of the card, `benches.queued`; the
      others by CUDA events around a loop of launches), the card's name and
@@ -773,6 +788,336 @@ def linear_phase(args, smi, imads, failures):
         failures.append("linear tampered batch accepted")
 
 
+class RowCapture:
+    """Keeps (coefficient rows (copied), consttime, output) of every
+    fixed_msm.msm_rows_compressed call while it goes on working (the host
+    prover reuses its round buffer)."""
+
+    def __init__(self, module):
+        self.module, self.real, self.calls = module, \
+            module.msm_rows_compressed, []
+        module.msm_rows_compressed = self
+
+    def __call__(self, tables, coef, consttime=False):
+        out = self.real(tables, coef, consttime)
+        self.calls.append((tables, coef.copy(), consttime, out.copy()))
+        return out
+
+    def restore(self):
+        self.module.msm_rows_compressed = self.real
+
+
+def routes_phase(args, smi, failures, main):
+    """12. The host and Python routes and the mesh, on the main path's
+    proofs (`main`: its generators, prover, fused verifier, proofs,
+    commitments and labels, and the m=16 verifier and statements):
+    BatchVerifier(prefer_host=True) (all C++), BatchVerifier(mesh=) over
+    every card present and over a virtual 4-shard mesh on card 0 (the
+    chunked route, every MSM sharded: launches per shard, the shards'
+    devices), the 2^16-point sharded MSM over both meshes beside the
+    unsharded one and one shard's kernels against their plain versions,
+    use_native=False with and without the 4-shard mesh, an R1CS k = 8
+    shuffle verified with msm= over each mesh, BatchProver(prefer_host=
+    True) (the C++ stage engine) with its row MSMs redone on the card,
+    and m = 16 through prove_multiple.  Every route: accepted, tampering
+    rejected, transcripts equal to the fused route's."""
+    from bulletproofs_tpu_torch import (BatchProver, BatchVerifier,
+                                        BulletproofGens, R1CSError,
+                                        RangeProof, ProofError, Transcript)
+    from bulletproofs_tpu_torch.benches import shuffle as SH
+    from bulletproofs_tpu_torch.config import settings
+    from bulletproofs_tpu_torch.core.ristretto import RISTRETTO_BASEPOINT
+    from bulletproofs_tpu_torch.core.scalar import L as ELL, Scalar
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    from bulletproofs_tpu_torch.ops import fold as FO
+    from bulletproofs_tpu_torch.ops import msm as M
+    from bulletproofs_tpu_torch.ops import scalar as S
+    from bulletproofs_tpu_torch.parallel import (Mesh, make_mesh,
+                                                 sharded_msm_lanes)
+    from bulletproofs_tpu_torch.parallel import sharded_msm as SMm
+    from bulletproofs_tpu_torch.proofs import batch_prover as BPm
+    import numpy as np
+    bp, pc, n = main["bp"], main["pc"], main["n"]
+    proofs, vcss, labels = main["proofs"], main["vcss"], main["labels"]
+    count = len(proofs)
+    card0 = torch.device(DEVICE, 0) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    meshes = [("every card present", make_mesh(device=DEVICE)),
+              ("a virtual 4-shard mesh on card 0", Mesh([card0] * 4))]
+    log(f"routes and the mesh ({count} proofs of n={n}; meshes: "
+        + "; ".join(f"{w} {mesh}" for w, mesh in meshes) + f") on {smi}:")
+
+    def run(verifier, ps, vs, seed, labs=None):
+        """-> (accepted, transcript bytes after)."""
+        ts = [Transcript(l) for l in (labs or labels)]
+        try:
+            verifier.verify_batch(ps, vs, ts, rng=Rng(seed))
+            ok = True
+        except ProofError:
+            ok = False
+        torch.cuda.synchronize()
+        return ok, [t.strobe.buf.raw for t in ts]
+
+    last = count - 1
+    b = bytearray(proofs[last].to_bytes())
+    b[128] ^= 1                                       # low byte of t_x
+    tampered = (("flipped byte", proofs[:last]
+                 + [RangeProof.from_bytes(bytes(b))], vcss),
+                ("swapped commitments", proofs,
+                 vcss[:last - 1] + [vcss[last], vcss[last - 1]]))
+    fused = main["bv"]
+    ok, fused_ts = run(fused, proofs, vcss, 60)
+    if not ok:
+        failures.append("fused route rejected the proofs")
+
+    def route_checks(what, verifier, ps=proofs, vs=vcss, want_ts=fused_ts,
+                     labs=None, no_kernels=False):
+        """Accept (launches counted from 0 just before, read just after),
+        transcripts equal to the fused route's, both tamperings
+        rejected -> the accepting run's launches."""
+        _cuda.reset_counts()
+        ok, ts = run(verifier, ps, vs, 61, labs)
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        same = ts == want_ts
+        log(f"  {what}: {'accepted' if ok else 'REJECTED'}, transcripts "
+            f"{'equal to' if same else 'DIFFERENT from'} the fused "
+            f"route's; launches {launches}")
+        if not ok or not same:
+            failures.append(f"{what}: verdict or transcripts")
+        if no_kernels and launches:
+            failures.append(f"{what} launched kernels")
+        if ps is proofs:
+            for name, tps, tvs in tampered:
+                if run(verifier, tps, tvs, 62, labs)[0]:
+                    failures.append(f"{what}: {name} accepted")
+                    log(f"    {name}: ACCEPTED")
+                else:
+                    log(f"    {name}: rejected")
+        return launches
+
+    # -- prefer_host=True: the C++ route, beside the fused route -----------------
+    hbv = BatchVerifier(bp, pc, n=n, m=1, prefer_host=True, device=DEVICE)
+    route_checks("prefer_host=True (C++ replay, decompression, rist_msm)",
+                 hbv, no_kernels=True)
+    fused_ms, host_ms = paired(lambda: run(fused, proofs, vcss, 63),
+                               lambda: run(hbv, proofs, vcss, 63))
+    log(f"    {count} proofs, 3 runs each alternating (host clock): fused "
+        f"route best {min(fused_ms):.1f} ms ({runs_text(fused_ms)}), C++ "
+        f"route best {min(host_ms):.1f} ms ({runs_text(host_ms)})")
+
+    # -- the mesh verifier: the chunked route, every MSM sharded -----------------------
+    n_dyn = 4 + 2 * (n.bit_length() - 1) + 1
+    chunks = -(-count // max(1, settings.verify_chunk_pts // n_dyn))
+    for what, mesh in meshes:
+        seen = []
+        real = SMm.M.msm_lanes
+
+        def on_shard(pts, sc, real=real, seen=seen):
+            cur = torch.device(DEVICE, torch.cuda.current_device()) \
+                if DEVICE == "cuda" else pts.device
+            seen.append((pts.device, sc.device, cur))
+            return real(pts, sc)
+
+        mbv = BatchVerifier(bp, pc, n=n, m=1, mesh=mesh)
+        SMm.M.msm_lanes = on_shard
+        try:
+            launches = route_checks(f"mesh verifier over {what} "
+                                    f"(chunked)", mbv)
+        finally:
+            SMm.M.msm_lanes = real
+        want = mesh.size * (chunks + 1)
+        msm_k = {k: launches.get(k, 0) for k in
+                 ("digits", "msm_bin", "msm_accumulate_z", "msm_reduce",
+                  "msm_horner")}
+        log(f"    {chunks} chunks: K10 / K11 / K4a / K4b launches {msm_k} "
+            f"(expected {want} each: one a shard a chunk and the final "
+            f"MSM's), K1 {launches.get('decompress', 0)} (expected "
+            f"{chunks})")
+        if any(v != want for v in msm_k.values()) \
+                or launches.get("decompress", 0) != chunks \
+                or launches.get("emit", 0) or launches.get("msm_accumulate"):
+            failures.append(f"mesh verifier over {what}: launches")
+        if mesh.size > 1:
+            # the accepting run first, then the two tampered ones
+            right = len(seen) == 3 * mesh.size * (chunks + 1) and all(
+                e == (mesh.devices[i % mesh.size],) * 3
+                for i, e in enumerate(seen))
+            log(f"    every shard's inputs and current device its own "
+                f"({len(seen)} shard MSMs): {'yes' if right else 'NO'}")
+            if not right:
+                failures.append(f"mesh verifier over {what}: shard devices")
+        ms = [host_clock(lambda: run(mbv, proofs, vcss, 64))
+              for _ in range(3)]
+        log(f"    best {min(ms):.1f} ms of 3 ({runs_text(ms)}) -> "
+            f"{count / min(ms) * 1e3:.0f} proofs/s")
+
+    # -- the 2^16-point sharded MSM (__graft_entry__.dryrun_multichip) -----
+    big = args.sharded_points
+    g = np.random.default_rng(args.seed + 70)
+    table, acc = [], RISTRETTO_BASEPOINT
+    for _ in range(256):
+        table.append(acc)
+        acc = acc + RISTRETTO_BASEPOINT
+    idx = g.integers(0, 256, big)
+    pts = torch.as_tensor(C.points_to_lanes(table)).to(card0)[
+        ..., torch.as_tensor(idx, device=card0)].contiguous()
+    ints = [int.from_bytes(g.bytes(32), "little") % ELL for _ in range(big)]
+    rows = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in ints),
+                         np.uint8).reshape(big, 32)
+    k = sum((int(i) + 1) * v for i, v in zip(idx, ints)) % ELL
+    oracle = RISTRETTO_BASEPOINT.scalar_mul(Scalar(k)).compress()
+
+    def unsharded():
+        return M.msm_lanes(pts, torch.from_numpy(rows.copy()).to(card0))
+
+    results = [("unsharded msm_lanes", unsharded)] + [
+        (f"sharded over {what}", lambda mesh=mesh: sharded_msm_lanes(
+            pts, rows, mesh)) for what, mesh in meshes]
+    for what, fn in results:
+        out = fn()
+        good = C.compress(out).cpu().numpy().tobytes() == oracle
+        ms = [host_clock(fn) for _ in range(3)]
+        log(f"  {big}-point MSM, {what}: "
+            f"{'equal to' if good else 'DIFFERENT from'} the one-scalar "
+            f"oracle; best {min(ms):.2f} ms of 3 ({runs_text(ms)}; scalars "
+            f"uploaded from the host inside)")
+        if not good:
+            failures.append(f"{big}-point MSM {what}")
+    shard = -(-big // 4)
+    sp = pts[..., :shard].contiguous()
+    coef = S.from_bytes32(torch.from_numpy(rows[:shard].copy()).to(card0))
+    dig = FO.digits_lanes(coef)
+    slab = M.accumulate_z(sp, dig)
+    sums = M.reduce(slab)
+    checks = (("digits", dig, lambda: FO.digits_plain(coef[None])),
+              ("msm_bin", M.bin_points(sp, dig),
+               lambda: M.bin_points_plain(sp, dig)),
+              ("msm_accumulate_z", slab,
+               lambda: M.accumulate_z_plain(sp, dig)),
+              ("msm_reduce", sums, lambda: M.reduce_plain(slab)),
+              ("msm_horner", M.horner(sums), lambda: M.horner_plain(sums)))
+    errs = {}
+    for name, got, plain in checks:
+        errs[name] = max_abs_err(got, plain())
+        if errs[name] != 0:
+            failures.append(f"{name} on a {big}-point MSM shard")
+    log(f"  one shard ({shard} points) of the 4-shard mesh: kernels against "
+        f"their plain versions, max_abs_err {errs}")
+
+    # -- use_native=False: the Python replay, one device MSM ----------------------------
+    few = min(256, count)
+    sub = (proofs[:few], vcss[:few], labels[:few])
+    want_ts = run(fused, *sub[:2], 65, sub[2])[1]
+    for what, mesh in (("on the card", None),
+                       ("over " + meshes[1][0], meshes[1][1])):
+        pbv = BatchVerifier(bp, pc, n=n, m=1, use_native=False, mesh=mesh,
+                            device=DEVICE)
+        t0 = time.perf_counter()
+        launches = route_checks(f"use_native=False {what}, {few} proofs",
+                                pbv, *sub[:2], want_ts=want_ts, labs=sub[2])
+        ms = (time.perf_counter() - t0) * 1e3
+        want = 1 if mesh is None else mesh.size
+        if launches.get("msm_accumulate_z", 0) != want \
+                or launches.get("decompress", 0) != 1:
+            failures.append(f"use_native=False {what}: launches")
+        fb = bytearray(sub[0][-1].to_bytes())
+        fb[128] ^= 1
+        bad = sub[0][:-1] + [RangeProof.from_bytes(bytes(fb))]
+        rejected = not run(pbv, bad, sub[1], 66, sub[2])[0]
+        log(f"    one run {ms:.1f} ms (host clock, with the check); a "
+            f"flipped byte {'rejected' if rejected else 'ACCEPTED'}")
+        if not rejected:
+            failures.append(f"use_native=False {what}: flipped byte accepted")
+
+    # -- an R1CS shuffle verified with msm= over the mesh -------------------------------
+    kk = 8
+    rbp = BulletproofGens(32, 1)
+    ins, outs, rproof = SH.prove_shuffle(pc, rbp, b"chip mesh r1cs",
+                                         *SH.shuffle_values(kk, kk),
+                                         Rng(args.seed + 71))
+    for what, mesh in meshes:
+        used = []
+
+        def mesh_msm(scalars, points, mesh=mesh, used=used):
+            lanes = torch.as_tensor(C.points_to_lanes(points)).to(card0)
+            used.append(len(points))
+            out = sharded_msm_lanes(lanes, list(scalars), mesh)
+            return C.lanes_to_points(out.cpu().numpy())[0]
+
+        verdicts = []
+        for o in (outs, [outs[1], outs[0]] + outs[2:]):
+            try:
+                SH.shuffle_verifier(b"chip mesh r1cs", ins, o).verify(
+                    rproof, pc, rbp, rng=Rng(72), msm=mesh_msm, device=DEVICE)
+                verdicts.append(True)
+            except R1CSError:
+                verdicts.append(False)
+        log(f"  R1CS k={kk} shuffle, msm= sharded over {what}: "
+            f"{'accepted' if verdicts[0] else 'REJECTED'}, swapped outputs "
+            f"{'ACCEPTED' if verdicts[1] else 'rejected'} ({used} MSM "
+            f"points)")
+        if verdicts != [True, False] or not used:
+            failures.append(f"R1CS over {what}")
+
+    # -- BatchProver(prefer_host=True): the C++ stage engine ---------------------------
+    hp = min(args.host_prove, count)
+    hprover = BatchProver(bp, pc, n, 1, device=DEVICE, prefer_host=True)
+    vals, blinds = main["values"][:hp], main["blinds"][:hp]
+    cap = RowCapture(BPm.fixed_msm)
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        ts = [Transcript(l) for l in labels[:hp]]
+        hps, hvs = hprover.prove_batch(vals, blinds, ts, rng=Rng(73))
+    finally:
+        cap.restore()
+    ms = (time.perf_counter() - t0) * 1e3
+    if any(_cuda.LAUNCHES.values()):
+        failures.append("the host prover launched kernels")
+    log(f"  BatchProver(prefer_host=True), {hp} proofs of n={n}: {ms:.1f} "
+        f"ms (host clock, one run), {len(cap.calls)} row MSM calls")
+    route_checks(f"the host prover's {hp} proofs on the card's fused "
+                 f"verifier", fused, hps, [[v] for v in hvs],
+                 want_ts=[t.strobe.buf.raw for t in ts], labs=labels[:hp])
+    card_tables = {id(hprover.tables): main["prover"].tables,
+                   id(hprover.tables_bb): main["prover"].tables_bb}
+    for i, what in ((0, "stage 0's V / A / S rows (one-hot K6)"),
+                    (2, "IPP round 1's L / R rows (direct K6)")):
+        tables, coef, ct, out = cap.calls[i]
+        _cuda.reset_counts()
+        got = FM.msm_rows_compressed(card_tables[id(tables)], coef,
+                                     consttime=ct)
+        torch.cuda.synchronize()
+        lk = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        same = np.array_equal(got, out)
+        log(f"    {what}, {coef.shape[0]} rows x {coef.shape[1]} bases on "
+            f"the card: {'byte-identical to' if same else 'DIFFERENT from'} "
+            f"the C++ rows; launches {lk}")
+        if not same or not lk.get("digits") or not lk.get("compress") \
+                or not lk.get("fixed_reduce") \
+                or not lk.get("fixed_accumulate" if ct
+                              else "fixed_accumulate_vt"):
+            failures.append(f"card rows of {what}")
+
+    # -- m = 16 through prove_multiple, verified on the chunked route -----------------
+    bp16, bv16, m16 = main["bp16"], main["bv16"], main["m16"]
+    p16 = BatchProver(bp16, pc, n, m16, device=DEVICE, prefer_host=True)
+    ts = [Transcript(l) for l in main["labels16"][:2]]
+    t0 = time.perf_counter()
+    ps16, vs16 = p16.prove_batch(main["vals16"][:2], main["blinds16"][:2], ts,
+                                 rng=Rng(74))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = route_checks(f"2 m={m16} proofs of prove_multiple ({ms:.1f} "
+                            f"ms to prove) on the chunked route", bv16, ps16,
+                            vs16, want_ts=[t.strobe.buf.raw for t in ts],
+                            labs=main["labels16"][:2])
+    if launches.get("emit") or not launches.get("msm_accumulate_z"):
+        failures.append(f"m={m16} host proofs did not take the chunked "
+                        f"route")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total", type=int, default=8192)
@@ -784,6 +1129,8 @@ def main() -> int:
     ap.add_argument("--probe-steps", type=int, default=1024)
     ap.add_argument("--r1cs-k", type=int, default=1 << 15)
     ap.add_argument("--linear-items", type=int, default=2048)
+    ap.add_argument("--host-prove", type=int, default=256)
+    ap.add_argument("--sharded-points", type=int, default=1 << 16)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1845,6 +2192,11 @@ def main() -> int:
     probe_phase(args, dev, smi, record, failures, mhz)
     r1cs_phase(args, smi, imads, failures)
     linear_phase(args, smi, imads, failures)
+    routes_phase(args, smi, failures, {
+        "bp": bp, "pc": pc, "n": n, "prover": prover, "bv": bv,
+        "proofs": proofs, "vcss": vcss, "labels": labels, "values": values,
+        "blinds": blinds, "bp16": bp16, "bv16": bv16, "m16": m16,
+        "vals16": vals16, "blinds16": blinds16, "labels16": labels16})
     if failures:
         log("FAILED:", failures)
         return 1

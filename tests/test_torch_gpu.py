@@ -838,3 +838,45 @@ def test_r1cs_device_route_on_card(cuda, monkeypatch):
         for k in ("decompress", "digits", "msm_accumulate_z", "msm_reduce",
                   "msm_horner"):
             assert _cuda.LAUNCHES[k] == 1, k
+
+
+@pytest.mark.parametrize("mesh_of", ["every card", "virtual 4 on card 0"])
+def test_sharded_msm_on_card(cuda, mesh_of):
+    """sharded_msm_lanes over every card present and over four virtual
+    shards of card 0: equal to the unsharded msm_lanes (compressed bytes);
+    every shard's kernels launch, one K11 a shard."""
+    from bulletproofs_tpu_torch.parallel import (Mesh, make_mesh,
+                                                 sharded_msm_lanes)
+    mesh = make_mesh() if mesh_of == "every card" \
+        else Mesh([torch.device("cuda", 0)] * 4)
+    r = random.Random(91)
+    pts = torch.as_tensor(C.points_to_lanes(
+        [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+         for _ in range(37)])).to(torch.device("cuda", 0))
+    sb = np.frombuffer(r.randbytes(37 * 32), np.uint8).reshape(37, 32)
+    before = _cuda.LAUNCHES["msm_accumulate_z"]
+    out = sharded_msm_lanes(pts, sb, mesh)
+    want = M.msm_lanes(pts, torch.from_numpy(sb.copy()).to(pts.device))
+    assert out.device == mesh.devices[0]
+    assert torch.equal(C.compress(out), C.compress(want))
+    assert _cuda.LAUNCHES["msm_accumulate_z"] == before + mesh.size + 1
+
+
+@pytest.mark.parametrize("consttime", [True, False])
+def test_msm_rows_compressed_on_card_equals_the_cpp_rows(cuda, consttime):
+    """The card branch (K10, K6 one-hot or direct, K7, K5) against the C++
+    row MSM on seeded n = 8 coefficient rows."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    bp, pc = BulletproofGens(8, 1), PedersenGens()
+    bases = [pc.B, pc.B_blinding] + bp.G(8, 1) + bp.H(8, 1)
+    g = np.random.default_rng(92)
+    coef = np.frombuffer(b"".join(
+        (int.from_bytes(g.bytes(32), "little") % ELL).to_bytes(32, "little")
+        for _ in range(5 * len(bases))), np.uint8).reshape(5, len(bases), 32)
+    kernel = "fixed_accumulate" if consttime else "fixed_accumulate_vt"
+    before = _cuda.LAUNCHES[kernel]
+    got = FM.msm_rows_compressed(FM.FixedBaseTables(bases, cuda), coef,
+                                 consttime=consttime)
+    assert _cuda.LAUNCHES[kernel] == before + 1
+    assert np.array_equal(got, FM.msm_rows_compressed(
+        FM.FixedBaseTables(bases, None), coef, consttime=consttime))
