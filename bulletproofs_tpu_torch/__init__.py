@@ -22,6 +22,7 @@ _EXPORTS = {
     "ProofError": ".errors", "MPCError": ".errors",
     "Transcript": ".transcript",
     "PedersenGens": ".generators", "BulletproofGens": ".generators",
+    "BulletproofGensShare": ".generators",
     "Scalar": ".core.scalar",
     "RistrettoPoint": ".core.ristretto", "RISTRETTO_BASEPOINT": ".core.ristretto",
     "InnerProductProof": ".proofs.ipp",

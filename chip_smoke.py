@@ -5,6 +5,7 @@
                           [--probe-steps 1024] [--r1cs-k 32768]
                           [--linear-items 2048] [--host-prove 256]
                           [--sharded-points 65536]
+                          [--example-batch 256] [--example-k 8192]
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   1. drives the prover's main path: BatchProver.prove_batch of `--total`
@@ -90,7 +91,15 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      by msm_rows_compressed on the card byte for byte) and 2 m=16 proofs
      of prove_multiple on the chunked route; every route accepts, rejects
      tampering and leaves the fused route's transcripts;
- 13. prints the kernels' launches, times, plain times and bounds as one
+ 13. the examples (bulletproofs_tpu_torch/examples/), each main called
+     in-process on the card: batch_throughput of `--example-batch` (256)
+     n=64 proofs (the prove and verify routes' kernels launched, the
+     proofs accepted again and a tampered one rejected), r1cs_gadget at
+     k = `--example-k` (8192, the smallest power of two whose padded
+     multipliers reach the device floor: the mega-MSM's kernels
+     launched), range_proof, mpc_aggregation and mpc_multiprocess 4 (host
+     paths), each with its wall;
+ 14. prints the kernels' launches, times, plain times and bounds as one
      JSON line (K8's, K9's, K10's and K13's times by device time:
      launches queued behind a sleep of the card, `benches.queued`; the
      others by CUDA events around a loop of launches), the card's name and
@@ -1118,6 +1127,101 @@ def routes_phase(args, smi, failures, main):
                         f"route")
 
 
+# the kernels each example's path must launch (counts from 0 just before
+# the example's main, read just after)
+PROVE_KERNELS = ("compress", "fixed_accumulate", "fixed_accumulate_vt",
+                 "fixed_reduce", "fold", "smul", "digits", "keccak_f1600",
+                 "sinv")
+VERIFY_KERNELS = ("decompress", "emit", "msm_bin_niels", "msm_accumulate",
+                  "msm_reduce", "msm_horner")
+
+
+def examples_phase(args, smi, failures):
+    """13. The examples (bulletproofs_tpu_torch/examples/), each main
+    called in-process with device="cuda": batch_throughput at
+    `--example-batch` (256) n=64 proofs (the prove and verify routes'
+    kernels must launch; the proofs verify again on the card and 4 on the
+    host, a tampered one is rejected), r1cs_gadget at k = `--example-k`
+    (8192: its 2 x 8191 multipliers pad to the device floor, so the
+    verifier's mega-MSM kernels must launch), then the host paths
+    range_proof, mpc_aggregation and mpc_multiprocess 4.  Each example's
+    wall on the host clock, ending in a synchronize."""
+    import traceback
+    from bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                        ProofError, RangeProof, Transcript)
+    from bulletproofs_tpu_torch.config import settings
+    from bulletproofs_tpu_torch.examples import (batch_throughput,
+                                                 mpc_aggregation,
+                                                 mpc_multiprocess,
+                                                 r1cs_gadget, range_proof)
+    from bulletproofs_tpu_torch.ops import _cuda
+    log(f"the examples on the card ({smi}):")
+
+    def run(what, fn, want=()):
+        """fn() with the counts from 0 just before it, read just after;
+        an exception or a kernel of `want` not launched is a failure."""
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except (Exception, SystemExit) as e:
+            traceback.print_exc()
+            failures.append(f"example {what}: {type(e).__name__}: {e}")
+            return None
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        log(f"  {what}: {wall:.3f} s wall (host clock, ending in a "
+            f"synchronize; on {smi}); launches {launches}")
+        for name in want:
+            if not launches.get(name):
+                failures.append(f"{name} not launched by the example {what}")
+        return out
+
+    batch = args.example_batch
+    out = run(f"batch_throughput {batch}",
+              lambda: batch_throughput.main(batch, DEVICE),
+              PROVE_KERNELS + VERIFY_KERNELS)
+    if out is not None:
+        proofs, vcs, labels = out["proofs"], out["commitments"], out["labels"]
+        log(f"    prove {out['prove_s'] * 1e3:.1f} ms ({batch / out['prove_s']:.1f}"
+            f" proofs/s), verify {out['verify_s'] * 1e3:.1f} ms "
+            f"({batch / out['verify_s']:.1f} proofs/s)")
+        bp, pc = BulletproofGens(64, 1), PedersenGens()
+        for i in range(min(4, batch)):
+            proofs[i].verify_single(bp, pc, Transcript(labels[i]), vcs[i], 64,
+                                    rng=Rng(81 + i))
+        b = bytearray(proofs[-1].to_bytes())
+        b[128] ^= 1                                   # low byte of t_x
+        for what, ps in (("as proved", proofs),
+                         ("one tampered", proofs[:-1]
+                          + [RangeProof.from_bytes(bytes(b))])):
+            try:
+                out["verifier"].verify_batch(
+                    ps, [[c] for c in vcs], [Transcript(l) for l in labels],
+                    rng=Rng(80))
+                ok = True
+            except ProofError:
+                ok = False
+            torch.cuda.synchronize()
+            log(f"    the batch {what}: {'accepted' if ok else 'rejected'} "
+                f"on the card")
+            if ok != (what == "as proved"):
+                failures.append(f"batch_throughput: the batch {what} was "
+                                f"{'accepted' if ok else 'rejected'}")
+
+    k = args.example_k
+    padded = 1 << (2 * k - 3).bit_length()
+    if padded < settings.r1cs_device_msm_floor:
+        failures.append(f"r1cs_gadget k={k}: {padded} padded multipliers "
+                        f"stay below the device floor")
+    run(f"r1cs_gadget {k}", lambda: r1cs_gadget.main(k, DEVICE), MSM_KERNELS)
+
+    run("range_proof", lambda: range_proof.main(DEVICE))
+    run("mpc_aggregation", lambda: mpc_aggregation.main(DEVICE))
+    run("mpc_multiprocess 4", lambda: mpc_multiprocess.main(4, DEVICE))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total", type=int, default=8192)
@@ -1131,6 +1235,8 @@ def main() -> int:
     ap.add_argument("--linear-items", type=int, default=2048)
     ap.add_argument("--host-prove", type=int, default=256)
     ap.add_argument("--sharded-points", type=int, default=1 << 16)
+    ap.add_argument("--example-batch", type=int, default=256)
+    ap.add_argument("--example-k", type=int, default=8192)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2197,6 +2303,7 @@ def main() -> int:
         "proofs": proofs, "vcss": vcss, "labels": labels, "values": values,
         "blinds": blinds, "bp16": bp16, "bv16": bv16, "m16": m16,
         "vals16": vals16, "blinds16": blinds16, "labels16": labels16})
+    examples_phase(args, smi, failures)
     if failures:
         log("FAILED:", failures)
         return 1
