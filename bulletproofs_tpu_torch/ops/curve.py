@@ -10,8 +10,9 @@ csrc/fe25519.cuh repeats them operation for operation, so a kernel's
 output equals its plain version's limb for limb.
 
 The coordinate functions (`add`, `madd`, `double`) work on 4-tuples of
-int64 (..., 10, N) tensors; `decompress` and the lane conversions are the
-public entry points.
+int64 (..., 10, N) tensors; `decompress`, `from_uniform_bytes` (hash to the
+group, plain PyTorch) and the lane conversions are the public entry
+points.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core import field as host_field
+from ..device import resolve_device
 from . import _cuda
 from . import field as F
 from .limbs import FE_LIMBS, canonical_mask, fe_from_bytes, fe_ints_to_limbs, \
@@ -230,6 +232,45 @@ def _compress_kernel(pts: torch.Tensor, lp: int) -> torch.Tensor:
     if n:
         _cuda.launch("compress", "compress", "bp_compress", pts, out, n, lp)
     return out
+
+
+# -- hash to the group (RFC 9496 MAP) ----------------------------------------------
+
+def elligator_map(t: torch.Tensor) -> Coords:
+    """RFC 9496 MAP of (10, N) int64 limbs -> int64 coordinates, one half
+    of from_uniform_bytes (vec_curve.elligator_map, step for step)."""
+    dev = t.device
+    one = F.const("one", dev).expand_as(t)
+    d = F.const("d", dev)
+    r = F.mul(F.mul(F.const("sqrt_m1", dev), t), t)
+    u = F.mul(F.add(r, one), F.const("one_minus_d_sq", dev))
+    v = F.mul(F.sub(F.neg(one), F.mul(r, d)), F.add(r, d))
+    was_square, s = F.sqrt_ratio_m1(u, v)
+    s_prime = F.neg(F.ct_abs(F.mul(s, t)))
+    s = F.select(was_square, s, s_prime)
+    c = F.select(was_square, F.neg(one), r)
+    n = F.sub(F.mul(F.mul(c, F.sub(r, one)), F.const("d_minus_one_sq", dev)),
+              v)
+    w0 = F.mul(F.mul_small(s, 2), v)
+    w1 = F.mul(n, F.const("sqrt_ad_minus_one", dev))
+    w2 = F.sub(one, F.square(s))
+    w3 = F.add(one, F.square(s))
+    return F.mul(w0, w3), F.mul(w2, w1), F.mul(w1, w3), F.mul(w0, w2)
+
+
+def from_uniform_bytes(raw, device="cuda") -> torch.Tensor:
+    """(N, 64) uint8 (a tensor or a numpy array) -> (4, 10, N) int32 points
+    MAP(lo) + MAP(hi) on `device` (vec_curve.from_uniform_bytes; dalek's
+    RistrettoPoint::from_uniform_bytes).  Bit 255 of each 32-byte half is
+    dropped.  Plain PyTorch on either device: the JAX package runs it in
+    XLA, not in a Pallas kernel."""
+    raw = torch.as_tensor(raw)
+    if raw.dim() != 2 or raw.shape[1] != 64 or raw.dtype != torch.uint8:
+        raise ValueError("from_uniform_bytes takes an (N, 64) uint8 array")
+    raw = raw.to(resolve_device(device))
+    lo, hi = (elligator_map(fe_from_bytes(raw[:, k: k + 32]))
+              for k in (0, 32))
+    return from_coords(add(lo, hi))
 
 
 def to_niels(pts: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,10 @@ _CONST_VALUES = {
     "d2": host_field.EDWARDS_D2,
     "sqrt_m1": host_field.SQRT_M1,
     "invsqrt_a_minus_d": host_field.INVSQRT_A_MINUS_D,
+    # RFC 9496 MAP (curve.elligator_map)
+    "one_minus_d_sq": host_field.ONE_MINUS_D_SQ,
+    "d_minus_one_sq": host_field.D_MINUS_ONE_SQ,
+    "sqrt_ad_minus_one": host_field.SQRT_AD_MINUS_ONE,
 }
 _CONSTS = {}
 

@@ -14,6 +14,10 @@ versions pad to whole lane steps with identities and zero digits, the
 kernels stop at N (the TPU's 512 x 8 padding quantum was a block shape).
 Each kernel has its plain PyTorch version here, which a wrapper runs for
 CPU tensors; the two agree limb for limb.
+
+The two MSM entries over (N, 32) scalar bytes: `msm_lanes_flag` for
+points of any Z (K10, K11, K4a, K4b) and `msm_lanes_niels_flag` for Z = 1
+points (K10, K3, K4a, K4b); `normalize_z` takes points of any Z to Z = 1.
 """
 
 from __future__ import annotations
@@ -329,6 +333,34 @@ def msm_lanes_flag(points: torch.Tensor, scalars: torch.Tensor
                          "(4, 10, N) points")
     digits = FO.digits_lanes(S.from_bytes32(scalars))
     out, flag = horner(reduce(accumulate_z(points, digits)))
+    return out[..., None], flag
+
+
+def normalize_z(points: torch.Tensor) -> torch.Tensor:
+    """(4, 10, N) int32 points of any Z -> the same points with Z = 1 and
+    T = xy (msm_pallas.normalize_z), over field.invert.  Plain PyTorch on
+    either device: XLA glue in the JAX package, not a Pallas kernel."""
+    X, Y, Z, _ = C.to_coords(points)
+    zi = F.invert(Z)
+    x, y = F.mul(X, zi), F.mul(Y, zi)
+    one = F.const("one", points.device).expand_as(x)
+    return C.from_coords((x, y, one, F.mul(x, y)))
+
+
+def msm_lanes_niels_flag(points: torch.Tensor, scalars: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """msm_lanes_flag for points (4, 10, N) int32 that already have Z = 1
+    (decompressed points and the generator tables do; normalize_z makes
+    others so) by the Niels mixed addition (msm_pallas.msm_lanes_niels_flag):
+    digits by K10, curve.to_niels, then K3, K4a, K4b -> (point (4, 10, 1)
+    int32, is-identity flag (1,) bool).  The JAX function takes device
+    digits (64, N); this one takes (N, 32) uint8 scalar bytes, as
+    msm_lanes_flag does."""
+    if scalars.dim() != 2 or scalars.shape != (points.shape[-1], 32):
+        raise ValueError("msm_lanes_niels_flag takes (N, 32) scalar bytes "
+                         "for (4, 10, N) points")
+    digits = FO.digits_lanes(S.from_bytes32(scalars))
+    out, flag = msm_niels(C.to_niels(points), digits)
     return out[..., None], flag
 
 

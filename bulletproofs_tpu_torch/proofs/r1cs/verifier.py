@@ -26,11 +26,16 @@ from ...transcript import Transcript
 from ...utils.util import exp_iter_take, inner_product
 from .constraint_system import (RandomizableConstraintSystem,
                                 RandomizedConstraintSystem)
-from .linear_combination import LinearCombination, Variable, to_lc
+from .linear_combination import Variable, to_lc
 from .proof import R1CSProof
 
-# shared immutable -1 coefficient for the multiplier constraints
-_NEG_ONE = Scalar(-1)
+# the compact constraint store: a term is the int index << 3 | kind
+# beside its coefficient's int (Verifier._add_constraint)
+_LEFT, _RIGHT, _OUTPUT, _COMMITTED, _ONE = range(5)
+_KIND = {"MultiplierLeft": _LEFT, "MultiplierRight": _RIGHT,
+         "MultiplierOutput": _OUTPUT, "Committed": _COMMITTED, "One": _ONE}
+# the -1 coefficient of the multiplier constraints
+_NEG_ONE = Scalar(-1).v
 
 
 # see prover._NATIVE_MIN_N
@@ -124,10 +129,20 @@ class _SysRandom:
 
 
 class Verifier(RandomizableConstraintSystem):
+    """The constraints are kept as flat lists of ints, not as the gadget's
+    LinearCombination objects: a k = 2^15 shuffle builds ~2^17
+    constraints, and holding their ~10^6 terms, tuples, Variables and
+    Scalars alive made every verify run several full collections of
+    Python's cyclic GC over the whole heap."""
+
     def __init__(self, transcript: Transcript):
         transcript.r1cs_domain_sep()
         self._transcript = transcript
-        self.constraints: List[LinearCombination] = []
+        # term codes and coefficients of every constraint, in order, and
+        # each constraint's end offset into them
+        self._codes: List[int] = []
+        self._coeffs: List[int] = []
+        self._ends: List[int] = []
         self.num_vars = 0
         self.V: List[bytes] = []
         self.deferred_constraints: List[Callable] = []
@@ -142,16 +157,23 @@ class Verifier(RandomizableConstraintSystem):
         right = to_lc(right)
         var = self.num_vars
         self.num_vars += 1
-        l_var = Variable.multiplier_left(var)
-        r_var = Variable.multiplier_right(var)
-        o_var = Variable.multiplier_output(var)
-        # left + (-1)*l_var == 0, appended directly (the generic LC
-        # __add__/constrain pair re-copies terms on every call)
-        self.constraints.append(
-            LinearCombination(left.terms + [(l_var, _NEG_ONE)]))
-        self.constraints.append(
-            LinearCombination(right.terms + [(r_var, _NEG_ONE)]))
-        return l_var, r_var, o_var
+        # left - l_var == 0 and right - r_var == 0
+        self._add_constraint(left.terms, var << 3 | _LEFT)
+        self._add_constraint(right.terms, var << 3 | _RIGHT)
+        return (Variable.multiplier_left(var), Variable.multiplier_right(var),
+                Variable.multiplier_output(var))
+
+    def _add_constraint(self, terms, minus=None) -> None:
+        """Append one constraint, sum of terms (less the variable of code
+        `minus`) == 0, to the compact store."""
+        codes, coeffs = self._codes, self._coeffs
+        for v, c in terms:
+            codes.append(v.index << 3 | _KIND[v.kind])
+            coeffs.append(c.v)
+        if minus is not None:
+            codes.append(minus)
+            coeffs.append(_NEG_ONE)
+        self._ends.append(len(codes))
 
     def allocate(self, assignment=None) -> Variable:
         if self.pending_multiplier is None:
@@ -173,7 +195,7 @@ class Verifier(RandomizableConstraintSystem):
         return self.num_vars
 
     def constrain(self, lc) -> None:
-        self.constraints.append(to_lc(lc))
+        self._add_constraint(to_lc(lc).terms)
 
     def specify_randomized_constraints(self, callback: Callable) -> None:
         self.deferred_constraints.append(callback)
@@ -197,36 +219,37 @@ class Verifier(RandomizableConstraintSystem):
         return [Variable.committed(base + i)
                 for i in range(len(commitments))]
 
-    def flattened_constraints(self, z: Scalar):
-        """Like the prover's, plus the constant term wc
-        (reference verifier.rs:260-298).  The z-weighted fold is the hot
-        loop of large-circuit verification, so it accumulates raw Python
-        ints (lazy reduction: one mod per slot at the end) instead of
-        allocating a Scalar per term."""
+    def _fold(self, z: Scalar):
+        """The z-weighted fold of the constraints (reference
+        verifier.rs:260-298) as raw Python ints (lazy reduction: one mod per
+        slot by the caller): (wL, wR, wO, wV, wc).  The hot loop of
+        large-circuit verification."""
         from ...core.scalar import L as _L
-        n = self.num_vars
-        m = len(self.V)
-        wL = [0] * n
-        wR = [0] * n
-        wO = [0] * n
-        wV = [0] * m
+        w = ([0] * self.num_vars, [0] * self.num_vars, [0] * self.num_vars)
+        wV = [0] * len(self.V)
         wc = 0
-
+        codes, coeffs = self._codes, self._coeffs
         zv = z.v
         exp_z = zv
-        for lc in self.constraints:
-            for var, coeff in lc.terms:
-                if var.is_multiplier_left():
-                    wL[var.index] += exp_z * coeff.v
-                elif var.is_multiplier_right():
-                    wR[var.index] += exp_z * coeff.v
-                elif var.is_multiplier_output():
-                    wO[var.index] += exp_z * coeff.v
-                elif var.is_committed():
-                    wV[var.index] -= exp_z * coeff.v
+        start = 0
+        for end in self._ends:
+            for j in range(start, end):
+                code, t = codes[j], exp_z * coeffs[j]
+                kind = code & 7
+                if kind < _COMMITTED:
+                    w[kind][code >> 3] += t
+                elif kind == _COMMITTED:
+                    wV[code >> 3] -= t
                 else:
-                    wc -= exp_z * coeff.v
+                    wc -= t
             exp_z = exp_z * zv % _L
+            start = end
+        return w[0], w[1], w[2], wV, wc
+
+    def flattened_constraints(self, z: Scalar):
+        """Like the prover's, plus the constant term wc
+        (reference verifier.rs:260-298), as Scalars."""
+        wL, wR, wO, wV, wc = self._fold(z)
         return ([Scalar(x) for x in wL], [Scalar(x) for x in wR],
                 [Scalar(x) for x in wO], [Scalar(x) for x in wV],
                 Scalar(wc))
@@ -238,30 +261,8 @@ class Verifier(RandomizableConstraintSystem):
         Scalars, wc as a Scalar.  Semantically identical to the Scalar form
         (cross-checked in tests/test_r1cs.py)."""
         from ...core.scalar import L as _L
-        n = self.num_vars
-        m = len(self.V)
-        wL = [0] * n
-        wR = [0] * n
-        wO = [0] * n
-        wV = [0] * m
-        wc = 0
-
-        zv = z.v
-        exp_z = zv
-        for lc in self.constraints:
-            for var, coeff in lc.terms:
-                if var.is_multiplier_left():
-                    wL[var.index] += exp_z * coeff.v
-                elif var.is_multiplier_right():
-                    wR[var.index] += exp_z * coeff.v
-                elif var.is_multiplier_output():
-                    wO[var.index] += exp_z * coeff.v
-                elif var.is_committed():
-                    wV[var.index] -= exp_z * coeff.v
-                else:
-                    wc -= exp_z * coeff.v
-            exp_z = exp_z * zv % _L
-        pad = b"\x00" * (32 * (padded_n - n))
+        wL, wR, wO, wV, wc = self._fold(z)
+        pad = b"\x00" * (32 * (padded_n - self.num_vars))
         return (b"".join((x % _L).to_bytes(32, "little") for x in wL) + pad,
                 b"".join((x % _L).to_bytes(32, "little") for x in wR) + pad,
                 b"".join((x % _L).to_bytes(32, "little") for x in wO) + pad,

@@ -1,11 +1,12 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--total 8192] [--prove-runs 3] [--runs 5]
+    python3 chip_smoke.py [--total 8192] [--prove-runs 3] [--runs 12]
                           [--agg-total 256] [--agg-runs 3]
                           [--probe-steps 1024] [--r1cs-k 32768]
                           [--linear-items 2048] [--host-prove 256]
                           [--sharded-points 65536]
                           [--example-batch 256] [--example-k 8192]
+                          [--msm-points 65536]
 
 Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
   1. drives the prover's main path: BatchProver.prove_batch of `--total`
@@ -39,7 +40,11 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      the public IPP rows) and K7 are timed and held against their plain
      versions, the two forms against each other; launches per form are
      checked;
-  4. times the verifier's main path (best of `--runs` after a warm-up);
+  4. times the verifier's main path (`--runs` calls after a warm-up, best
+     and median), each call's record on a line of its own: wall and CPU
+     time, the cyclic GC's collections and time, context switches, page
+     faults, the CUDA caching allocator's and pinned allocator's deltas
+     and the host clock of each stage of verify_batch;
   5. drives the aggregated path at full width: BatchProver(m=16) of
      `--agg-total` n=64 proofs on the device-transcript route (one
      warm-up, then the best of `--agg-runs`, launch counts, breakdown, the
@@ -99,7 +104,15 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      multipliers reach the device floor: the mega-MSM's kernels
      launched), range_proof, mpc_aggregation and mpc_multiprocess 4 (host
      paths), each with its wall;
- 14. prints the kernels' launches, times, plain times and bounds as one
+ 14. the north-star MSM entry at `--msm-points` (2^16, the JAX package's
+     shape): seeded rows hashed to the group on the card
+     (curve.from_uniform_bytes, 4,096 of them against the host C++),
+     msm.normalize_z, then both MSM routes (msm_lanes_flag: K10, K11, K4a,
+     K4b; msm_lanes_niels_flag: K10, K3, K4a, K4b), equal to each other,
+     to the host C++ rist_msm and to the subtract trick; each route's
+     launches; its kernels against their plain versions on these inputs;
+     both timed device-resident and with the scalars' upload;
+ 15. prints the kernels' launches, times, plain times and bounds as one
      JSON line (K8's, K9's, K10's and K13's times by device time:
      launches queued behind a sleep of the card, `benches.queued`; the
      others by CUDA events around a loop of launches), the card's name and
@@ -412,14 +425,24 @@ def host_clock(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def paired(device_fn, host_fn, runs: int = 3):
+def paired(device_fn, host_fn, runs: int = 3, what: str = None):
     """Device and host route timed alike: `runs` calls of each, alternating
     and starting with the device -> (device ms, host ms), lists in run
-    order, by the host clock."""
+    order, by the host clock.  With `what`, each call's CallRecorder
+    record is logged."""
+    from bulletproofs_tpu_torch.benches.verify_calls import CallRecorder
     dev, host = [], []
-    for _ in range(runs):
-        dev.append(host_clock(device_fn))
-        host.append(host_clock(host_fn))
+    rec = CallRecorder()
+    try:
+        for r in range(runs):
+            for name, fn, out in (("card", device_fn, dev),
+                                  ("host", host_fn, host)):
+                got = rec.run(fn)
+                out.append(got["wall_ms"])
+                if what:
+                    log(f"    {what} {name} run {r}: {rec.text(got)}")
+    finally:
+        rec.close()
     return dev, host
 
 
@@ -515,50 +538,80 @@ def msm_path_checks(what, dec, msm, imads, smi, failures):
     tolerance 0; the path's own decoded points and MSM result are among the
     outputs compared."""
     from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import msm as M
+    (raw,), (pts, sc) = dec.args, msm.args
+    waves = C.decompress_waves(raw.shape[0])
+    log(f"  {what}: kernels against their plain versions ({raw.shape[0]} "
+        f"encodings, K1 in {waves} wave(s); {pts.shape[-1]} MSM points in "
+        f"{M.pick_lanes(pts.shape[-1])} lanes):")
+    check_stages(what, (("decompress", dec.out, lambda: C.decompress(raw),
+                         lambda: C.decompress_plain(raw),
+                         raw.shape[0] * (32 + 1 + 160),
+                         raw.shape[0] * decode_mads()),)
+                 + msm_stages(pts, sc, msm.out, False), imads, smi, failures)
+
+
+def msm_stages(pts, sc, out, niels: bool):
+    """The stages of one MSM route on its inputs, for check_stages: K10,
+    then the binning launch and the whole accumulation of K3 (`niels`:
+    Z = 1 points in Niels form, the mixed addition) or K11 (points of any
+    Z), K4a and K4b; the last output compared is the route's own result
+    `out` (point (4, 10, 1), flag)."""
+    from bulletproofs_tpu_torch.ops import curve as C
     from bulletproofs_tpu_torch.ops import fold as FO
     from bulletproofs_tpu_torch.ops import msm as M
     from bulletproofs_tpu_torch.ops import scalar as S
-    (raw,), (pts, sc) = dec.args, msm.args
     N = pts.shape[-1]
     coef = S.from_bytes32(sc)
     dig = FO.digits_lanes(coef)
-    binned = M.bin_points(pts, dig)
-    slab = M.accumulate_z(pts, dig)
+    ident = C.to_coords(C.identity(1, "cpu"))
+    add = field_mads(lambda: C.add(ident, ident))
+    if niels:
+        src = C.to_niels(pts)
+        names = ("msm_bin_niels", "msm_accumulate")
+        acc, acc_plain = M.accumulate, M.accumulate_plain
+        per_add = field_mads(lambda: C.madd(ident, ident[:3]))
+    else:
+        src, per_add = pts, add
+        names = ("msm_bin", "msm_accumulate_z")
+        acc, acc_plain = M.accumulate_z, M.accumulate_z_plain
+    binned = M.bin_points(src, dig)
+    slab = acc(src, dig)
     sums = M.reduce(slab)
     lanes = slab.shape[-1]
-    add = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),) * 2))
-    waves = C.decompress_waves(raw.shape[0])
-    log(f"  {what}: kernels against their plain versions ({raw.shape[0]} "
-        f"encodings, K1 in {waves} wave(s); {N} MSM points in {lanes} "
-        f"lanes):")
-    # (name, output, kernel, plain version, bytes, multiply-adds): the
-    # first and last outputs are the path's own
-    stages = (
-        ("decompress", dec.out, lambda: C.decompress(raw),
-         lambda: C.decompress_plain(raw), raw.shape[0] * (32 + 1 + 160),
-         raw.shape[0] * decode_mads()),
+    # (name, output, kernel, plain version, bytes, multiply-adds)
+    return (
         ("digits", dig, lambda: FO.digits_lanes(coef),
          lambda: FO.digits_plain(coef[None]), coef.numel() * 8 + dig.numel(),
          18 * N),
-        ("msm_bin", binned, lambda: M.bin_points(pts, dig),
-         lambda: M.bin_points_plain(pts, dig), bin_bytes(pts, dig, binned), 0),
-        ("msm_accumulate_z", slab, lambda: M.accumulate_z(pts, dig),
-         lambda: M.accumulate_z_plain(pts, dig),
-         pts.numel() * 4 + dig.numel() + slab.numel() * 4,
-         int((dig != 0).sum()) * add),
+        (names[0], binned, lambda: M.bin_points(src, dig),
+         lambda: M.bin_points_plain(src, dig), bin_bytes(src, dig, binned),
+         0),
+        (names[1], slab, lambda: acc(src, dig), lambda: acc_plain(src, dig),
+         src.numel() * 4 + dig.numel() + slab.numel() * 4,
+         int((dig != 0).sum()) * per_add),
         ("msm_reduce", sums, lambda: M.reduce(slab),
          lambda: M.reduce_plain(slab), slab.numel() * 4 + sums.numel() * 4,
          64 * 8 * (lanes - 1) * add),
-        ("msm_horner", (msm.out[0][..., 0], msm.out[1]),
+        ("msm_horner", (out[0][..., 0], out[1]),
          lambda: M.horner(sums), lambda: M.horner_plain(sums),
          sums.numel() * 4 + 160 + 4, horner_mads()))
+
+
+def check_stages(what, stages, imads, smi, failures):
+    """Each stage's kernel against its plain version on the card (exact,
+    tolerance 0), timed by the events loop and by device time (queued),
+    with its bound; a stage is (name, the path's output, kernel, plain
+    version, bytes, multiply-adds)."""
     for name, got, kernel, plain, nbytes, mads in stages:
         want, plain_ms = time_once(plain)
         err = max_abs_err(got, want)
         ms = time_cuda(kernel, 3)
+        dev_ms = queued_ms(kernel, 20)
         b_ms, b_by = bound(nbytes, mads, imads)
         log(f"    {name}: max_abs_err {err} "
-            f"({'ok' if err == 0 else 'MISMATCH'}); {ms:.4f} ms kernel, "
+            f"({'ok' if err == 0 else 'MISMATCH'}); {ms:.4f} ms kernel "
+            f"(events loop), {dev_ms:.4f} ms device (queued), "
             f"{plain_ms:.2f} ms plain, bound {b_ms:.4f} ms ({b_by}) on {smi}")
         if err != 0:
             failures.append(f"{name} on the {what}")
@@ -649,7 +702,8 @@ def r1cs_phase(args, smi, imads, failures):
             failures.append(f"{what}: the device MSM did not run")
             return
         rist = []
-        dev_ms, host_ms = paired(fn, lambda: rist.append(on_host(fn, floor)))
+        dev_ms, host_ms = paired(fn, lambda: rist.append(on_host(fn, floor)),
+                                 what=what)
         cap = caps[0]
         msm_ms = [host_clock(lambda: cap.real(*cap.args)) for _ in range(3)]
         log(f"  {what} on the card: cold {cold:.1f} ms; then alternating "
@@ -773,7 +827,7 @@ def linear_phase(args, smi, imads, failures):
         for name, ms in timer.ms.items():
             parts[name].append(ms)
 
-    dev_ms, host_ms = paired(verify, on_host)
+    dev_ms, host_ms = paired(verify, on_host, what="linear batch")
     cap = caps[0]
     msm_ms = [host_clock(lambda: cap.real(*cap.args)) for _ in range(3)]
     log(f"  device route (forced): cold {cold:.1f} ms; then alternating with "
@@ -1222,11 +1276,153 @@ def examples_phase(args, smi, failures):
     run("mpc_multiprocess 4", lambda: mpc_multiprocess.main(4, DEVICE))
 
 
+# the kernels each MSM route launches once a call
+MSM_ROUTES = {
+    "msm_lanes_flag": ("digits", "msm_bin", "msm_accumulate_z", "msm_reduce",
+                       "msm_horner"),
+    "msm_lanes_niels_flag": ("digits", "msm_bin_niels", "msm_accumulate",
+                             "msm_reduce", "msm_horner")}
+
+
+def msm_phase(args, smi, imads, failures):
+    """14. The north-star MSM entry (the JAX package's bench.py MSM row and
+    benches/bench_msm_northstar.py) at `--msm-points` (2^16): seeded rows
+    of 64 bytes hashed to the group on the card (curve.from_uniform_bytes;
+    4,096 of them against the host C++ rist_from_uniform_bytes by their
+    encodings), msm.normalize_z, then both MSM routes with scalars below
+    2^252: equal to each other, to the host C++ rist_msm over the points'
+    encodings and to the subtract trick (one scalar + 1: the difference
+    is that point); each route's launches; K10, K3 and K11 with their
+    binning launches, K4a and K4b against their plain versions on these
+    inputs; each route timed device-resident and with the scalars'
+    upload (a warm-up, then 5 runs)."""
+    import ctypes
+
+    import numpy as np
+
+    from bulletproofs_tpu_torch.core._native import LIB
+    from bulletproofs_tpu_torch.ops import _cuda
+    from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import msm as M
+    N = args.msm_points
+    dev = torch.device(DEVICE)
+    gen = np.random.default_rng(args.seed + 60)
+    raw = gen.integers(0, 256, (N, 64), dtype=np.uint8)
+    sbytes = gen.integers(0, 256, (N, 32), dtype=np.uint8)
+    sbytes[:, 31] &= 15          # < 2^252, as bench_msm_northstar.py
+    log(f"the MSM entry, {N} points, on {smi}:")
+    got = []
+    map_ms = host_clock(lambda: got.append(C.from_uniform_bytes(raw, DEVICE)))
+    pts = got.pop()
+    norm_ms = host_clock(lambda: got.append(M.normalize_z(pts)))
+    pts1 = got.pop()
+    log(f"  set-up, once each: from_uniform_bytes {map_ms:.1f} ms, "
+        f"normalize_z {norm_ms:.1f} ms (plain PyTorch, host clock ending "
+        f"in a synchronize)")
+
+    # the hash against the host C++, by the card's encodings (K5)
+    sample = np.sort(gen.choice(N, min(4096, N), replace=False))
+    idx = torch.as_tensor(sample, device=dev)
+    enc = C.compress(pts.index_select(-1, idx).contiguous()).cpu().numpy()
+    enc1 = C.compress(pts1.index_select(-1, idx).contiguous()).cpu().numpy()
+    ext, out32 = ctypes.create_string_buffer(128), ctypes.create_string_buffer(32)
+    bad = 0
+    for j, i in enumerate(sample):
+        LIB.rist_from_uniform_bytes(raw[i].tobytes(), ext)
+        LIB.rist_compress(ext.raw, out32)
+        bad += out32.raw != enc[j].tobytes()
+    z_one = bool((pts1[2, 0] == 1).all()) and not bool(pts1[2, 1:].any())
+    same = np.array_equal(enc, enc1)
+    log(f"  {len(sample)} sampled rows: {len(sample) - bad} encodings equal "
+        f"to the host C++ rist_from_uniform_bytes; normalize_z: Z = 1 "
+        f"{'everywhere' if z_one else 'NOT everywhere'}, the same points "
+        f"{'by' if same else 'NOT by'} their encodings")
+    if bad or not z_one or not same:
+        failures.append("from_uniform_bytes / normalize_z on the card")
+
+    sc = torch.from_numpy(sbytes).to(dev)
+    inputs = {"msm_lanes_flag": pts, "msm_lanes_niels_flag": pts1}
+    outs = {}
+    for route, kernels in MSM_ROUTES.items():
+        fn = getattr(M, route)
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        outs[route] = fn(inputs[route], sc)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        want = {k: 1 for k in kernels}
+        log(f"  {route}: launches {launches} (expected {want})")
+        if launches != want:
+            failures.append(f"{route}: launches {launches}, expected {want}")
+
+    def encoding(out) -> bytes:
+        return C.lanes_to_points(out[0].cpu().numpy())[0].compress()
+
+    # the host C++ Pippenger over the points' encodings
+    all_enc = C.compress(pts).cpu().numpy().tobytes()
+    hext, ok = ctypes.create_string_buffer(128 * N), ctypes.create_string_buffer(N)
+    decoded = LIB.rist_batch_decompress(N, all_enc, hext, ok)
+    hout = ctypes.create_string_buffer(128)
+    t0 = time.perf_counter()
+    LIB.rist_msm(N, sbytes.tobytes(), hext.raw, hout)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    LIB.rist_compress(hout.raw, out32)
+    host_enc = out32.raw
+    results = {r: encoding(o) for r, o in outs.items()}
+    flags = {r: bool(o[1][0]) for r, o in outs.items()}
+    agree = (len(set(results.values())) == 1 and decoded == N
+             and results["msm_lanes_flag"] == host_enc
+             and not any(flags.values()))
+    log(f"  both routes {'equal' if agree else 'DIFFERENT'}: each other, the "
+        f"host C++ rist_msm over the {decoded} decoded encodings "
+        f"({host_ms:.1f} ms on the host), flags {flags}")
+    if not agree:
+        failures.append("MSM routes against each other and the host rist_msm")
+
+    # the subtract trick (tests/test_tpu_smoke.py): s_k + 1 at one k
+    k = 12345 % N
+    s2 = sbytes.copy()
+    v = int.from_bytes(s2[k].tobytes(), "little") + 1
+    s2[k] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    sc2 = torch.from_numpy(s2).to(dev)
+    pk = C.lanes_to_points(pts[:, :, k: k + 1].cpu().numpy())[0]
+    for route in MSM_ROUTES:
+        out2 = getattr(M, route)(inputs[route], sc2)
+        p1 = C.lanes_to_points(outs[route][0].cpu().numpy())[0]
+        p2 = C.lanes_to_points(out2[0].cpu().numpy())[0]
+        ok_k = (p2 - p1).compress() == pk.compress()
+        log(f"  {route}: msm(s + e_{k}) - msm(s) "
+            f"{'equals' if ok_k else 'DIFFERS from'} point {k}")
+        if not ok_k:
+            failures.append(f"{route}: subtract trick")
+
+    for route in MSM_ROUTES:
+        log(f"  {route}: kernels against their plain versions ({N} points "
+            f"in {M.pick_lanes(N)} lanes):")
+        check_stages(f"MSM entry's {route}",
+                     msm_stages(inputs[route], sc, outs[route],
+                                route == "msm_lanes_niels_flag"),
+                     imads, smi, failures)
+
+    for route in MSM_ROUTES:
+        fn, p = getattr(M, route), inputs[route]
+        for how, scalars in (("device-resident", lambda: sc),
+                             ("with the scalars' upload",
+                              lambda: torch.from_numpy(sbytes).to(dev))):
+            host_clock(lambda: fn(p, scalars()))                  # warm-up
+            ms = [host_clock(lambda: fn(p, scalars())) for _ in range(5)]
+            best, med = min(ms), statistics.median(ms)
+            log(f"  MSM {N} {route} {how}: runs "
+                f"{[round(x, 4) for x in ms]} ms, median {med:.4f}, best "
+                f"{best:.4f} -> {N / med * 1e3:,.0f} points/s at the median, "
+                f"{N / best * 1e3:,.0f} at the best on {smi}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--total", type=int, default=8192)
     ap.add_argument("--prove-runs", type=int, default=3)
-    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--runs", type=int, default=12)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--agg-total", type=int, default=256)
     ap.add_argument("--agg-runs", type=int, default=3)
@@ -1237,6 +1433,7 @@ def main() -> int:
     ap.add_argument("--sharded-points", type=int, default=1 << 16)
     ap.add_argument("--example-batch", type=int, default=256)
     ap.add_argument("--example-k", type=int, default=8192)
+    ap.add_argument("--msm-points", type=int, default=1 << 16)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1254,6 +1451,7 @@ def main() -> int:
     from bulletproofs_tpu_torch.ops import fixed_msm as FM
     from bulletproofs_tpu_torch.benches import field_kernels as FK
     from bulletproofs_tpu_torch.benches import fixed_msm_shapes as FS
+    from bulletproofs_tpu_torch.benches import verify_calls as VC
     from bulletproofs_tpu_torch.ops import fold as FO
     from bulletproofs_tpu_torch.ops import msm as M
     from bulletproofs_tpu_torch.ops import prover_stages as PS
@@ -1929,16 +2127,22 @@ def main() -> int:
             f"package runs both in XLA)")
 
     # -- 6. the verifier's timing ------------------------------------------------------
-    times = []
+    # each call recorded (CallRecorder), the stages of verify_batch by the
+    # host clock: _serialize, each sub-batch's C++ replay, each _upload, the
+    # launches of K1 and of the fused tail, and the final flag sync (from
+    # the last sub-batch's end to verify_batch's return); "outside" is the
+    # caller's share of the wall (its transcripts, the synchronize)
+    log(f"heap before the timed verify calls: {VC.heap_census()}")
     verify(proofs, vcss, 14)                                      # warm-up
-    for r in range(args.runs):
-        t0 = time.time()
-        verify(proofs, vcss, 15 + r)
-        times.append(time.time() - t0)
+    times = [got["wall_ms"] / 1e3 for got in VC.record_verify_calls(
+        bv, lambda r: verify(proofs, vcss, 15 + r), args.runs, log)]
+    log(f"heap after them: {VC.heap_census()}")
     best = min(times)
-    log(f"verify_batch {len(proofs)} proofs: best {best * 1e3:.1f} ms of "
-        f"{args.runs} -> {len(proofs) / best:.0f} proofs/s "
-        f"(runs {[round(t * 1e3, 1) for t in times]} ms) on {smi}")
+    med = statistics.median(times)
+    log(f"verify_batch {len(proofs)} proofs: best {best * 1e3:.1f} ms, median "
+        f"{med * 1e3:.1f} ms of {args.runs} -> {len(proofs) / best:.0f} "
+        f"proofs/s (runs {[round(t * 1e3, 1) for t in times]} ms; slowest "
+        f"{max(times) / med:.2f}x the median) on {smi}")
 
     # where the verifier's time goes: the host stages alone, beside the kernels
     plen = 32 * (9 + 2 * lg)
@@ -2304,6 +2508,7 @@ def main() -> int:
         "blinds": blinds, "bp16": bp16, "bv16": bv16, "m16": m16,
         "vals16": vals16, "blinds16": blinds16, "labels16": labels16})
     examples_phase(args, smi, failures)
+    msm_phase(args, smi, imads, failures)
     if failures:
         log("FAILED:", failures)
         return 1

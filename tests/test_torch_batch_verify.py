@@ -168,9 +168,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     them on the CPU, prove 2 with the batch prover's device-transcript
     route, then 3 aggregated m = 2 proofs on that route, verified on the
     chunked route over two chunks; verify an R1CS shuffle on the device
-    route, batch-verify two linear proofs on theirs and run the MXU
-    probe's chains (plain versions); neither jax nor bulletproofs_tpu
-    gets imported."""
+    route, batch-verify two linear proofs on theirs, run the MXU probe's
+    chains and hash 4 rows to the group for both MSM routes (plain
+    versions); neither jax nor bulletproofs_tpu gets imported."""
     code = """
 import random, sys
 import bulletproofs_tpu_torch as T
@@ -242,6 +242,15 @@ from bulletproofs_tpu_torch.benches import accumulate_z as AZB
 from bulletproofs_tpu_torch.ops import msm as MSM
 pts, dig = AZB.edge_inputs("fewer points than lanes", 1, "cpu")
 assert MSM.bin_points(pts, dig)[1].shape == (64, 8, 1, 32)
+# the north-star MSM entry: hash to the group, normalize_z, both routes
+import numpy as np, torch
+from bulletproofs_tpu_torch.ops import curve as CV
+pts = CV.from_uniform_bytes(np.arange(256, dtype=np.uint8).reshape(4, 64),
+                            device="cpu")
+sc = MSM.bytes_tensor(bytes(range(1, 129)), "cpu")
+assert torch.equal(
+    CV.compress_plain(MSM.msm_lanes_niels_flag(MSM.normalize_z(pts), sc)[0]),
+    CV.compress_plain(MSM.msm_lanes_flag(pts, sc)[0]))
 # the K1 / K14 bench's helpers and the chunked-verify bench
 from bulletproofs_tpu_torch.benches import field_kernels as FKB
 from bulletproofs_tpu_torch.benches import chunked_verify as CVB
@@ -256,3 +265,39 @@ print("isolated")
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr
     assert "isolated" in res.stdout
+
+
+def test_recorded_verify_calls_keep_verdicts_and_transcripts():
+    """benches/verify_calls.record_verify_calls wraps the fused route's
+    stages and records each call without changing what the call does: the
+    transcripts after a recorded call equal an unrecorded call's, every
+    stage is timed (one replay a sub-batch, three uploads a sub-batch),
+    and the verifier and the ops modules are restored afterwards."""
+    from bulletproofs_tpu_torch.benches import verify_calls as VC
+    from bulletproofs_tpu_torch.ops import curve as C
+    from bulletproofs_tpu_torch.ops import verify as V
+    wires, vcss, labels = _make(3, 8, 1, 40)
+    proofs = [T.RangeProof.from_bytes(w) for w in wires]
+    bp = T.BulletproofGens(8, 1)
+    bv = BatchVerifier(bp, T_PC, n=8, m=1, device="cpu")
+    after = []
+
+    def call(r):
+        ts = [T.Transcript(l) for l in labels]
+        bv.verify_batch(proofs, vcss, ts, rng=Rng(41))
+        after.append([t.strobe.buf.raw for t in ts])
+
+    decompress, fused_tail = C.decompress, V.fused_tail
+    recs = VC.record_verify_calls(bv, call, 1, lambda *a: None, cuda=False)
+    call(None)
+    assert after[0] == after[1]
+    (rec,) = recs
+    st = rec["stages"]
+    assert len(st["replay"]) == 1 and len(st["_upload"]) == 3
+    assert set(st) == {"_serialize", "replay", "_upload", "K1 launch",
+                       "fused_tail launches", "flag sync",
+                       "outside verify_batch"}
+    assert rec["wall_ms"] >= sum(sum(v) for k, v in st.items()
+                                 if k in ("_serialize", "replay"))
+    assert "replay" not in bv.__dict__ and "verify_batch" not in bv.__dict__
+    assert C.decompress is decompress and V.fused_tail is fused_tail

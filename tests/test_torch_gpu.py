@@ -880,3 +880,52 @@ def test_msm_rows_compressed_on_card_equals_the_cpp_rows(cuda, consttime):
     assert _cuda.LAUNCHES[kernel] == before + 1
     assert np.array_equal(got, FM.msm_rows_compressed(
         FM.FixedBaseTables(bases, None), coef, consttime=consttime))
+
+
+def _uniform_rows(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, (n, 64),
+                                                dtype=np.uint8)
+
+
+def test_from_uniform_bytes_on_card_equals_cpu(cuda):
+    """Hash to the group (plain PyTorch on both devices) and normalize_z:
+    the card's limbs equal the CPU's."""
+    raw = _uniform_rows(1000, 93)
+    raw[0] = 0
+    raw[1] = 0xFF
+    got = C.from_uniform_bytes(raw)
+    assert got.device.type == "cuda"
+    want = C.from_uniform_bytes(raw, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(M.normalize_z(got).cpu(), M.normalize_z(want))
+
+
+@pytest.mark.parametrize("route, kernels", [
+    ("msm_lanes_flag", ("digits", "msm_bin", "msm_accumulate_z",
+                        "msm_reduce", "msm_horner")),
+    ("msm_lanes_niels_flag", ("digits", "msm_bin_niels", "msm_accumulate",
+                              "msm_reduce", "msm_horner"))])
+def test_msm_routes_at_2_12_on_card(cuda, route, kernels):
+    """Each MSM route over 2^12 hashed points (normalize_z'd for the Niels
+    route) on the card: one launch of each of its kernels, the limbs and
+    flag of its plain version (the same route on CPU tensors), and the
+    other route's point."""
+    n = 1 << 12
+    pts = C.from_uniform_bytes(_uniform_rows(n, 94))
+    sb = np.random.default_rng(95).integers(0, 256, (n, 32), dtype=np.uint8)
+    sb[:, 31] &= 15
+    sc = torch.from_numpy(sb).to(cuda)
+    other = "msm_lanes_niels_flag" if route == "msm_lanes_flag" \
+        else "msm_lanes_flag"
+    ins = {"msm_lanes_flag": pts, "msm_lanes_niels_flag": M.normalize_z(pts)}
+    before = {k: _cuda.LAUNCHES[k] for k in _cuda.LAUNCHES}
+    out, flag = getattr(M, route)(ins[route], sc)
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == {k: 1 for k in kernels}
+    want, wflag = getattr(M, route)(ins[route].cpu(), sc.cpu())
+    assert torch.equal(out.cpu(), want) and torch.equal(flag.cpu(), wflag)
+    alt, _ = getattr(M, other)(ins[other], sc)
+    assert torch.equal(C.compress(out), C.compress(alt))
+    assert not bool(flag[0])

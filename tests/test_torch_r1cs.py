@@ -220,3 +220,35 @@ def test_module_surface_matches_jax():
     assert sorted(TR.__all__) == sorted(JR.__all__)
     assert T.r1cs is TR and T.R1CSError is T.errors.R1CSError
     assert T.range_proof_mpc.__all__ == J.range_proof_mpc.__all__
+
+
+def _flatten_gadget(mod, scalar, transcript, commitments):
+    """A verifier of `mod` with committed variables, multipliers, allocated
+    variables and constants in its constraints (every kind of term, a
+    variable twice in one constraint), before any randomized phase."""
+    v = mod.Verifier(transcript(b"port r1cs flatten"))
+    a, b, c = v.commit_many(commitments)
+    l, r, o = v.multiply(a - scalar(3), b + a + a)
+    v.constrain(o - c * scalar(5) + scalar(7))
+    x, y, _ = v.multiply(l + r, c * scalar(2) - 1)
+    v.constrain(x - y)
+    p = v.allocate()
+    q = v.allocate()
+    v.constrain(p + q - o)
+    return v
+
+
+def test_flattened_constraints_equal_jax():
+    """The verifier's compact constraint store folds to the JAX verifier's
+    weights: the Scalar form and the packed form, the padding included."""
+    ins, _, _ = port_prove(3, 24)
+    tv = _flatten_gadget(TVM, T.Scalar, T.Transcript, ins)
+    jv = _flatten_gadget(JVM, J.Scalar, J.Transcript, ins)
+    z = 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321
+    got = tv.flattened_constraints(T.Scalar(z))
+    want = jv.flattened_constraints(J.Scalar(z))
+    for g, w in zip(got[:4], want[:4]):
+        assert [s.v for s in g] == [s.v for s in w]
+    assert got[4].v == want[4].v
+    assert tv.flattened_constraints_packed(T.Scalar(z), 8)[:3] \
+        == jv.flattened_constraints_packed(J.Scalar(z), 8)[:3]
