@@ -58,10 +58,11 @@ __device__ __forceinline__ sc sc_cond_sub_l(const int64_t t[9]) {
     d[k] &= SC_MASK;
     d[k + 1] += c;
   }
-  const bool keep = d[8] < 0;
+  const int64_t keep = d[8] >> 63;                 // all ones when t < l
   sc r;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) r.v[k] = (uint32_t)(keep ? t[k] : d[k]);
+  for (int k = 0; k < 9; ++k)
+    r.v[k] = (uint32_t)((t[k] & keep) | (d[k] & ~keep));
   return r;
 }
 

@@ -31,9 +31,10 @@ CUDA_DIR = os.path.join(BUILD_DIR, "cuda")
 # library -> its .cu source; headers shared by all sources are hashed too
 SOURCES = {"decompress": "decompress.cu", "emit": "emit.cu", "msm": "msm.cu",
            "compress": "compress.cu", "fixed_msm": "fixed_msm.cu",
-           "fold": "fold.cu", "keccak": "keccak.cu", "fmul13": "fmul13.cu"}
+           "fold": "fold.cu", "keccak": "keccak.cu", "fmul13": "fmul13.cu",
+           "scalar": "scalar.cu"}
 HEADERS = ("fe25519.cuh", "sc25519.cuh", "common.cuh", "emit.cuh",
-           "reduce.cuh", "keccak.cuh", "fmul13.cuh")
+           "reduce.cuh", "keccak.cuh", "fmul13.cuh", "sc_vec.cuh")
 
 # kernel name -> number of launches since the last reset_counts()
 LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,
@@ -45,7 +46,8 @@ LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,
                             "msm_bin_niels": 0,
                             "fixed_accumulate2": 0,
                             "keccak_f1600": 0, "sinv": 0, "fmul13_chain": 0,
-                            "fmul13_chain_mma": 0}
+                            "fmul13_chain_mma": 0, "sc_mul": 0, "sc_add": 0,
+                            "sc_tree_sum": 0, "chacha_scalars": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

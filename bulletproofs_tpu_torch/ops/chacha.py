@@ -9,9 +9,14 @@ reduced mod l (`ops/scalar.from_wide_bytes`).  Same key, same blocks and
 same reduction as the JAX package, so the same rng bytes give the same
 scalars.
 
-Plain PyTorch: the JAX package runs this as XLA vector code, not as a
-Pallas kernel.  The 32-bit words live in int64 tensors and every add and
-rotate is masked back to 32 bits, because torch's uint32 lacks shifts.
+`random_scalars` is kernel K20 (csrc/scalar.cu chacha_scalars: a thread
+a draw makes its block from the key, passed as launch arguments, and
+reduces it mod l) on a CUDA device, `random_scalars_plain` on the CPU:
+`keystream_blocks` in plain PyTorch, then `scalar.from_wide_bytes_plain`.
+The JAX package runs this as XLA vector code, not as a Pallas kernel.
+In the plain version the 32-bit words live in int64 tensors and every
+add and rotate is masked back to 32 bits, because torch's uint32 lacks
+shifts.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _cuda
 from . import scalar as S
 
 _MASK = 0xFFFFFFFF
@@ -40,14 +46,20 @@ def _quarter(x, a, b, c, d):
     x[b] = _rotl(x[b] ^ x[c], 7)
 
 
-def keystream_blocks(key: bytes, n: int, device) -> torch.Tensor:
-    """32-byte key -> (n, 64) uint8 keystream blocks with nonce 0 and block
-    counters 0 .. n - 1 (chacha._keystream_blocks)."""
+def _key_words(key: bytes, n: int):
+    """The key's 8 little-endian words, after checking the key and the
+    block count."""
     if len(key) != 32:
         raise ValueError("ChaCha20 takes a 32-byte key")
     if n > 1 << 32:
         raise ValueError("at most 2^32 blocks per key")
-    words = [int(w) for w in np.frombuffer(key, dtype="<u4")]
+    return [int(w) for w in np.frombuffer(key, dtype="<u4")]
+
+
+def keystream_blocks(key: bytes, n: int, device) -> torch.Tensor:
+    """32-byte key -> (n, 64) uint8 keystream blocks with nonce 0 and block
+    counters 0 .. n - 1 (chacha._keystream_blocks)."""
+    words = _key_words(key, n)
     ctr = torch.arange(n, dtype=torch.int64, device=device)
     init = ([torch.full_like(ctr, w) for w in _SIGMA + words] + [ctr]
             + [torch.zeros_like(ctr)] * 3)
@@ -67,7 +79,20 @@ def keystream_blocks(key: bytes, n: int, device) -> torch.Tensor:
     return by.reshape(64, n).T.to(torch.uint8).contiguous()
 
 
+def random_scalars_plain(key: bytes, n: int, device) -> torch.Tensor:
+    return S.from_wide_bytes_plain(keystream_blocks(key, n, device))
+
+
 def random_scalars(key: bytes, n: int, device) -> torch.Tensor:
     """32-byte key -> (9, n) canonical scalars mod l, each reduced from one
-    512-bit keystream block (chacha.random_scalars)."""
-    return S.from_wide_bytes(keystream_blocks(key, n, device))
+    512-bit keystream block (chacha.random_scalars): kernel K20 on a CUDA
+    device, one launch."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return random_scalars_plain(key, n, device)
+    words = _key_words(key, n)
+    out = torch.empty((S.L, n), dtype=torch.int64, device=device)
+    if n:
+        _cuda.launch("chacha_scalars", "scalar", "bp_chacha_scalars", None,
+                     0, 0, *words, out, n)
+    return out

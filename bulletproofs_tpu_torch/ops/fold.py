@@ -45,7 +45,7 @@ def _vectors(x: torch.Tensor, what: str):
 # -- K8: fold ----------------------------------------------------------------------
 
 def fold_plain(x, y, u, v) -> torch.Tensor:
-    return S.sadd(S.smul(x, u), S.smul(y, v))
+    return S.sadd_plain(S.smul_plain(x, u), S.smul_plain(y, v))
 
 
 def fold_lanes(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor,
@@ -105,7 +105,7 @@ def fold_pair(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
 # -- K9: smul ----------------------------------------------------------------------
 
 def smul_plain(x, mask, m1, m0) -> torch.Tensor:
-    return S.smul(x, torch.where(mask[:, None, None], m1, m0))
+    return S.smul_plain(x, torch.where(mask[:, None, None], m1, m0))
 
 
 def smul_lanes(x: torch.Tensor, mask: torch.Tensor, m1: torch.Tensor,

@@ -16,8 +16,9 @@ witness rows (V, A, S, T_1 / T_2) take K6's one-hot form (the default
 them to the vartime `rist_msm_rows`).  The
 mod-l vector math runs on canonical scalars: every digit stream through
 kernel K10 and the IPP fold through K8 / K9 (ops/fold.py, where the JAX
-package calls ops/fold_pallas.py), the rest in plain PyTorch
-(ops/scalar.py, where the JAX package's `_vmul` is XLA).
+package calls ops/fold_pallas.py), the rest through ops/scalar.py and
+ops/chacha.py, one launch of K17-K20 a call on a card (where the JAX
+package's vector code is XLA).
 
 Protocol math mirrors the reference party / dealer / IPP prover
 (src/range_proof/party.rs:182-237, dealer.rs:226-293,
@@ -414,8 +415,8 @@ def round_emit_dyn(a, b, gw, hw, w, em):
     """round_digits_compact with runtime gather maps -> (dig_l, dig_r), each
     ((N + 1) * 64, P) over the base orders em["sel_l"] / em["sel_r"].  The
     six vector products of the round are one `smul` over their rows
-    stacked (the JAX package makes six; on the card each plain `smul` is
-    hundreds of launches), the two cross terms one tree sum."""
+    stacked (the JAX package makes six), the two cross terms one tree
+    sum."""
     N, P = a.shape[0], a.shape[-1]
     h = em["hi_sel"].shape[0]
     x = torch.cat([a, a.index_select(0, em["idx_partner"]),

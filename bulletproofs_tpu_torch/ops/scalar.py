@@ -1,6 +1,7 @@
 """Arithmetic mod l = 2^252 + 27742317777372353535851937790883648493 on
-int64 tensors: the plain PyTorch version of csrc/sc25519.cuh (the JAX
-package's ops/vec_scalar.py).
+int64 tensors (the JAX package's ops/vec_scalar.py): the wrappers of
+kernels K14 and K17-K20 with their plain PyTorch versions, the twins of
+csrc/sc25519.cuh and csrc/sc_vec.cuh.
 
 Layout (ops/limbs.py): (..., 9, N) limbs of 29 bits, kept CANONICAL
 (exact limbs, value < l) between operations, so sums never need a lazy
@@ -10,8 +11,18 @@ a b R^-1 mod l.  Callers either work in the Montgomery domain
 (`to_mont` / `from_mont`, as the emit kernel does) or use `smul`, which
 multiplies plain canonical values.
 
-`sinv` (the inverse mod l) is the one wrapper of a kernel here: K14 in
-csrc/fold.cu for a CUDA tensor, `sinv_plain` for a CPU tensor.
+Kernels (csrc/scalar.cu, csrc/fold.cu), one launch per call:
+`mont_mul` and `smul` are K17 sc_mul (`to_mont`, `from_mont` and
+`sreduce` by composition), `sadd` and `sneg` K18 sc_add, `tree_sum` K19
+sc_tree_sum, `from_wide_bytes` K20 chacha_scalars (its wide form; the
+same kernel draws ops/chacha.random_scalars) and `sinv` K14.  Each
+wrapper runs its plain version (`*_plain`) for a CPU tensor and launches
+its kernel for a CUDA tensor.  K17 and K18 broadcast like the plain
+versions: each operand goes to the kernel with its strides, 0 where it
+is broadcast, and the output is a fresh contiguous tensor of the
+broadcast shape.  A wrapper never reads a tensor's value on the host.
+The plain versions call only plain versions: they are the oracles that
+the kernels (K2, K8, K9 and K14 too) are held to on the card.
 
 Column bound of `mont_mul`: each of the 9 rounds adds at most two 58-bit
 products to a limb position, 9 * 2^59 < 2^63, so int64 holds it.
@@ -31,6 +42,7 @@ R_BITS = SC_BITS * SC_LIMBS
 LINV = (-pow(ELL, -1, 1 << SC_BITS)) % (1 << SC_BITS)     # -l^-1 mod 2^29
 R2 = pow(2, 2 * R_BITS, ELL)                              # R^2 mod l
 ONE_M = pow(2, R_BITS, ELL)                               # R mod l (1 in Montgomery form)
+W256_M = pow(2, 256 + R_BITS, ELL)                        # 2^256 R mod l
 
 _CONSTS = {}
 
@@ -60,7 +72,63 @@ def cond_sub_l(t: torch.Tensor) -> torch.Tensor:
     return torch.where((d[..., L - 1:, :] < 0), t, d)
 
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+# -- the kernels' operands -----------------------------------------------------
+
+def _row_groups(shape, views):
+    """The leading dimensions of `shape` merged into at most two row
+    groups, each a size and one stride per view (dims merge while every
+    view's strides allow: its outer stride = inner stride x inner size)
+    -> ((R0, R1), [(s0, s1) per view])."""
+    groups = []
+    for d, size in enumerate(shape[:-2]):
+        if size == 1:
+            continue
+        st = [v.stride(d) for v in views]
+        if groups and all(g == s * size for g, s in zip(groups[-1][1], st)):
+            groups[-1] = [groups[-1][0] * size, st]
+        else:
+            groups.append([size, st])
+    if len(groups) > 2:
+        raise ValueError(f"scalar kernels take at most two row dimensions "
+                         f"that do not merge, got shape {tuple(shape)}")
+    while len(groups) < 2:
+        groups.insert(0, [1, [0] * len(views)])
+    (r0, s0), (r1, s1) = groups
+    return (r0, r1), list(zip(s0, s1))
+
+
+def _launch_elementwise(kernel: str, fn: str, code: int, a, b):
+    """K17 / K18 on CUDA operands a and b (b None for a unary op): shapes
+    (..., 9, P) broadcast against each other, every operand passed with
+    its (row0, row1, limb, column) strides -> a fresh contiguous output."""
+    ops = [a] if b is None else [a, b]
+    for t in ops:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn}: expected CUDA tensors, got one on "
+                             f"{t.device}")
+        if t.dtype != torch.int64:
+            raise TypeError(f"{fn}: expected torch.int64, got {t.dtype}")
+        if t.dim() < 2 or t.shape[-2] != L:
+            raise ValueError(f"{fn}: expected (..., {L}, P) limbs, got "
+                             f"{tuple(t.shape)}")
+    shape = torch.broadcast_shapes(*(t.shape for t in ops))
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    views = [t.expand(shape) for t in ops]
+    (r0, r1), rows = _row_groups(shape, views)
+    args = []
+    for t, v, (s0, s1) in zip(ops, views, rows):
+        args += [t, s0, s1, v.stride(-2), v.stride(-1)]
+    if b is None:
+        args += [None, 0, 0, 0, 0]
+    _cuda.launch(kernel, "scalar", fn, *args, out, r0, r1, shape[-1], code)
+    return out
+
+
+# -- K17: products -------------------------------------------------------------
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Canonical a, b -> canonical a b R^-1 mod l (CIOS Montgomery)."""
     a, b = torch.broadcast_tensors(a, b)
     ell = const(ELL, a.device)
@@ -76,31 +144,74 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cond_sub_l(normalize(t[..., :L, :]))
 
 
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < R, b < l, (..., 9, P) broadcast against each other -> canonical
+    a b R^-1 mod l: kernel K17 (mode 0) on CUDA tensors."""
+    if a.device.type == "cpu":
+        return mont_mul_plain(a, b)
+    return _launch_elementwise("sc_mul", "bp_sc_mul", 0, a, b)
+
+
+def smul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return mont_mul_plain(mont_mul_plain(a, b), const(R2, a.device))
+
+
+def smul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Canonical a, b -> a b mod l: kernel K17 (mode 1, both Montgomery
+    products in one launch) on CUDA tensors."""
+    if a.device.type == "cpu":
+        return smul_plain(a, b)
+    return _launch_elementwise("sc_mul", "bp_sc_mul", 1, a, b)
+
+
+def to_mont_plain(x: torch.Tensor) -> torch.Tensor:
+    return mont_mul_plain(x, const(R2, x.device))
+
+
 def to_mont(x: torch.Tensor) -> torch.Tensor:
     """x (any value < 2^256, exact limbs) -> x R mod l."""
     return mont_mul(x, const(R2, x.device))
+
+
+def from_mont_plain(x: torch.Tensor) -> torch.Tensor:
+    return mont_mul_plain(x, const(1, x.device))
 
 
 def from_mont(x: torch.Tensor) -> torch.Tensor:
     return mont_mul(x, const(1, x.device))
 
 
-def smul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Canonical a, b -> a b mod l."""
-    return mont_mul(mont_mul(a, b), const(R2, a.device))
-
-
-def sadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return cond_sub_l(normalize(a + b))
-
-
-def sneg(a: torch.Tensor) -> torch.Tensor:
-    return cond_sub_l(normalize(const(ELL, a.device) - a))
+def sreduce_plain(x: torch.Tensor) -> torch.Tensor:
+    return from_mont_plain(to_mont_plain(x))
 
 
 def sreduce(x: torch.Tensor) -> torch.Tensor:
     """Exact limbs of any value < 2^256 -> the value mod l."""
     return from_mont(to_mont(x))
+
+
+# -- K18: sums -----------------------------------------------------------------
+
+def sadd_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return cond_sub_l(normalize(a + b))
+
+
+def sadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Canonical a, b -> a + b mod l: kernel K18 (op 0) on CUDA tensors."""
+    if a.device.type == "cpu":
+        return sadd_plain(a, b)
+    return _launch_elementwise("sc_add", "bp_sc_add", 0, a, b)
+
+
+def sneg_plain(a: torch.Tensor) -> torch.Tensor:
+    return cond_sub_l(normalize(const(ELL, a.device) - a))
+
+
+def sneg(a: torch.Tensor) -> torch.Tensor:
+    """Canonical a -> -a mod l: kernel K18 (op 1) on a CUDA tensor."""
+    if a.device.type == "cpu":
+        return sneg_plain(a)
+    return _launch_elementwise("sc_add", "bp_sc_add", 1, a, None)
 
 
 def reduce_top(x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +225,8 @@ def reduce_top(x: torch.Tensor) -> torch.Tensor:
                                      const(ELL, x.device), 0))
 
 
+# -- K14: inversion ------------------------------------------------------------
+
 # bits of the Fermat exponent l - 2, most significant first
 _INV_BITS = [(ELL - 2) >> i & 1
              for i in range((ELL - 2).bit_length() - 1, -1, -1)]
@@ -126,13 +239,13 @@ def sinv_plain(x: torch.Tensor) -> torch.Tensor:
     K14 (csrc/sc25519.cuh sc_invert) computes the same inverse by another
     algorithm, a safegcd of fixed length; both are exact and canonical, so
     their limbs agree, and each checks the other."""
-    xm = to_mont(x)
+    xm = to_mont_plain(x)
     acc = xm
     for bit in _INV_BITS[1:]:
-        acc = mont_mul(acc, acc)
+        acc = mont_mul_plain(acc, acc)
         if bit:
-            acc = mont_mul(acc, xm)
-    return from_mont(acc)
+            acc = mont_mul_plain(acc, xm)
+    return from_mont_plain(acc)
 
 
 def sinv(x: torch.Tensor) -> torch.Tensor:
@@ -150,18 +263,38 @@ def sinv(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# -- K20 (wide form): 64-byte values mod l -------------------------------------
+
 def from_bytes32(raw: torch.Tensor) -> torch.Tensor:
     """(N, 32) uint8 little-endian -> (9, N) exact limbs (value < 2^256)."""
     return sc_from_bytes(raw)
 
 
-def from_wide_bytes(raw: torch.Tensor) -> torch.Tensor:
-    """(N, 64) uint8 -> (9, N) canonical (lo + 2^256 hi) mod l
-    (vec_scalar.from_wide_bytes; the host's rp_reduce_wide)."""
+def from_wide_bytes_plain(raw: torch.Tensor) -> torch.Tensor:
     lo = from_bytes32(raw[:, :32].contiguous())
     hi = from_bytes32(raw[:, 32:].contiguous())
-    return sadd(smul(hi, const(pow(2, 256, ELL), raw.device)), sreduce(lo))
+    return sadd_plain(smul_plain(hi, const(pow(2, 256, ELL), raw.device)),
+                      sreduce_plain(lo))
 
+
+def from_wide_bytes(raw: torch.Tensor) -> torch.Tensor:
+    """(N, 64) uint8 of any strides -> (9, N) canonical (lo + 2^256 hi) mod
+    l (vec_scalar.from_wide_bytes; the host's rp_reduce_wide): kernel K20's
+    wide form on a CUDA tensor."""
+    if raw.dim() != 2 or raw.shape[1] != 64 or raw.dtype != torch.uint8:
+        raise ValueError(f"from_wide_bytes takes an (N, 64) uint8 tensor, "
+                         f"got {raw.dtype} {tuple(raw.shape)}")
+    if raw.device.type == "cpu":
+        return from_wide_bytes_plain(raw)
+    n = raw.shape[0]
+    out = torch.empty((L, n), dtype=torch.int64, device=raw.device)
+    if n:
+        _cuda.launch("chacha_scalars", "scalar", "bp_chacha_scalars", raw,
+                     raw.stride(0), raw.stride(1), *[0] * 8, out, n)
+    return out
+
+
+# -- sequences and K19: sums over rows -----------------------------------------
 
 def power_sequence(y: torch.Tensor, n: int) -> torch.Tensor:
     """y (9, P) canonical -> (n, 9, P): [1, y, .., y^(n-1)]
@@ -176,14 +309,32 @@ def power_sequence(y: torch.Tensor, n: int) -> torch.Tensor:
     return seq[:n].contiguous()
 
 
-def tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """(n, 9, P) canonical -> (9, P) their sum mod l, by halving over the
-    leading axis (vec_scalar.tree_sum)."""
+def tree_sum_plain(v: torch.Tensor) -> torch.Tensor:
     while v.shape[0] > 1:
         h = v.shape[0] // 2
-        lo = sadd(v[:h], v[h: 2 * h])
+        lo = sadd_plain(v[:h], v[h: 2 * h])
         v = torch.cat([lo, v[2 * h:]]) if v.shape[0] % 2 else lo
     return v[0]
+
+
+def tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """(n, 9, P) canonical, n >= 1 -> (9, P) their sum mod l
+    (vec_scalar.tree_sum): by halving over the leading axis on the CPU,
+    kernel K19 (a column's rows in 8 slices, then their partial sums) on a
+    CUDA tensor; the sum is canonical, so the order does not show."""
+    if v.dim() != 3 or v.shape[1] != L or v.shape[0] == 0:
+        raise ValueError(f"tree_sum takes an (n >= 1, {L}, P) tensor, got "
+                         f"{tuple(v.shape)}")
+    if v.device.type == "cpu":
+        return tree_sum_plain(v)
+    if v.dtype != torch.int64:
+        raise TypeError(f"tree_sum: expected torch.int64, got {v.dtype}")
+    n, _, P = v.shape
+    out = torch.empty((L, P), dtype=torch.int64, device=v.device)
+    if P:
+        _cuda.launch("sc_tree_sum", "scalar", "bp_sc_tree_sum", v,
+                     v.stride(0), v.stride(1), v.stride(2), out, n, P)
+    return out
 
 
 # 64 nibbles: nibble w covers bits [4w, 4w + 4), inside one limb or across

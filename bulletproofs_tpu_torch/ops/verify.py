@@ -210,7 +210,8 @@ def _bits_product(seed, factors, lg):
     lg doublings of the row axis (verify_stages._doubling_powers_from_usq)."""
     rows = seed[None]
     for j in range(lg):
-        rows = torch.cat([rows, S.mont_mul(rows, factors[lg - 1 - j])], dim=0)
+        rows = torch.cat([rows, S.mont_mul_plain(rows, factors[lg - 1 - j])],
+                         dim=0)
     return rows
 
 
@@ -224,13 +225,13 @@ def emit_plain(n: int, m: int, blk: torch.Tensor):
     dev = blk.device
     raw = torch.zeros((T * EMIT_TILE, nblk, 32), dtype=torch.uint8, device=dev)
     raw[:P] = blk
-    v = S.to_mont(S.from_bytes32(raw.reshape(-1, 32))).reshape(
+    v = S.to_mont_plain(S.from_bytes32(raw.reshape(-1, 32))).reshape(
         SC_LIMBS, T * EMIT_TILE, nblk)
     u = [v[:, :, k] for k in range(lg)]
     r, x, rc, z, y_inv, neg_a, neg_b, allinv = (v[:, :, lg + j]
                                                 for j in range(8))
     one = S.const(S.ONE_M, dev).expand_as(r)
-    mm = S.mont_mul
+    mm = S.mont_mul_plain
 
     pres = [one]
     for k in range(1, lg):
@@ -262,23 +263,24 @@ def emit_plain(n: int, m: int, blk: torch.Tensor):
         rzz_zj.append(mm(rzz, zp))
         zp = mm(zp, z)
     dyn = torch.stack(slots, dim=-1)[:, :P]                 # (9, P, n_dyn)
-    digits = S.signed_digits(S.from_mont(dyn.reshape(SC_LIMBS, P * n_dyn)))
+    digits = S.signed_digits(S.from_mont_plain(
+        dyn.reshape(SC_LIMBS, P * n_dyn)))
 
     # static coefficients per (i, proof): (nm, 9, P') rows
     t = _bits_product(t0, u_sq, lg)
     t_rev = _bits_product(t0r, u_inv_sq, lg)
     yp = _bits_product(one, ypow2[::-1], lg)
-    g = S.sadd(S.sneg(rz), mm(neg_a, t))
+    g = S.sadd_plain(S.sneg_plain(rz), mm(neg_a, t))
     pw = _pow2_mont(n).to(dev, torch.int64)[:, :, None]     # (n, 9, 1)
     term1 = torch.cat([mm(zj[None], pw) for zj in rzz_zj])  # (nm, 9, P')
-    h = S.sadd(rz, mm(yp, S.sadd(term1, mm(neg_b, t_rev))))
+    h = S.sadd_plain(rz, mm(yp, S.sadd_plain(term1, mm(neg_b, t_rev))))
 
     def tile_sums(rows):
         rows = rows.reshape(nm, SC_LIMBS, T, EMIT_TILE)
         acc = rows[..., 0]
         for q in range(1, EMIT_TILE):
-            acc = S.sadd(acc, rows[..., q])
-        return S.from_mont(acc).permute(2, 0, 1)            # (T, nm, 9)
+            acc = S.sadd_plain(acc, rows[..., q])
+        return S.from_mont_plain(acc).permute(2, 0, 1)      # (T, nm, 9)
 
     partial = torch.stack([tile_sums(g), tile_sums(h)], dim=1)
     return digits, partial.to(torch.int32).contiguous()

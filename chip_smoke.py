@@ -14,7 +14,10 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      transcript (one warm-up, then the best of `--prove-runs`), with the
      launch counts of one run and a breakdown (device time per kernel,
      host C++ transcript time; K8 and K9 must run once a round per half,
-     a and b in one launch, gw and hw in one); runs one half's device
+     a and b in one launch, gw and hw in one; K20 once a half and once a
+     challenge; K17-K19 must run; fewer than 5,000 launches by
+     torch.profiler, the mod-l vector code one launch a call); runs one
+     half's device
      rest again under torch.cuda.set_sync_debug_mode("error") (no op may
      wait for the card); proves once more on the per-stage route with the same rng and
      requires the same proofs, commitments and transcripts;
@@ -33,7 +36,12 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      challenges, IPP round 1's fold of a and b (K8, 64 x 4096, beside the
      six-launch form of an older fold_dyn) and its gw / hw update (K9,
      beside two one-vector launches); K12 beside K6 on the L
-     stream), and the verifier MSM
+     stream; K17-K20 on the prover's own calls, kept with their strides:
+     the round emission's product, power_sequence's expanded operand
+     against a column slice, stage 1's sums, a (9, 1) constant, the
+     round's tree sum and an odd one, the blinding draws and a
+     challenge's transposed transcript bytes, and empty operands), and
+     the verifier MSM
      against the host curve library on a small input.  At each of the
      prover's fixed-base shapes (m=1 and m=16, IPP L and S streams) each
      K6 form that serves it (one-hot for the witness rows, also direct for
@@ -57,8 +65,8 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      swapped commitments rejected, 2 proofs through the host
      verify_multiple, and n=8, m=2 proofs from the card equal to the CPU
      route's byte for byte;
-  6. holds kernels K5, K8-K14 against their plain versions on the
-     aggregated path's inputs (its compressions at each size, 4,608 and
+  6. holds kernels K5, K8-K14 and K17-K20 against their plain versions
+     on the aggregated path's inputs (its compressions at each size, 4,608 and
      512 points; IPP round 1's fold, 1024 x 256, one gw / hw update, the S
      coefficients' digits, the 256 transcript states with their pad, the
      IPP challenges,
@@ -113,12 +121,17 @@ Builds the port's CUDA kernels from bulletproofs_tpu_torch/csrc, then
      launches; its kernels against their plain versions on these inputs;
      both timed device-resident and with the scalars' upload;
  15. prints the kernels' launches, times, plain times and bounds as one
-     JSON line (K8's, K9's, K10's and K13's times by device time:
-     launches queued behind a sleep of the card, `benches.queued`; the
-     others by CUDA events around a loop of launches), the card's name and
-     power limit,
+     JSON line (K8's, K9's, K10's, K13's and K17-K20's times by device
+     time:
+     launches queued behind a sleep of the card, `benches.queued`;
+     K17-K20's each after a write of twice the L2 cache, `benches.cold`,
+     so that every byte comes from device memory as their bound assumes;
+     the others by CUDA events around a loop of launches), the card's name
+     and power limit,
      and last the device line.
-Exits non-zero on any failure, and at once when there is no CUDA device.
+Every plain version timed here must launch no kernel of the port (the
+launch counts are read around each).  Exits non-zero on any failure, and
+at once when there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -133,6 +146,8 @@ import sys
 import time
 
 import torch
+
+from bulletproofs_tpu_torch.benches import Rng, profiled
 
 DEVICE = "cuda"
 # HBM3 rate of one H100 SXM (NVIDIA data sheet)
@@ -153,16 +168,6 @@ SMEM_BYTES_PER_CLOCK_SM = 128
 # the direct form reads and writes one bucket, and only for a non-zero digit
 ONE_HOT_SMEM_BYTES = 3 * 8 * 40 * 4
 DIRECT_SMEM_BYTES = 2 * 40 * 4
-
-
-class Rng:
-    """Seeded byte source with the interface the prover and verifier use."""
-
-    def __init__(self, seed: int):
-        self.r = random.Random(seed)
-
-    def randbytes(self, n: int) -> bytes:
-        return self.r.randbytes(n)
 
 
 def log(*a):
@@ -192,6 +197,15 @@ def queued_ms(fn, reps: int) -> float:
     return queued(fn, reps)[1]
 
 
+def cold_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` launches queued behind a sleep
+    of the card, each after a write of twice the L2 cache (device time
+    with every input read from device memory, as a bound by the memory
+    rate assumes)."""
+    from bulletproofs_tpu_torch.benches import cold
+    return cold(fn, reps)[1]
+
+
 def max_abs_err(a, b) -> float:
     if isinstance(a, (tuple, list)):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
@@ -211,13 +225,16 @@ def peak_imads() -> float:
 
 
 def bound(nbytes: float, mads: float, imads_per_s: float,
-          int8_macs: float = 0):
+          int8_macs: float = 0, alu_ops: float = 0):
     """Least milliseconds for moving `nbytes`, making `mads` 32-bit
-    multiply-adds on the CUDA cores and `int8_macs` int8 multiply-adds on
-    the tensor cores (each unit runs beside the others), and which bounds
-    it."""
+    multiply-adds on the CUDA cores, `alu_ops` 32-bit integer additions,
+    logic operations and shifts (the integer pipe, beside the
+    multiply-adds' at the same rate) and `int8_macs` int8 multiply-adds
+    on the tensor cores (each unit runs beside the others), and which
+    bounds it."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = max(mads / imads_per_s, int8_macs / PEAK_INT8_MACS) * 1e3
+    t_ops = max(mads / imads_per_s, alu_ops / imads_per_s,
+                int8_macs / PEAK_INT8_MACS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -271,11 +288,15 @@ def compress_checks(calls, what, imads, smi, failures):
 
 
 class Capture:
-    """Keeps the first main-path input (tensors cloned) and result of a
-    function that matches `want`, while the function goes on working."""
+    """Keeps the first main-path input (tensors cloned, or with `views` the
+    tensors as passed, so that a view keeps its strides: for inputs that
+    no later step writes) and result of a function that matches `want`,
+    while the function goes on working.  Captures of one function chain;
+    restore them in reverse order."""
 
-    def __init__(self, module, name, want=lambda *a: True):
+    def __init__(self, module, name, want=lambda *a: True, views=False):
         self.module, self.name, self.want = module, name, want
+        self.views = views
         self.real = getattr(module, name)
         self.args = self.out = None
         setattr(module, name, self)
@@ -283,8 +304,9 @@ class Capture:
     def __call__(self, *args):
         keep = self.args is None and self.want(*args)
         if keep:
-            self.args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                              for a in args)
+            self.args = tuple(
+                a.clone() if isinstance(a, torch.Tensor) and not self.views
+                else a for a in args)
         out = self.real(*args)
         if keep:
             self.out = out
@@ -314,11 +336,77 @@ class CaptureEach(Capture):
         return out
 
 
+# most kernel launches (torch.profiler's count) of one m=1 prove of 8192
+# proofs or one m=16 prove of 256 (56,268 and 44,558 before K17-K20)
+PROVE_LAUNCH_LIMIT = 5000
+
+# the launches of the port's kernels that a plain version made while
+# time_once timed it (main() fails if there are any)
+PLAIN_LAUNCHES = []
+
+
 def time_once(fn):
     """(fn(), milliseconds of that one call by CUDA events): for the plain
-    versions at main-path shapes, too slow to repeat."""
+    versions at main-path shapes, too slow to repeat.  A plain version is
+    an oracle and launches no kernel of the port: if the launch counts
+    move during the call, what moved goes into PLAIN_LAUNCHES."""
     from bulletproofs_tpu_torch.benches import timed
-    return timed(fn, 1, DEVICE, warm=False)
+    from bulletproofs_tpu_torch.ops import _cuda
+    before = dict(_cuda.LAUNCHES)
+    out = timed(fn, 1, DEVICE, warm=False)
+    if _cuda.LAUNCHES != before:
+        PLAIN_LAUNCHES.append({k: v - before[k] for k, v in
+                               _cuda.LAUNCHES.items() if v != before[k]})
+    return out
+
+
+def operand_bytes(t: torch.Tensor) -> int:
+    """Bytes of a tensor's distinct elements: a broadcast dimension
+    (stride 0) is read once."""
+    k = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            k *= size
+    return k * t.element_size()
+
+
+# K20's work a draw from a key: 20 ChaCha rounds of 4 quarter rounds (4
+# additions, 4 XORs, 4 rotations each) and the 16 final additions, 32-bit
+# integer ALU operations (64 a clock an SM, beside the multiply-adds);
+# and the wide reduction's two products under one Montgomery reduction,
+# 252 limb products of two multiply-adds each
+CHACHA_OPS = 20 * 4 * 12 + 16
+WIDE_MADS = 2 * 252
+
+
+def scalar_captures(PS, TD, N: int, P: int) -> dict:
+    """K17-K20's main-path calls in one prove of P proofs a half with
+    vectors of N: the round emission's product of 4N rows, power_sequence's
+    first product (an expanded one against a column slice of the y / z
+    block), a sum of two (N, 9, P) vectors, a sum with a (9, 1) constant,
+    a negation of a column slice, the round's tree sum over (N, 9, 2P),
+    the blinding draws and a challenge's wide reduction of transposed
+    transcript bytes.  Tensors are kept as passed (no step writes them),
+    so views keep their strides."""
+    S = PS.S
+
+    def vec(rows):
+        return lambda a, *r: a.dim() == 3 and a.shape[0] == rows \
+            and a.shape[-1] == P
+    return {
+        "smul": Capture(S, "smul", vec(4 * N), views=True),
+        "smul_bcast": Capture(S, "smul", lambda a, b: a.stride(-1) == 0
+                              and a.shape[-1] == P, views=True),
+        "sadd": Capture(S, "sadd", vec(N), views=True),
+        "sadd_const": Capture(S, "sadd", lambda a, b: b.shape[-1] == 1
+                              and a.shape[-1] == P, views=True),
+        "sneg": Capture(S, "sneg", lambda a: a.shape[-1] == P, views=True),
+        "tree_sum": Capture(S, "tree_sum", lambda v: v.shape[0] == N
+                            and v.shape[-1] == 2 * P, views=True),
+        "random_scalars": Capture(PS.chacha, "random_scalars",
+                                  lambda key, k, dev: k == P * (4 + 2 * N)),
+        "from_wide_bytes": Capture(TD.S, "from_wide_bytes",
+                                   lambda raw: raw.shape[0] == P, views=True)}
 
 
 def same_outputs(a, b) -> bool:
@@ -369,23 +457,6 @@ def instrumented(fn):
     for k, s, e in events:
         per[k] = per.get(k, 0.0) + s.elapsed_time(e)
     return wall, per, host[0]
-
-
-def profiled(fn):
-    """Device kernels of one fn() by torch.profiler (CUDA activity only) ->
-    [(device ms, calls, kernel name)], largest first; empty when the
-    profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0)
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
-    return sorted(rows, reverse=True)
 
 
 class NativeTimer:
@@ -1183,9 +1254,11 @@ def routes_phase(args, smi, failures, main):
 
 # the kernels each example's path must launch (counts from 0 just before
 # the example's main, read just after)
+# K17-K20, the prover's mod-l vector kernels
+SCALAR_KERNELS = ("sc_mul", "sc_add", "sc_tree_sum", "chacha_scalars")
 PROVE_KERNELS = ("compress", "fixed_accumulate", "fixed_accumulate_vt",
                  "fixed_reduce", "fold", "smul", "digits", "keccak_f1600",
-                 "sinv")
+                 "sinv") + SCALAR_KERNELS
 VERIFY_KERNELS = ("decompress", "emit", "msm_bin_niels", "msm_accumulate",
                   "msm_reduce", "msm_horner")
 
@@ -1518,14 +1591,24 @@ def main() -> int:
         """K8 once a round per half (a and b in one launch: log2 N), K9
         once a round too (gw and hw in one launch; the device-transcript
         route's last fold updates neither, the per-stage route's
-        `last_smul` does), and K13's launches and the port's kernel
-        launches of the call."""
+        `last_smul` does), K20 once a half for the blinds and, on the
+        device-transcript route (not `last_smul`), once a challenge (x, w
+        and each round's u), and K13's and K17-K19's launches and the
+        port's kernel launches of the call."""
         want = (N.bit_length() - 1) * halves
         want9 = want if last_smul else want - halves
+        want20 = halves if last_smul else want + 3 * halves
         log(f"  {what}: K8 fold {launches['fold']} launches (one a round: "
             f"expected {want}), K9 smul {launches['smul']} (expected "
-            f"{want9}), K13 keccak_f1600 {launches['keccak_f1600']}, "
-            f"{sum(launches.values())} launches of the port's kernels")
+            f"{want9}), K20 chacha_scalars {launches['chacha_scalars']} "
+            f"(expected {want20}), K13 keccak_f1600 "
+            f"{launches['keccak_f1600']}, K17 sc_mul {launches['sc_mul']}, "
+            f"K18 sc_add {launches['sc_add']}, K19 sc_tree_sum "
+            f"{launches['sc_tree_sum']}, {sum(launches.values())} launches "
+            f"of the port's kernels")
+        if launches["chacha_scalars"] != want20:
+            failures.append(f"{what}: {launches['chacha_scalars']} K20 "
+                            f"launches, expected {want20}")
         if launches["fold"] != want:
             failures.append(f"{what}: {launches['fold']} K8 launches, "
                             f"expected {want}")
@@ -1627,6 +1710,145 @@ def main() -> int:
             failures.append(f"keccak_f1600 on the {what}'s states")
         return err, ms, plain_ms
 
+    def check_prove_launches(rows, what):
+        """A prove's kernel launches as torch.profiler counts them (every
+        kernel and copy it saw on the card): with K17-K20 the mod-l vector
+        code is one launch a call, so fewer than PROVE_LAUNCH_LIMIT."""
+        got = sum(r[1] for r in rows)
+        log(f"  {what}: {got} kernel launches (limit {PROVE_LAUNCH_LIMIT})")
+        if got >= PROVE_LAUNCH_LIMIT:
+            failures.append(f"{what}: {got} kernel launches")
+
+    sc_src = "bulletproofs_tpu_torch/csrc/scalar.cu"
+    sc_replaces = {"sc_mul": "bulletproofs_tpu/ops/vec_scalar.py:107",
+                   "sc_add": "bulletproofs_tpu/ops/vec_scalar.py:85",
+                   "sc_tree_sum": "bulletproofs_tpu/ops/vec_scalar.py:281",
+                   "chacha_scalars": "bulletproofs_tpu/ops/chacha.py:52"}
+
+    def scalar_checks(caps, what, launches=None):
+        """K17-K20 on a prove's captured calls (views with their strides:
+        an expanded operand, column slices, a (9, 1) constant, transposed
+        transcript bytes): each exact against its plain version and the
+        path's own output, timed by device time (queued behind a sleep of
+        the card; held to its bound with L2 written over before each
+        call, and warm in L2 as on the path); then an odd tree sum over a column
+        slice, K17 in Montgomery form and empty operands, which launch
+        nothing.  With `launches` (the m=1 main path's counts) the first
+        check of each kernel goes into the kernels line."""
+        from bulletproofs_tpu_torch.ops import chacha as CH
+        if any(c.args is None for c in caps.values()):
+            failures.append(f"{what}: K17-K20 inputs not captured")
+            return
+        mul = FK.SC_MUL_MADS
+        a, b = caps["smul"].args
+        ea, eb = caps["smul_bcast"].args
+        sa, sb = caps["sadd"].args
+        ca, cb = caps["sadd_const"].args
+        (na,) = caps["sneg"].args
+        (tv,) = caps["tree_sum"].args
+        key, k, _ = caps["random_scalars"].args
+        (raw,) = caps["from_wide_bytes"].args
+        odd = tv[1:, :, 1:]
+
+        def elems(*ts):
+            return torch.broadcast_shapes(*(t.shape for t in ts)).numel() // 9
+
+        def mul_case(x, y, mode, label, out):
+            fn, plain = ((S.mont_mul, S.mont_mul_plain) if mode == 0
+                         else (S.smul, S.smul_plain))
+            e = elems(x, y)
+            return ("sc_mul", f"{'smul' if mode else 'mont_mul'} {label}",
+                    lambda: fn(x, y), lambda: plain(x, y), out,
+                    operand_bytes(x) + operand_bytes(y) + 72 * e,
+                    (2 if mode else 1) * mul * e, 0)
+
+        def add_case(x, y, label, out):
+            e = elems(x) if y is None else elems(x, y)
+            fn = (lambda: S.sneg(x)) if y is None else (lambda: S.sadd(x, y))
+            plain = ((lambda: S.sneg_plain(x)) if y is None
+                     else (lambda: S.sadd_plain(x, y)))
+            nb = operand_bytes(x) + (0 if y is None else operand_bytes(y))
+            return ("sc_add", f"{'sneg' if y is None else 'sadd'} {label}",
+                    fn, plain, out, nb + 72 * e, 0, 0)
+
+        def sum_case(v, label, out):
+            return ("sc_tree_sum", f"tree_sum {label}",
+                    lambda: S.tree_sum(v), lambda: S.tree_sum_plain(v), out,
+                    operand_bytes(v) + 72 * v.shape[-1], 0, 0)
+
+        cases = [
+            mul_case(a, b, 1, f"{tuple(a.shape)} (the round emission's)",
+                     caps["smul"].out),
+            mul_case(ea, eb, 1, f"{tuple(ea.shape)} expanded one x "
+                     f"{tuple(eb.shape)} column slice (power_sequence)",
+                     caps["smul_bcast"].out),
+            mul_case(a, b, 0, f"{tuple(a.shape)} (the same operands)", None),
+            add_case(sa, sb, f"{tuple(sa.shape)} (stage 1's)",
+                     caps["sadd"].out),
+            add_case(ca, cb, f"{tuple(ca.shape)} + (9, 1) constant",
+                     caps["sadd_const"].out),
+            add_case(na, None, f"{tuple(na.shape)} column slice",
+                     caps["sneg"].out),
+            sum_case(tv, f"{tuple(tv.shape)} (the round's cross terms)",
+                     caps["tree_sum"].out),
+            sum_case(odd, f"{tuple(odd.shape)} (odd rows, column slice)",
+                     None),
+            ("chacha_scalars", f"random_scalars of {k} draws",
+             lambda: CH.random_scalars(key, k, dev),
+             lambda: CH.random_scalars_plain(key, k, dev),
+             caps["random_scalars"].out, 72 * k, k * WIDE_MADS,
+             k * CHACHA_OPS),
+            ("chacha_scalars", f"from_wide_bytes {tuple(raw.shape)} "
+             f"transposed transcript bytes",
+             lambda: S.from_wide_bytes(raw),
+             lambda: S.from_wide_bytes_plain(raw),
+             caps["from_wide_bytes"].out, raw.numel() + 72 * raw.shape[0],
+             raw.shape[0] * WIDE_MADS, 0)]
+        log(f"  K17-K20 on the {what}'s inputs:")
+        recorded = set()
+        for kernel, label, fn, plain, out, nbytes, mads, alu in cases:
+            got = fn()
+            want, plain_ms = time_once(plain)
+            err = max_abs_err(got, want)
+            if out is not None:
+                err = max(err, max_abs_err(got, out))
+            # the bound reads every byte at the memory rate, so the time
+            # held to it is taken with L2 written over before each call;
+            # the warm time (inputs left in L2, as on the path) is logged
+            ms = cold_ms(fn, 20)
+            warm_ms = queued_ms(fn, 20)
+            b_ms, b_by = bound(nbytes, mads, imads, alu_ops=alu)
+            log(f"    {kernel} {label}: max_abs_err {err} "
+                f"({'ok' if err == 0 else 'MISMATCH'}); {ms:.4f} ms device "
+                f"from memory, {warm_ms:.4f} warm in L2, {plain_ms:.2f} ms "
+                f"plain, bound {b_ms:.4f} ms ({b_by}) on {smi}")
+            if launches is not None and kernel not in recorded:
+                recorded.add(kernel)
+                record(kernel, sc_src, sc_replaces[kernel], err, ms, plain_ms,
+                       nbytes, mads, launches, alu_ops=alu)
+                if ms < b_ms:
+                    failures.append(f"{kernel}: {ms:.4f} ms under its bound "
+                                    f"{b_ms:.4f} ms")
+            elif err != 0:
+                failures.append(f"{kernel} on the {what}'s {label}")
+        before = dict(_cuda.LAUNCHES)
+        empties = [(S.smul(a[:0], b[0]), S.smul_plain(a[:0], b[0])),
+                   (S.mont_mul(eb[:, :0], cb), S.mont_mul_plain(eb[:, :0], cb)),
+                   (S.sadd(sa[:, :, :0], cb), S.sadd_plain(sa[:, :, :0], cb)),
+                   (S.sneg(na[:, :0]), S.sneg_plain(na[:, :0])),
+                   (S.tree_sum(tv[:, :, :0]), S.tree_sum_plain(tv[:, :, :0])),
+                   (CH.random_scalars(key, 0, dev),
+                    CH.random_scalars_plain(key, 0, dev)),
+                   (S.from_wide_bytes(raw[:0]),
+                    S.from_wide_bytes_plain(raw[:0]))]
+        moved = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                 if v != before[k]}
+        shapes = all(x.shape == y.shape for x, y in empties)
+        log(f"    empty operands: shapes {'as' if shapes else 'NOT as'} the "
+            f"plain versions', launches {moved or 'none'}")
+        if not shapes or moved:
+            failures.append(f"K17-K20 on empty operands ({what})")
+
     # -- 2. the prover's main path: the device-transcript route ---------------------
     t0 = time.time()
     prover = BatchProver(bp, pc, n, m, device=DEVICE)
@@ -1666,10 +1888,13 @@ def main() -> int:
                         lambda x, *r: x.shape == (n * m, 9, half)),
         "sinv": Capture(PS.S, "sinv", lambda x: x.shape[1] == half),
         "rest": Capture(PS, "prove_rest")}
+    sc_caps1 = scalar_captures(PS, TD, n * m, half)
     t0 = time.time()
     try:
         prove(100)
     finally:
+        for c in reversed(list(sc_caps1.values())):
+            c.restore()
         for c in caps1.values():
             c.restore()
         shapes1.close()
@@ -1685,7 +1910,7 @@ def main() -> int:
     log(f"prove_batch launches (device-transcript route): {prove_launches}")
     for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
               "fixed_accumulate", "fixed_accumulate_vt", "fixed_reduce",
-              "compress"):
+              "compress") + SCALAR_KERNELS:
         if prove_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 prover")
     halves = 2 if args.total >= prover.FUSED_HALVES_FROM \
@@ -1718,6 +1943,7 @@ def main() -> int:
             f"{sum(r[1] for r in rows)} kernel launches, busy "
             f"{busy / (best * 1e3):.1%} of the best call; largest: "
             + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}" for ms, c, k in rows[:6]))
+        check_prove_launches(rows, "m=1 prove")
     else:
         log("torch.profiler saw no device time: the prove's device busy "
             "share is not measured")
@@ -1761,7 +1987,7 @@ def main() -> int:
         f"device-transcript route's")
     if not same:
         failures.append("m=1 per-stage and device-transcript proofs differ")
-    for k in ("fold", "smul", "digits"):
+    for k in ("fold", "smul", "digits") + SCALAR_KERNELS:
         if stage_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 per-stage prover")
     stage_halves = 2 if args.total >= prover.HALVES_FROM \
@@ -1979,7 +2205,7 @@ def main() -> int:
 
     blk = torch.from_numpy(blk_np.copy()).to(dev)
     got = V.emit(n, m, blk)
-    want = V.emit_plain(n, m, blk)
+    want = time_once(lambda: V.emit_plain(n, m, blk))[0]    # no launch
     record("emit", "bulletproofs_tpu_torch/csrc/emit.cu",
            "bulletproofs_tpu/ops/verify_pallas.py:190",
            max_abs_err(got, want), time_cuda(lambda: V.emit(n, m, blk), 20),
@@ -2125,6 +2351,7 @@ def main() -> int:
             f"{FK.sinv_latency_floor_ms(mhz):.4f} ms, {FK.SINV_CHAIN} "
             f"dependent instructions): no Pallas counterpart, the JAX "
             f"package runs both in XLA)")
+        scalar_checks(sc_caps1, "m=1 prove", prove_launches)
 
     # -- 6. the verifier's timing ------------------------------------------------------
     # each call recorded (CallRecorder), the stages of verify_batch by the
@@ -2202,10 +2429,13 @@ def main() -> int:
              Capture(TD, "f1600_state_bytes",
                      lambda st, *pad: st.shape[1] == lanes16)]
     k5_16 = CaptureEach(PS.C, "compress", lambda pts: pts.shape[-1])
+    sc_caps16 = scalar_captures(PS, TD, N16, lanes16)
     t0 = time.time()
     try:
         prove16(200)
     finally:
+        for c in reversed(list(sc_caps16.values())):
+            c.restore()
         k5_16.restore()
         for c in reversed(pcaps):
             c.restore()
@@ -2245,8 +2475,10 @@ def main() -> int:
             f"ms in {sum(r[1] for r in rows)} kernel launches, busy "
             f"{busy / (best * 1e3):.1%} of the best call; largest: "
             + "; ".join(f"{ms:.1f} ms x{c} {k[:60]}" for ms, c, k in rows[:6]))
+        check_prove_launches(rows, f"m={m16} prove")
     for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
-              "fixed_accumulate", "fixed_accumulate_vt", "compress"):
+              "fixed_accumulate", "fixed_accumulate_vt",
+              "compress") + SCALAR_KERNELS:
         if prove16_launches[k] == 0:
             failures.append(f"{k} not launched by the m={m16} prover")
     halves16 = 2 if lanes16 != agg else 1
@@ -2262,7 +2494,8 @@ def main() -> int:
     log(f"prove_batch m={m16}, per-stage route: "
         f"{(time.time() - t0) * 1e3:.1f} ms (one run) on {smi}; launches "
         f"{stage16_launches}")
-    for k in ("fold", "smul", "digits", "fixed_accumulate", "compress"):
+    for k in ("fold", "smul", "digits", "fixed_accumulate",
+              "compress") + SCALAR_KERNELS:
         if stage16_launches[k] == 0:
             failures.append(f"{k} not launched by the m={m16} per-stage "
                             f"prover")
@@ -2426,7 +2659,8 @@ def main() -> int:
                time_cuda(lambda: FO.digits_plain(coef), 1),
                nb * P * (9 * 8 + 64), 18 * nb * P, prove16_launches)
         (sx16,) = pcaps[4].args
-        err = max_abs_err(S.sinv(sx16), S.sinv_plain(sx16))
+        err = max_abs_err(S.sinv(sx16), time_once(
+            lambda: S.sinv_plain(sx16))[0])
         ms = time_cuda(lambda: S.sinv(sx16), 20)
         b_ms, b_by = bound(2 * 8 * sx16.numel(), FK.SINV_OPS * sx16.shape[1],
                            imads)
@@ -2436,6 +2670,7 @@ def main() -> int:
             f"floor {FK.sinv_latency_floor_ms(mhz):.4f} ms on {smi}")
         if err != 0:
             failures.append(f"sinv on the m={m16} prover's challenges")
+        scalar_checks(sc_caps16, f"m={m16} prove")
         add9 = field_mads(lambda: C.add(*(C.to_coords(C.identity(1, "cpu")),)
                                          * 2))
         for cap, what in ((vcaps[0], "chunk"), (vcaps[1], "final MSM")):
@@ -2509,6 +2744,8 @@ def main() -> int:
         "vals16": vals16, "blinds16": blinds16, "labels16": labels16})
     examples_phase(args, smi, failures)
     msm_phase(args, smi, imads, failures)
+    if PLAIN_LAUNCHES:
+        failures.append(f"plain versions launched kernels: {PLAIN_LAUNCHES}")
     if failures:
         log("FAILED:", failures)
         return 1

@@ -929,3 +929,148 @@ def test_msm_routes_at_2_12_on_card(cuda, route, kernels):
     alt, _ = getattr(M, other)(ins[other], sc)
     assert torch.equal(C.compress(out), C.compress(alt))
     assert not bool(flag[0])
+
+
+# -- K17-K20: the prover's mod-l vector kernels ---------------------------------------
+
+_EDGE = [0, 1, 2, ELL - 1, ELL - 2, (1 << 252) - 1, 1 << 252, (ELL - 1) // 2]
+
+
+def _fast_sc(shape, seed):
+    """Canonical (.., 9, P) int64 scalars: seeded limbs below 2^252, with
+    _EDGE's values in the first columns of the first row."""
+    g = np.random.default_rng(seed)
+    *lead, _, p = shape
+    x = g.integers(0, 1 << 29, (*lead, 9, p), dtype=np.int64)
+    x[..., 8, :] &= (1 << 20) - 1
+    k = min(len(_EDGE), p)
+    if x.size:
+        x.reshape(-1, 9, p)[0, :, :k] = sc_ints_to_limbs(_EDGE[:k])
+    return torch.from_numpy(x)
+
+
+def _sc_launched(fn, kernel):
+    """fn() on the card -> (its output, the launches of `kernel` it made,
+    the launches of the port's other kernels)."""
+    before = dict(_cuda.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+             if v != before[k]}
+    return out, moved.pop(kernel, 0), moved
+
+
+def _sc_layouts(cuda):
+    """(name, a, b) operand pairs as the prover and verifier pass them."""
+    vec = _fast_sc((256, 9, 4096), 96).to(cuda)         # m = 1 round emit
+    per = _fast_sc((9, 4096), 97).to(cuda)
+    yzi = _fast_sc((9, 3 * 37), 98).to(cuda)
+    part = _fast_sc((6, 2, 9, 21), 99).to(cuda).transpose(-1, -2) \
+        .contiguous().transpose(-1, -2)
+    return [
+        ("round emit, m = 1", vec, _fast_sc((256, 9, 4096), 100).to(cuda)),
+        ("m = 16 rows", _fast_sc((4096, 9, 256), 101).to(cuda),
+         _fast_sc((4096, 9, 256), 102).to(cuda)),
+        ("(9, 1) constant", per, S.const(ELL - 1, cuda)),
+        ("expanded one, strided slice",
+         S.const(1, cuda).expand(9, 37)[None], yzi[:, :37]),
+        ("(n, 9, P) against (9, P)", vec, per),
+        ("transposed rows", _fast_sc((9, 37), 103).T.contiguous().T.to(cuda),
+         yzi[:, 37:74]),
+        ("four-dimensional halves", part[:3], part[3:]),
+        ("empty rows", vec[:0], per),
+        ("empty columns", vec[:, :, :0], per[:, :0]),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_sc_mul_kernel_matches_plain(cuda, case):
+    """K17, both modes, against mont_mul_plain / smul_plain (torch.equal)
+    on each layout: one launch (none for an empty output), no other
+    kernel of the port, a contiguous output of the broadcast shape."""
+    name, a, b = _sc_layouts(cuda)[case]
+    for mode, fn, plain in ((0, S.mont_mul, S.mont_mul_plain),
+                            (1, S.smul, S.smul_plain)):
+        got, n, other = _sc_launched(lambda: fn(a, b), "sc_mul")
+        want = plain(a, b)
+        assert (n, other) == (int(want.numel() > 0), {}), (name, mode)
+        assert got.is_contiguous() and torch.equal(got, want), (name, mode)
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_sc_add_kernel_matches_plain(cuda, case):
+    """K18, a + b and -a, against sadd_plain / sneg_plain on each layout."""
+    name, a, b = _sc_layouts(cuda)[case]
+    for fn, plain in ((lambda: S.sadd(a, b), lambda: S.sadd_plain(a, b)),
+                      (lambda: S.sneg(b), lambda: S.sneg_plain(b))):
+        got, n, other = _sc_launched(fn, "sc_add")
+        want = plain()
+        assert (n, other) == (int(want.numel() > 0), {}), name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("n, P", [(1, 37), (7, 37), (64, 8192), (63, 8192),
+                                  (16, 256), (1024, 512), (1023, 256),
+                                  (5, 0)])
+def test_sc_tree_sum_kernel_matches_plain(cuda, n, P):
+    """K19 against tree_sum_plain at the provers' sums (64 x 8192 the m = 1
+    round's cross terms, 1024 x 512 the m = 16 one's, 16 x 256 the
+    t-blinding's), odd n, a column slice and no columns: one launch for
+    columns, none without."""
+    v = _fast_sc((n, 9, 2 * P), 104 + n).to(cuda)
+    for what, x in (("contiguous", v[:, :, :P].contiguous()),
+                    ("column slice", v[:, :, P:])):
+        got, k, other = _sc_launched(lambda: S.tree_sum(x), "sc_tree_sum")
+        assert (k, other) == (int(P > 0), {}), what
+        assert torch.equal(got, S.tree_sum_plain(x)), what
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 4096 * 132])
+def test_chacha_scalars_kernel_matches_plain(cuda, n):
+    """K20 from a key against random_scalars_plain at the m = 1 prover's
+    draws of one half (4096 x 132) and small counts: one launch."""
+    from bulletproofs_tpu_torch.ops import chacha as CH
+    key = np.random.default_rng(105).integers(0, 256, 32, np.uint8).tobytes()
+    got, k, other = _sc_launched(lambda: CH.random_scalars(key, n, cuda),
+                                 "chacha_scalars")
+    assert (k, other) == (int(n > 0), {})
+    assert torch.equal(got, CH.random_scalars_plain(key, n, cuda))
+
+
+@pytest.mark.parametrize("P", [0, 37, 4096])
+def test_wide_reduction_kernel_matches_plain(cuda, P):
+    """K20's wide form on the device transcript's layout (a (64, P) block
+    transposed) and on contiguous rows, edge halves first."""
+    g = np.random.default_rng(106)
+    raw = g.integers(0, 256, (64, P), dtype=np.uint8)
+    for j, (lo, hi) in enumerate([(0, 0), (255, 255), (0, 255), (255, 0)]):
+        if j < P:
+            raw[:32, j], raw[32:, j] = lo, hi
+    block = torch.from_numpy(raw).to(cuda)
+    for what, rows in (("transposed", block.T), ("rows", block.T.contiguous())):
+        got, k, other = _sc_launched(lambda: S.from_wide_bytes(rows),
+                                     "chacha_scalars")
+        assert (k, other) == (int(P > 0), {}), what
+        assert torch.equal(got, S.from_wide_bytes_plain(rows)), what
+
+
+def test_prove_launches_the_mod_l_kernels(cuda):
+    """A device-transcript prove at n = 8 (one half) launches K17-K19 and
+    K20 once for its blinds and once a challenge (x, w and three u), and
+    its proofs equal the CPU route's."""
+    from bulletproofs_tpu_torch import BatchProver
+    bp, pc = BulletproofGens(8, 1), PedersenGens()
+    outs = []
+    for device in (cuda, "cpu"):
+        _cuda.reset_counts()
+        ps, _ = BatchProver(bp, pc, 8, device=device).prove_batch(
+            [5, 6, 7], [Scalar(31 + i) for i in range(3)],
+            [Transcript(b"mod l %d" % i) for i in range(3)], rng=Rng(107))
+        outs.append([p.to_bytes() for p in ps])
+        if device == cuda:
+            torch.cuda.synchronize()
+            launches = dict(_cuda.LAUNCHES)
+    assert outs[0] == outs[1]
+    assert launches["chacha_scalars"] == 1 + 2 + 3
+    assert launches["sc_mul"] and launches["sc_add"] \
+        and launches["sc_tree_sum"]
