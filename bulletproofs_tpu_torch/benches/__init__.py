@@ -112,17 +112,25 @@ def queued(fn, reps: int):
 def cold(fn, reps: int):
     """(last output, mean milliseconds of fn() over `reps` calls queued
     behind a sleep of the card, each timed alone by CUDA events after a
-    write of twice the card's L2 cache): device time with the inputs read
-    from device memory, which a bound by the memory rate assumes."""
+    read of a buffer twice the card's L2 cache): device time with the
+    inputs read from device memory, which a bound by the memory rate
+    assumes.  The buffer is written once, before the calls, and only read
+    between them, so the L2 holds clean lines when a call starts: a write
+    before each call (the form before) left up to an L2 of dirty lines,
+    whose write-back each call then paid on top of its own bytes."""
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
     l2 = getattr(props, "L2_cache_size", 0) or 50 << 20
-    scrub = torch.empty(2 * l2, dtype=torch.uint8, device="cuda")
+    scrub = torch.ones(2 * l2 // 8, dtype=torch.int64, device="cuda")
+    total = torch.empty((), dtype=torch.int64, device="cuda")
     fn()
+
+    def flush():
+        torch.sum(scrub, dim=0, out=total)
 
     def calls():
         marks = []
-        for r in range(reps):
-            scrub.fill_(r & 0xFF)
+        for _ in range(reps):
+            flush()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -130,7 +138,7 @@ def cold(fn, reps: int):
             end.record()
             marks.append((start, end))
         return out, marks
-    host_s = _host_s(lambda: (scrub.fill_(0), fn()))
+    host_s = _host_s(lambda: (flush(), fn()))
     out, marks = _behind_sleep(calls, reps, host_s)
     return out, sum(s.elapsed_time(e) for s, e in marks) / reps
 

@@ -120,8 +120,9 @@ def edge_inputs(case: str, seed: int, device, niels: bool = False):
 
 def _ours(name: str) -> bool:
     """K3's and K11's kernels (accumulate_kernel, accumulate_z_kernel,
-    bin_kernel and their template instances, mangled)."""
-    return "accumulate" in name or "bin_kernel" in name
+    bin_kernel, rank_kernel and their template instances, mangled)."""
+    return "accumulate" in name or "bin_kernel" in name \
+        or "rank_kernel" in name
 
 
 def ptxas_report(log: str, keep=_ours) -> dict:

@@ -1,13 +1,15 @@
 // Kernels K3, K11 and K4: the Pippenger multi-scalar multiplication of the
-// batch verifier, for Z = 1 points given in Niels form (K3, the fused
-// route) and for points of arbitrary Z (K11, the chunked route, whose final
-// MSM adds per-chunk partial results).
+// batch verifier, for Z = 1 points in Niels form, or given as extended
+// points that its binning puts in Niels form (K3, the fused route and the
+// MSM entry's Niels route), and for points of arbitrary Z (K11, the chunked
+// route, whose final MSM adds per-chunk partial results).
 //
 // K3, msm_bin_niels then msm_accumulate, replaces ops/msm_pallas.py:58
 // _accum_kernel_niels (the phase-1 pallas_call of _msm_pallas_niels, :379).
 // K11, msm_bin then msm_accumulate_z, replaces :121 _accum_kernel (the
-// phase-1 pallas_call of _msm_pallas, :459).  K3 and K11 are one binning
-// kernel and one accumulation kernel, each a template over the point form.
+// phase-1 pallas_call of _msm_pallas, :459).  K3 and K11 share one binning
+// (two launches: bin_kernel, a template over the point form, then
+// rank_kernel) and one accumulation kernel, a template over the form.
 // K4 is two launches of this file, after either: msm_reduce replaces :178
 // _reduce_kernel (:397, :477) and msm_horner replaces :214 _horner_kernel
 // (:412, :492).
@@ -31,10 +33,11 @@
 #include "common.cuh"
 #include "fe25519.cuh"
 #include "reduce.cuh"
+#include "msm_bin.cuh"
 
 #include <cooperative_groups.h>
 
-#define NBUCKET 8
+#define NBUCKET BIN_BUCKETS
 
 // -- K3 and K11: bucket accumulation over per-lane lists ----------------------
 //
@@ -58,27 +61,45 @@
 // 64 x 8 x lanes threads; the longest lists first; a warp's 32 lists of
 // nearly one length.
 //
-// The binning kernel: one thread per (window w, lane j) reads the digits
-// of points j, j + lanes, ... (coalesced across the warp), 32 lane steps at
-// a time, and writes for each step block m nine 32-bit words: bit s of
-// mask[w][b][m][j] is set when |d[w, j + (32 m + s) lanes]| = b + 1, bit s
-// of sign[w][m][j] when that digit is negative (stores coalesced across the
-// warp; index lists, tried first, cost 0.5 ms of scattered 4-byte stores
-// at 196,653 points on the H100), and cnt[w][b][j], the bits of bucket b.
-// An accumulation thread walks its mask's set bits in order: ascending k,
-// digit 0 never listed.  A block holds one window's lanes, so it also ranks
-// each bucket's lanes by length into perm[w][b][.], the lane each
-// accumulation thread takes.  The other blocks copy the points into
-// point-major rows: the 32 threads of a warp read 32 unrelated points, and
-// a point's contiguous row is a few sectors where the (c, 10, N) layout
-// spreads it over 10 c.  A Niels row (30 words) is padded to 32 words, one
-// 128-byte line of eight aligned 16-byte loads (at 120 bytes every odd row
-// would sit 8 bytes off a 16-byte boundary, and 8-byte loads double the
-// load count); an extended row is 40 words, ten 16-byte loads.
+// The binning, two launches (ops/msm.py bin_points and bin_niels), with
+// bin_plain's outputs: bit s of mask[w][b][m][j] is set when |d[w, j +
+// (32 m + s) lanes]| = b + 1, bit s of sign[w][m][j] when that digit is
+// negative, cnt[w][b][j] counts bucket b's bits and perm[w][b][.] lists
+// the lanes by count, longest first.  An accumulation thread walks its
+// mask's set bits in order: ascending k, digit 0 never listed (index
+// lists, tried first, cost 0.5 ms of scattered 4-byte stores at 196,653
+// points on the H100).
+//
+// Bound: bytes (the points and digits read once, the rows and lists
+// written once), 0.0049 ms at a verify sub-batch's 34,946 points.  The
+// first form ran 64 blocks of `lanes` threads, a window each, so at most 64
+// of the 132 SMs binned, and each thread ranked its lane in every bucket
+// by comparing it with all 512 lanes: 0.069 ms.  Design:
+// - bin_kernel: a thread per (window, lane step, lane) writes its nine
+//   words (bin_step of csrc/msm_bin.cuh: 32 digit loads in flight,
+//   coalesced across the warp; 64 nm lanes threads), and blocks between
+//   them write the point-major rows (row_words), ROW_POINTS points a
+//   block through shared memory (a warp's loads are one word of 32
+//   neighbouring points, its stores 16 bytes of one row).  The Niels form
+//   takes a Niels prefix and Z = 1 extended points after it and makes
+//   their rows itself: Y+X and Y-X by limb additions, 2dT by fe_mul
+//   (ops/curve.to_niels' limbs), one field product a point, so its
+//   callers make no Niels array.
+// - rank_kernel: a block per (window, bucket) counts its lanes' bits and
+//   ranks them by a counting sort (rank_lanes of csrc/msm_bin.cuh); it
+//   needs every step of the window, so it is the second launch.
+// A point's row is contiguous: the 32 threads of an accumulation warp read
+// 32 unrelated points, and a row is a few sectors where the (c, 10, N)
+// layout spreads it over 10 c.  A Niels row (30 words) is padded to 32
+// words, one 128-byte line of eight aligned 16-byte loads (at 120 bytes
+// every odd row would sit 8 bytes off a 16-byte boundary, and 8-byte loads
+// double the load count); an extended row is 40 words, ten 16-byte loads.
 #define ACCZ_THREADS 128                 // the accumulation's block
 #define ACCZ_MIN_BLOCKS 2                // its blocks per SM
 #define MAX_LANES 512                    // ops/msm.py MAX_LANES
-#define ROW_BLOCKS 264                   // the binning's blocks copying rows
+#define BIN_THREADS 128                  // bin_kernel's block
+#define ROW_POINTS BIN_THREADS           // points of a row block
+#define ROW_PAD 41                       // a point's words in shared memory
 
 // the point forms: words of a point, of its row, and its addition
 struct niels_form {
@@ -88,78 +109,74 @@ struct ext_form {
   static constexpr int WORDS = 40, ROW = 40;
 };
 
+// row_blocks blocks write the rows of ROW_POINTS points each, list_blocks
+// a thread per (window, lane step, lane) each; the two kinds alternate
+// over the grid, so that an SM runs the rows' loads and stores beside the
+// lists' integer work
 template <class Form>
-__global__ void __launch_bounds__(MAX_LANES)
-bin_kernel(const int32_t* __restrict__ pts, const int8_t* __restrict__ digits,
+__global__ void __launch_bounds__(BIN_THREADS)
+bin_kernel(const int32_t* __restrict__ pre, int64_t n0,
+           const int32_t* __restrict__ pts, const int8_t* __restrict__ digits,
            int32_t* __restrict__ rows, uint32_t* __restrict__ mask,
-           uint32_t* __restrict__ sign, int32_t* __restrict__ cnt,
-           int32_t* __restrict__ perm, int64_t n, int lanes, int nm) {
+           uint32_t* __restrict__ sign, int64_t n, int lanes, int nm,
+           int row_blocks, int list_blocks) {
   constexpr int W = Form::WORDS, R = Form::ROW;
-  __shared__ int32_t key[NBUCKET * MAX_LANES];
-  __shared__ int32_t tile[32 * 41];
-  if (blockIdx.x >= 64) {
-    // the point-major rows, 32 points a tile through shared memory: loads
-    // of one word of 32 points, then the tile's 32 rows stored in order
-    // (a Niels row's two pad words 0)
-    for (int64_t k0 = (int64_t)(blockIdx.x - 64) * 32; k0 < n;
-         k0 += (int64_t)(gridDim.x - 64) * 32) {
-      for (int i = threadIdx.x; i < 32 * W; i += blockDim.x) {
-        const int c = i / 32, p = i % 32;
-        if (k0 + p < n) tile[p * 41 + c] = pts[c * n + k0 + p];
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < 32 * R; i += blockDim.x)
-        if (k0 * R + i < n * R)
-          rows[k0 * R + i] = i % R < W ? tile[(i / R) * 41 + i % R] : 0;
-      __syncthreads();
+  __shared__ int32_t tile[ROW_POINTS * ROW_PAD];
+  const int fewer = row_blocks < list_blocks ? row_blocks : list_blocks;
+  const int b = blockIdx.x;
+  const bool row = b < 2 * fewer ? !(b & 1) : row_blocks > list_blocks;
+  const int idx = b < 2 * fewer ? b >> 1 : b - fewer;
+  if (row) {
+    const int64_t k0 = (int64_t)idx * ROW_POINTS;
+    row_words<W>(pre, n0, pts, n, k0 + threadIdx.x,
+                 tile + threadIdx.x * ROW_PAD);
+    __syncthreads();
+    int4* out = reinterpret_cast<int4*>(rows + k0 * R);
+    for (int i = threadIdx.x; i < ROW_POINTS * R / 4; i += BIN_THREADS) {
+      const int p = 4 * i / R, c = 4 * i % R;
+      if (k0 + p >= n) break;
+      const int32_t* t = tile + p * ROW_PAD + c;
+      out[i] = make_int4(t[0], t[1], c + 2 < W ? t[2] : 0,
+                         c + 3 < W ? t[3] : 0);
     }
     return;
   }
-  const int w = blockIdx.x, j = threadIdx.x;   // block w: window w's lanes
-  const int8_t* drow = digits + (int64_t)w * n;
-  int count[NBUCKET];
+  // lanes is a power of two; 64 nm lanes < 2^31
+  const unsigned t = (unsigned)idx * BIN_THREADS + threadIdx.x;
+  if (t >= 64u * nm * lanes) return;
+  const unsigned j = t & (lanes - 1), q = t / lanes, m = q % nm,
+                 w = q / nm;
+  const int64_t k0 = j + (int64_t)32 * m * lanes;
+  uint32_t bits[NBUCKET], neg;
+  bin_step(digits + (int64_t)w * n + k0, n - k0, lanes, bits, neg);
+  uint32_t* mrow = mask + ((int64_t)w * NBUCKET * nm + m) * lanes + j;
 #pragma unroll
-  for (int b = 0; b < NBUCKET; ++b) count[b] = 0;
-  for (int m = 0; m < nm; ++m) {
-    uint32_t bits[NBUCKET], neg = 0;
-#pragma unroll
-    for (int b = 0; b < NBUCKET; ++b) bits[b] = 0;
-    int d[32];                             // 32 loads in flight
-#pragma unroll
-    for (int u = 0; u < 32; ++u) {
-      const int64_t k = j + (int64_t)(32 * m + u) * lanes;
-      d[u] = k < n ? drow[k] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < 32; ++u) {
-      const int a = d[u] < 0 ? -d[u] : d[u];
-      neg |= (uint32_t)(d[u] < 0) << u;
-#pragma unroll
-      for (int b = 0; b < NBUCKET; ++b)
-        bits[b] |= (uint32_t)(a == b + 1) << u;
-    }
-#pragma unroll
-    for (int b = 0; b < NBUCKET; ++b) {
-      mask[(((int64_t)w * NBUCKET + b) * nm + m) * lanes + j] = bits[b];
-      count[b] += __popc(bits[b]);
-    }
-    sign[((int64_t)w * nm + m) * lanes + j] = neg;
-  }
-#pragma unroll
-  for (int b = 0; b < NBUCKET; ++b) {
-    cnt[((int64_t)w * NBUCKET + b) * lanes + j] = count[b];
-    key[b * lanes + j] = count[b] * 1024 + (1023 - j);
-  }
-  __syncthreads();
-  // each bucket's lanes by (length, -lane), longest first
-  for (int b = 0; b < NBUCKET; ++b) {
-    const int32_t* kb = key + b * lanes;
-    const int kx = kb[j];
-    int r = 0;
-#pragma unroll 8
-    for (int y = 0; y < lanes; ++y) r += kb[y] > kx;
-    perm[((int64_t)w * NBUCKET + b) * lanes + r] = j;
-  }
+  for (int b2 = 0; b2 < NBUCKET; ++b2)
+    mrow[(int64_t)b2 * nm * lanes] = bits[b2];
+  sign[((int64_t)w * nm + m) * lanes + j] = neg;
+}
+
+struct block_barrier {
+  __device__ void operator()() const { __syncthreads(); }
+};
+
+// block w * 8 + b, `lanes` threads: cnt[w][b][j] from the mask words of
+// lane j, then the bucket's lanes ranked into perm[w][b] (32 nm + 1 ints
+// of dynamic shared memory, the counts' histogram)
+__global__ void __launch_bounds__(MAX_LANES)
+rank_kernel(const uint32_t* __restrict__ mask, int32_t* __restrict__ cnt,
+            int32_t* __restrict__ perm, int lanes, int nm) {
+  extern __shared__ int hist[];
+  __shared__ int cs[MAX_LANES];
+  const int64_t g = blockIdx.x;
+  const int j = threadIdx.x;
+  const uint32_t* mrow = mask + g * nm * lanes + j;
+  int count = 0;                         // four loads in flight
+#pragma unroll 4
+  for (int m = 0; m < nm; ++m) count += __popc(__ldg(mrow + (int64_t)m * lanes));
+  cnt[g * lanes + j] = count;
+  rank_lanes(j, lanes, count, 32 * nm + 1, cs, hist, perm + g * lanes,
+             block_barrier());
 }
 
 // the R words of row k, R / 4 aligned 16-byte loads
@@ -572,16 +589,17 @@ horner_kernel(const int32_t* __restrict__ sums, int32_t* __restrict__ out,
 }
 
 template <class Form>
-static int bin_launch(const int32_t* pts, const int8_t* digits, int32_t* rows,
-                      uint32_t* mask, uint32_t* sign, int32_t* cnt,
-                      int32_t* perm, int64_t n, int64_t lanes,
+static int bin_launch(const int32_t* pre, int64_t n0, const int32_t* pts,
+                      const int8_t* digits, int32_t* rows, uint32_t* mask,
+                      uint32_t* sign, int64_t n, int64_t lanes,
                       cudaStream_t stream) {
   const int nm = (int)((n + 32 * lanes - 1) / (32 * lanes));
-  const int64_t tiles = (n + 31) / 32;
-  const unsigned blocks = 64 + (unsigned)(tiles < ROW_BLOCKS ? tiles
-                                                              : ROW_BLOCKS);
-  bin_kernel<Form><<<blocks, (unsigned)lanes, 0, stream>>>(
-      pts, digits, rows, mask, sign, cnt, perm, n, (int)lanes, nm);
+  const int row_blocks = (int)((n + ROW_POINTS - 1) / ROW_POINTS);
+  const int list_blocks =
+      (int)((64 * nm * lanes + BIN_THREADS - 1) / BIN_THREADS);
+  bin_kernel<Form><<<(unsigned)(row_blocks + list_blocks), BIN_THREADS, 0,
+                     stream>>>(pre, n0, pts, digits, rows, mask, sign, n,
+                               (int)lanes, nm, row_blocks, list_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -597,26 +615,43 @@ static int accumulate_launch(const int32_t* rows, const uint32_t* mask,
   return (int)cudaGetLastError();
 }
 
-// K3's binning: niels (3, 10, n) int32, digits (64, n) int8 -> rows (n, 32)
-// (the Niels words, two pad words 0), mask (64, 8, nm, lanes), sign (64, nm,
-// lanes), cnt and perm (64, 8, lanes); nm = ceil(n / (32 lanes)), a lane's
-// words of 32 steps.  Blocks 0-63 bin one window each (a thread per lane);
-// the rest copy the rows.
-BP_EXPORT int bp_msm_bin_niels(const int32_t* niels, const int8_t* digits,
+// K3's binning, first launch: a Niels prefix pre (3, 10, n0) int32 and
+// Z = 1 points pts (4, 10, n - n0) int32 (either part may be empty; pre
+// may be null when n0 = 0), digits (64, n) int8 -> rows (n, 32) (the Niels
+// words of cat(pre, to_niels(pts)), two pad words 0), mask (64, 8, nm,
+// lanes) and sign (64, nm, lanes); nm = ceil(n / (32 lanes)), a lane's
+// words of 32 steps.  bp_msm_rank is the second launch.
+BP_EXPORT int bp_msm_bin_niels(const int32_t* pre, int64_t n0,
+                               const int32_t* pts, const int8_t* digits,
                                int32_t* rows, uint32_t* mask, uint32_t* sign,
-                               int32_t* cnt, int32_t* perm, int64_t n,
-                               int64_t lanes, cudaStream_t stream) {
-  return bin_launch<niels_form>(niels, digits, rows, mask, sign, cnt, perm, n,
+                               int64_t n, int64_t lanes, cudaStream_t stream) {
+  return bin_launch<niels_form>(pre, n0, pts, digits, rows, mask, sign, n,
                                 lanes, stream);
 }
 
-// K11's binning: pts (4, 10, n) int32 -> rows (n, 40), the rest as K3's
+// K11's binning, first launch: pts (4, 10, n) int32 -> rows (n, 40), the
+// rest as K3's
 BP_EXPORT int bp_msm_bin(const int32_t* pts, const int8_t* digits,
                          int32_t* rows, uint32_t* mask, uint32_t* sign,
-                         int32_t* cnt, int32_t* perm, int64_t n,
-                         int64_t lanes, cudaStream_t stream) {
-  return bin_launch<ext_form>(pts, digits, rows, mask, sign, cnt, perm, n,
+                         int64_t n, int64_t lanes, cudaStream_t stream) {
+  return bin_launch<ext_form>(nullptr, 0, pts, digits, rows, mask, sign, n,
                               lanes, stream);
+}
+
+// Both binnings' second launch: mask (64, 8, nm, lanes) -> cnt and perm
+// (64, 8, lanes), a block a (window, bucket)
+BP_EXPORT int bp_msm_rank(const uint32_t* mask, int32_t* cnt, int32_t* perm,
+                          int64_t n, int64_t lanes, cudaStream_t stream) {
+  const int nm = (int)((n + 32 * lanes - 1) / (32 * lanes));
+  const int smem = (32 * nm + 1) * (int)sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rank_kernel<<<64 * NBUCKET, (unsigned)lanes, smem, stream>>>(
+      mask, cnt, perm, (int)lanes, nm);
+  return (int)cudaGetLastError();
 }
 
 // K3: rows, mask, sign, cnt, perm of bp_msm_bin_niels -> slab (64, 8, 4,
@@ -642,23 +677,23 @@ BP_EXPORT int bp_msm_accumulate_z(const int32_t* rows, const uint32_t* mask,
 
 // blocks that one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and their threads:
-// out = {K11 blocks, ACCZ_THREADS, msm_bin blocks, MAX_LANES, K3 blocks,
+// out = {K11 blocks, ACCZ_THREADS, msm_bin blocks, BIN_THREADS, K3 blocks,
 // msm_bin_niels blocks, K4a blocks, REDUCE_THREADS}
 BP_EXPORT int bp_msm_blocks_per_sm(int* out) {
   out[1] = ACCZ_THREADS;
-  out[3] = MAX_LANES;
+  out[3] = BIN_THREADS;
   out[7] = REDUCE_THREADS;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, accumulate_kernel<ext_form>, ACCZ_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out + 2, bin_kernel<ext_form>, MAX_LANES, 0);
+        out + 2, bin_kernel<ext_form>, BIN_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 4, accumulate_kernel<niels_form>, ACCZ_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out + 5, bin_kernel<niels_form>, MAX_LANES, 0);
+        out + 5, bin_kernel<niels_form>, BIN_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 6, reduce_kernel, REDUCE_THREADS, 0);

@@ -49,6 +49,8 @@ __device__ __forceinline__ sc sc_add_elem(const sc& a, const sc& b) {
 // K19: the sum mod l of rows first, first + step, .. < n of one column
 // (row i at p + i s0, its limbs sl apart); 0 when there are none.  The
 // rows are canonical, so every order of addition gives the same limbs.
+// (Loading four rows at a time was no faster from memory on an H100, and
+// slower warm in L2: the loop stays one row a step.)
 __device__ __forceinline__ sc sc_sum_rows(const int64_t* p, int64_t s0,
                                           int64_t sl, int64_t n,
                                           int64_t first, int64_t step) {
@@ -56,6 +58,16 @@ __device__ __forceinline__ sc sc_sum_rows(const int64_t* p, int64_t s0,
   for (int64_t i = first; i < n; i += step)
     acc = sc_add(acc, sc_load(p + i * s0, sl));
   return acc;
+}
+
+// K19's slice s of `slices` equal parts of rows [0, rows): [r0, r1), empty
+// (r1 <= r0) past the last row
+__device__ __forceinline__ void sc_slice(int64_t rows, int64_t slices,
+                                         int64_t s, int64_t& r0,
+                                         int64_t& r1) {
+  const int64_t q = (rows + slices - 1) / slices;
+  r0 = s * q;
+  r1 = r0 + q < rows ? r0 + q : rows;
 }
 
 // -- K20: ChaCha20 (RFC 8439) and the wide reduction --------------------------

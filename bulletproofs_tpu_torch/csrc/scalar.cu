@@ -31,7 +31,16 @@
 // double Montgomery reduction (504 multiply-adds, beside them): the ALU
 // operations bind (0.0315 ms at the m = 1 half's 540,672 draws).  Design:
 // no shared memory (K19's eight partial sums aside) and no reuse to
-// exploit; each thread's arithmetic stays in registers.
+// exploit; each thread's arithmetic stays in registers.  K19's first form
+// ran one block per 32 columns whatever the rows: 16 blocks at the m = 16
+// round's 1024 x 512, each thread adding 128 rows in turn (12 % of its
+// bound).  Its blocks now also split the rows (grid.y) until the card
+// holds about two blocks an SM (ops/scalar.tree_slices), and a second
+// launch adds the slices' canonical sums: canonical sums are unique, so
+// the limbs are tree_sum_plain's whatever the order, with no atomics.  Its prefix form
+// sums the first h rows of two vectors side by side, h read from device
+// memory (the IPP round's cross terms: no masked copy, and every round's
+// launch the same).
 //
 // Secret data: the witness rows pass through K17-K19 and K20 draws the
 // blinds.  Every thread runs the same instructions whatever its values
@@ -87,19 +96,29 @@ sc_add_kernel(sc_view a, sc_view b, int64_t* __restrict__ out, int64_t R1,
   }
 }
 
-// v (n, 9, P) of any strides -> out (9, P): each of a column's TS_SLICES
-// threads sums every TS_SLICES-th row, then the first adds the others'
-// partial sums from shared memory
+// K19 over columns [0, Pa) of operand a and [Pa, Pt) of operand b (b.p
+// null when Pa = Pt; the prefix form's second vector) and rows [0, rows),
+// rows = min(n, *h) (h null: n): slice s = blockIdx.y sums its part of the
+// rows (sc_slice) into out + s 9 Pt.  Each of a column's TS_SLICES threads
+// sums every TS_SLICES-th row of the part, then the first adds the others'
+// partial sums from shared memory.  (Two columns a thread by 16-byte loads
+// were slower from memory on an H100 than one.)
 __global__ void __launch_bounds__(TS_COLS * TS_SLICES)
-sc_tree_sum_kernel(sc_view v, int64_t* __restrict__ out, int64_t n,
-                   int64_t P) {
+sc_tree_sum_kernel(sc_view a, sc_view b, int64_t Pa, int64_t Pt, int64_t n,
+                   const int64_t* __restrict__ h, int64_t* __restrict__ out) {
   __shared__ uint32_t part[TS_SLICES][9][TS_COLS];
   const int64_t c = (int64_t)blockIdx.x * TS_COLS + threadIdx.x;
-  const bool live = c < P;
+  const bool live = c < Pt;
+  const int64_t hv = h ? *h : n;
+  const int64_t rows = hv < 0 ? 0 : hv < n ? hv : n;
+  int64_t r0, r1;
+  sc_slice(rows, gridDim.y, blockIdx.y, r0, r1);
   sc acc = sc_zero();
-  if (live)
-    acc = sc_sum_rows(v.p + c * v.scol, v.s0, v.sl, n, threadIdx.y,
-                      TS_SLICES);
+  if (live) {
+    const sc_view v = c < Pa ? a : b;
+    acc = sc_sum_rows(v.p + (c < Pa ? c : c - Pa) * v.scol + r0 * v.s0,
+                      v.s0, v.sl, r1 - r0, threadIdx.y, TS_SLICES);
+  }
 #pragma unroll
   for (int k = 0; k < 9; ++k) part[threadIdx.y][k][threadIdx.x] = acc.v[k];
   __syncthreads();
@@ -111,7 +130,7 @@ sc_tree_sum_kernel(sc_view v, int64_t* __restrict__ out, int64_t n,
     for (int k = 0; k < 9; ++k) x.v[k] = part[s][k][threadIdx.x];
     acc = sc_add(acc, x);
   }
-  sc_store(out + c, P, acc);
+  sc_store(out + (int64_t)blockIdx.y * 9 * Pt + c, Pt, acc);
 }
 
 struct chacha_key {
@@ -179,13 +198,20 @@ BP_EXPORT int bp_sc_add(const int64_t* a, int64_t as0, int64_t as1,
   return (int)cudaGetLastError();
 }
 
-// v (n, 9, P) with strides (s0, sl, scol) -> out (9, P) contiguous
-BP_EXPORT int bp_sc_tree_sum(const int64_t* v, int64_t s0, int64_t sl,
-                             int64_t scol, int64_t* out, int64_t n,
-                             int64_t P, cudaStream_t stream) {
-  const sc_view vv{v, s0, 0, sl, scol};
-  sc_tree_sum_kernel<<<(unsigned)((P + TS_COLS - 1) / TS_COLS),
-                       dim3(TS_COLS, TS_SLICES), 0, stream>>>(vv, out, n, P);
+// a (n, 9, Pa) and b (n, 9, Pt - Pa) with strides (s0, sl, scol), b null
+// when Pt = Pa; h null or a device int64, the rows summed at most -> out
+// (slices, 9, Pt) contiguous, slice s the sum of the s-th of `slices`
+// equal parts of the rows (ops/scalar.py adds the slices by a second call)
+BP_EXPORT int bp_sc_tree_sum(const int64_t* a, int64_t as0, int64_t asl,
+                             int64_t asc, const int64_t* b, int64_t bs0,
+                             int64_t bsl, int64_t bsc, int64_t Pa, int64_t Pt,
+                             int64_t n, const int64_t* h, int64_t* out,
+                             int64_t slices, cudaStream_t stream) {
+  const sc_view va{a, as0, 0, asl, asc}, vb{b, bs0, 0, bsl, bsc};
+  sc_tree_sum_kernel<<<dim3((unsigned)((Pt + TS_COLS - 1) / TS_COLS),
+                            (unsigned)slices),
+                       dim3(TS_COLS, TS_SLICES), 0, stream>>>(va, vb, Pa, Pt,
+                                                              n, h, out);
   return (int)cudaGetLastError();
 }
 

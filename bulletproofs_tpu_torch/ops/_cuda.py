@@ -34,7 +34,8 @@ SOURCES = {"decompress": "decompress.cu", "emit": "emit.cu", "msm": "msm.cu",
            "fold": "fold.cu", "keccak": "keccak.cu", "fmul13": "fmul13.cu",
            "scalar": "scalar.cu"}
 HEADERS = ("fe25519.cuh", "sc25519.cuh", "common.cuh", "emit.cuh",
-           "reduce.cuh", "keccak.cuh", "fmul13.cuh", "sc_vec.cuh")
+           "reduce.cuh", "keccak.cuh", "fmul13.cuh", "sc_vec.cuh",
+           "msm_bin.cuh")
 
 # kernel name -> number of launches since the last reset_counts()
 LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,

@@ -1,8 +1,10 @@
 """Pippenger multi-scalar multiplication: kernels K3 (bucket accumulation
 of Z = 1 points in Niels form) and K11 (bucket accumulation of points of
-any Z), each a binning launch (msm_bin_niels / msm_bin) then one thread
-per bucket, and K4 (bucket reduction, then the Horner window combine with
-the ristretto is-identity flag), csrc/msm.cu.
+any Z), each a binning (msm_bin_niels / msm_bin: two launches, the lane
+lists and rows, then the lanes ranked by length; K3's also makes the
+Niels rows of Z = 1 extended points) then one thread per bucket, and K4
+(bucket reduction, then the Horner window combine with the ristretto
+is-identity flag), csrc/msm.cu.
 
 The JAX package's ops/msm_pallas.py `_msm_pallas_niels` (`msm_niels`) and
 `_msm_pallas` (`msm_lanes_flag`) in the port's layout: signed base-16
@@ -112,15 +114,25 @@ def accumulate_plain(niels: torch.Tensor,
     return _accumulate_plain(niels, digits, _niels_identity, _add_niels)
 
 
-def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Kernel K3 on CUDA tensors (msm_bin_niels, then msm_accumulate: one
-    thread per (window, bucket, lane) adds its list of bin_points rows into
-    a bucket in registers), the plain version on CPU tensors."""
-    n = _check_points(niels, digits, (3,))
-    if niels.device.type == "cpu":
-        return accumulate_plain(niels, digits)
+def accumulate(niels: torch.Tensor, digits: torch.Tensor,
+               points: torch.Tensor = None) -> torch.Tensor:
+    """Kernel K3 on CUDA tensors (its binning, then msm_accumulate: one
+    thread per (window, bucket, lane) adds its list of rows into a bucket
+    in registers), the plain version on CPU tensors.  With `points`, Z = 1
+    points (4, 10, N1) follow the Niels points and the binning puts them
+    in Niels form (bin_niels): the sum of cat(niels, to_niels(points))."""
+    if points is not None:
+        n = _check_two(niels, points, digits)
+        if niels.device.type == "cpu":
+            return accumulate_plain(_niels_cat(niels, points), digits)
+        binned = bin_niels(niels, points, digits)
+    else:
+        n = _check_points(niels, digits, (3,))
+        if niels.device.type == "cpu":
+            return accumulate_plain(niels, digits)
+        binned = bin_points(niels, digits)
     return _accumulate_binned("msm_accumulate", "bp_msm_accumulate",
-                              bin_points(niels, digits), n, niels.device)
+                              binned, n, niels.device)
 
 
 def _accumulate_binned(kernel: str, fn: str, binned, n: int, device):
@@ -198,28 +210,78 @@ def bin_points_plain(points: torch.Tensor, digits: torch.Tensor
 
 def bin_points(points: torch.Tensor, digits: torch.Tensor
                ) -> Tuple[torch.Tensor, ...]:
-    """The binning launch of K3 (msm_bin_niels, for Niels points) or of K11
+    """The binning of K3 (msm_bin_niels, for Niels points) or of K11
     (msm_bin) on CUDA tensors, bin_points_plain on CPU tensors."""
     n = _check_points(points, digits)
     if points.device.type == "cpu":
         return bin_points_plain(points, digits)
-    c = points.shape[0]
+    if points.shape[0] == 3:
+        return _bin("msm_bin_niels", points, None, digits)
+    return _bin("msm_bin", None, points, digits)
+
+
+def _niels_cat(niels: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    return torch.cat([niels, C.to_niels(points)], dim=-1)
+
+
+def _check_two(niels, points, digits) -> int:
+    n0 = _check_points(niels, digits[:, :niels.shape[-1]], (3,))
+    n1 = _check_points(points, digits[:, n0:], (4,))
+    if digits.shape[-1] != n0 + n1:
+        raise ValueError("takes digits (64, N0 + N1) for Niels points "
+                         "(3, 10, N0) and points (4, 10, N1)")
+    return n0 + n1
+
+
+def bin_niels_plain(niels: torch.Tensor, points: torch.Tensor,
+                    digits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """bin_points_plain(cat(niels, to_niels(points)), digits)."""
+    _check_two(niels, points, digits)
+    return bin_points_plain(_niels_cat(niels, points), digits)
+
+
+def bin_niels(niels: torch.Tensor, points: torch.Tensor,
+              digits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K3's binning of Niels points (3, 10, N0) followed by Z = 1 points
+    (4, 10, N1) (either may be empty), digits (64, N0 + N1): on CUDA
+    tensors msm_bin_niels, which writes the points' Niels rows itself
+    (Y+X, Y-X, 2dT: curve.to_niels' limbs); on CPU tensors
+    bin_niels_plain."""
+    if niels.device.type == "cpu":
+        return bin_niels_plain(niels, points, digits)
+    _check_two(niels, points, digits)
+    return _bin("msm_bin_niels", niels, points, digits)
+
+
+def _bin(kernel: str, pre, pts, digits) -> Tuple[torch.Tensor, ...]:
+    """The two launches of a binning: the masks and the rows of `pre`
+    (Niels points) and `pts` (extended points, in Niels form where `pre`
+    is given), then the lanes' counts and ranks."""
+    n = digits.shape[-1]
     lanes = pick_lanes(n)
     nm = -(-n // (32 * lanes))
-    _cuda.check(points, torch.int32)
+    for t in (pre, pts):
+        if t is not None:
+            _cuda.check(t, torch.int32)
     _cuda.check(digits, torch.int8)
-    dev = points.device
-    rows = torch.empty((n, ROW_WORDS[c]), dtype=torch.int32, device=dev)
+    dev = digits.device
+    rows = torch.empty((n, ROW_WORDS[4 if pre is None else 3]),
+                       dtype=torch.int32, device=dev)
     mask = torch.empty((NUM_WINDOWS, NUM_BUCKETS, nm, lanes),
                        dtype=torch.int32, device=dev)
     sign = torch.empty((NUM_WINDOWS, nm, lanes), dtype=torch.int32,
                        device=dev)
     cnt, perm = torch.empty((2, NUM_WINDOWS, NUM_BUCKETS, lanes),
                             dtype=torch.int32, device=dev)
-    kernel, fn = (("msm_bin_niels", "bp_msm_bin_niels") if c == 3
-                  else ("msm_bin", "bp_msm_bin"))
-    _cuda.launch(kernel, "msm", fn, points, digits, rows, mask, sign, cnt,
-                 perm, n, lanes)
+    if n and pre is None:
+        _cuda.launch(kernel, "msm", "bp_msm_bin", pts, digits, rows, mask,
+                     sign, n, lanes)
+    elif n:
+        n0 = pre.shape[-1]
+        _cuda.launch(kernel, "msm", "bp_msm_bin_niels", pre if n0 else None,
+                     n0, pts if pts is not None and n > n0 else None, digits,
+                     rows, mask, sign, n, lanes)
+    _cuda.launch(kernel, "msm", "bp_msm_rank", mask, cnt, perm, n, lanes)
     return rows, mask, sign, cnt, perm
 
 
@@ -314,12 +376,15 @@ def horner(sums: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, flag.bool()
 
 
-def msm_niels(niels: torch.Tensor,
-              digits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def msm_niels(niels: torch.Tensor, digits: torch.Tensor,
+              points: torch.Tensor = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """sum_k digits[:, k] . P_k for Niels points (3, 10, N) and signed
     digits (64, N) int8 -> (point (4, 10) int32, is-identity flag (1,)
-    bool), on the device of the inputs."""
-    return horner(reduce(accumulate(niels, digits)))
+    bool), on the device of the inputs.  With `points`, Z = 1 points (4,
+    10, N1) follow the Niels points (K3's binning makes their Niels rows)
+    and the digits are (64, N + N1)."""
+    return horner(reduce(accumulate(niels, digits, points)))
 
 
 def msm_lanes_flag(points: torch.Tensor, scalars: torch.Tensor
@@ -352,15 +417,16 @@ def msm_lanes_niels_flag(points: torch.Tensor, scalars: torch.Tensor
     """msm_lanes_flag for points (4, 10, N) int32 that already have Z = 1
     (decompressed points and the generator tables do; normalize_z makes
     others so) by the Niels mixed addition (msm_pallas.msm_lanes_niels_flag):
-    digits by K10, curve.to_niels, then K3, K4a, K4b -> (point (4, 10, 1)
-    int32, is-identity flag (1,) bool).  The JAX function takes device
-    digits (64, N); this one takes (N, 32) uint8 scalar bytes, as
-    msm_lanes_flag does."""
+    digits by K10, then K3 (whose binning makes the Niels rows), K4a, K4b
+    -> (point (4, 10, 1) int32, is-identity flag (1,) bool).  The JAX
+    function takes device digits (64, N); this one takes (N, 32) uint8
+    scalar bytes, as msm_lanes_flag does."""
     if scalars.dim() != 2 or scalars.shape != (points.shape[-1], 32):
         raise ValueError("msm_lanes_niels_flag takes (N, 32) scalar bytes "
                          "for (4, 10, N) points")
     digits = FO.digits_lanes(S.from_bytes32(scalars))
-    out, flag = msm_niels(C.to_niels(points), digits)
+    empty = torch.empty((3, L, 0), dtype=torch.int32, device=points.device)
+    out, flag = msm_niels(empty, digits, points)
     return out[..., None], flag
 
 

@@ -365,7 +365,7 @@ def _dyn_round_maps(N: int):
         w64 = np.arange(64)
         emit.append(dict(
             idx_partner=np.where(j < h, j + h, 0),
-            mask_half=j < h,
+            half=np.int64(h),
             hi_sel=hi_sel, lo_sel=lo_sel,
             al=hi_sel % nk - h, bl=lo_sel % nk + h,
             ar=lo_sel % nk + h, br=hi_sel % nk - h,
@@ -415,8 +415,9 @@ def round_emit_dyn(a, b, gw, hw, w, em):
     """round_digits_compact with runtime gather maps -> (dig_l, dig_r), each
     ((N + 1) * 64, P) over the base orders em["sel_l"] / em["sel_r"].  The
     six vector products of the round are one `smul` over their rows
-    stacked (the JAX package makes six), the two cross terms one tree
-    sum."""
+    stacked (the JAX package makes six), the two cross terms one prefix
+    tree sum over the first em["half"] rows (the JAX package masks the
+    rest)."""
     N, P = a.shape[0], a.shape[-1]
     h = em["hi_sel"].shape[0]
     x = torch.cat([a, a.index_select(0, em["idx_partner"]),
@@ -428,9 +429,7 @@ def round_emit_dyn(a, b, gw, hw, w, em):
                    gw.index_select(0, em["lo_sel"]),
                    hw.index_select(0, em["hi_sel"])])
     prod = S.smul(x, y)
-    mh = em["mask_half"][:, None, None]
-    cross = S.tree_sum(torch.where(mh, torch.cat([prod[:N], prod[N: 2 * N]],
-                                                 dim=-1), 0))
+    cross = S.tree_sum_prefix(prod[:N], prod[N: 2 * N], em["half"])
     cw = S.smul(cross, torch.cat([w, w], dim=-1))          # [cL w | cR w]
     alpha_l, beta_l, alpha_r, beta_r = prod[2 * N:].split(h)
     coef_l = torch.cat([cw[None, :, :P], alpha_l, beta_l])

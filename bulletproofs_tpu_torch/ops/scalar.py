@@ -13,8 +13,9 @@ multiplies plain canonical values.
 
 Kernels (csrc/scalar.cu, csrc/fold.cu), one launch per call:
 `mont_mul` and `smul` are K17 sc_mul (`to_mont`, `from_mont` and
-`sreduce` by composition), `sadd` and `sneg` K18 sc_add, `tree_sum` K19
-sc_tree_sum, `from_wide_bytes` K20 chacha_scalars (its wide form; the
+`sreduce` by composition), `sadd` and `sneg` K18 sc_add, `tree_sum` and
+`tree_sum_prefix` K19 sc_tree_sum (two launches where a second adds its
+row slices), `from_wide_bytes` K20 chacha_scalars (its wide form; the
 same kernel draws ops/chacha.random_scalars) and `sinv` K14.  Each
 wrapper runs its plain version (`*_plain`) for a CPU tensor and launches
 its kernel for a CUDA tensor.  K17 and K18 broadcast like the plain
@@ -317,23 +318,89 @@ def tree_sum_plain(v: torch.Tensor) -> torch.Tensor:
     return v[0]
 
 
+# K19's first launch: 32 columns a block; where those blocks number fewer
+# than half an H100's 132 SMs, it splits the rows into slices as well,
+# until there are about two blocks an SM, a slice at least 32 rows (four
+# a thread); a second launch then adds the slices' sums.  (On an H100,
+# from memory, one launch beat two slices at 64 x 4096, and 17 slices
+# beat more at 1024 x 512.)
+TS_COLS = 32
+_TS_SMS = 132
+_TS_MIN_ROWS = 32
+
+
+def tree_slices(n: int, P: int) -> int:
+    """Row slices of K19's first launch over n rows of P columns: 1 (one
+    launch) when its column blocks fill half the card or the rows are
+    few, else one more launch adds the slices' sums."""
+    cols = -(-P // TS_COLS)
+    if 2 * cols >= _TS_SMS:
+        return 1
+    return max(1, min(-(-2 * _TS_SMS // max(cols, 1)), n // _TS_MIN_ROWS))
+
+
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
     """(n, 9, P) canonical, n >= 1 -> (9, P) their sum mod l
     (vec_scalar.tree_sum): by halving over the leading axis on the CPU,
-    kernel K19 (a column's rows in 8 slices, then their partial sums) on a
-    CUDA tensor; the sum is canonical, so the order does not show."""
+    kernel K19 on a CUDA tensor (row slices of 32 columns a block, then,
+    where there are several slices, a second launch adding them); the sum
+    is canonical, so the order does not show."""
     if v.dim() != 3 or v.shape[1] != L or v.shape[0] == 0:
         raise ValueError(f"tree_sum takes an (n >= 1, {L}, P) tensor, got "
                          f"{tuple(v.shape)}")
     if v.device.type == "cpu":
         return tree_sum_plain(v)
-    if v.dtype != torch.int64:
-        raise TypeError(f"tree_sum: expected torch.int64, got {v.dtype}")
-    n, _, P = v.shape
-    out = torch.empty((L, P), dtype=torch.int64, device=v.device)
-    if P:
-        _cuda.launch("sc_tree_sum", "scalar", "bp_sc_tree_sum", v,
-                     v.stride(0), v.stride(1), v.stride(2), out, n, P)
+    return _tree_sum_launch(v, None, None)
+
+
+def tree_sum_prefix_plain(x: torch.Tensor, y: torch.Tensor,
+                          h: torch.Tensor) -> torch.Tensor:
+    live = (torch.arange(x.shape[0], device=x.device) < h)[:, None, None]
+    return tree_sum_plain(torch.where(live, torch.cat([x, y], dim=-1), 0))
+
+
+def tree_sum_prefix(x: torch.Tensor, y: torch.Tensor,
+                    h: torch.Tensor) -> torch.Tensor:
+    """x, y (n, 9, P) canonical of any strides, h a 0-dim int64 tensor (the
+    rows to sum, at most n) -> (9, 2P) [sum of x[:h] | sum of y[:h]] mod
+    l: the IPP round's two cross terms (prover_stages.round_emit_dyn).  On
+    the CPU the masked composition tree_sum(where(j < h, cat([x, y]),
+    0)); on CUDA tensors kernel K19 reading both operands by their strides
+    and h from device memory, so that every round launches the same."""
+    if x.dim() != 3 or x.shape[1] != L or x.shape != y.shape \
+            or x.shape[0] == 0 or h.dim() != 0:
+        raise ValueError(f"tree_sum_prefix takes two (n >= 1, {L}, P) "
+                         f"tensors and a 0-dim row count, got "
+                         f"{tuple(x.shape)}, {tuple(y.shape)}, "
+                         f"{tuple(h.shape)}")
+    if x.device.type == "cpu":
+        return tree_sum_prefix_plain(x, y, h)
+    if h.dtype != torch.int64 or h.device != x.device:
+        raise TypeError(f"tree_sum_prefix: h must be int64 on {x.device}")
+    return _tree_sum_launch(x, y, h)
+
+
+def _tree_sum_launch(a: torch.Tensor, b, h) -> torch.Tensor:
+    """K19 over the columns of a, then of b (None: a alone), and the rows
+    below h (None: all): one launch over tree_slices slices, and one
+    adding the slices when there are several."""
+    for t in (a, b):
+        if t is not None and t.dtype != torch.int64:
+            raise TypeError(f"tree_sum: expected torch.int64, got {t.dtype}")
+    n, _, Pa = a.shape
+    Pt = Pa if b is None else 2 * Pa
+    out = torch.empty((L, Pt), dtype=torch.int64, device=a.device)
+    if not Pt:
+        return out
+    k = tree_slices(n, Pt)
+    part = out if k == 1 else torch.empty((k, L, Pt), dtype=torch.int64,
+                                          device=a.device)
+    bv = (None, 0, 0, 0) if b is None else (b,) + b.stride()
+    _cuda.launch("sc_tree_sum", "scalar", "bp_sc_tree_sum", a, *a.stride(),
+                 *bv, Pa, Pt, n, h, part, k)
+    if k > 1:
+        _cuda.launch("sc_tree_sum", "scalar", "bp_sc_tree_sum", part,
+                     L * Pt, Pt, 1, None, 0, 0, 0, Pt, Pt, k, None, out, 1)
     return out
 
 

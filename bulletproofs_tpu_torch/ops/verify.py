@@ -21,7 +21,6 @@ import torch
 
 from ..core.scalar import L as ELL
 from . import _cuda
-from . import curve as C
 from . import msm as M
 from . import scalar as S
 from .limbs import SC_LIMBS, sc_ints_to_limbs
@@ -352,6 +351,7 @@ def fused_tail(n: int, m: int, blk: torch.Tensor, pair: torch.Tensor,
     pair_sc = S.sreduce(S.from_bytes32(pair))                # (9, 2)
     static_sc = torch.cat([pair_sc, gh[0].T, gh[1].T], dim=-1)
     digits = torch.cat([S.signed_digits(static_sc), dyn_digits], dim=-1)
-    niels = torch.cat([static_niels, C.to_niels(dyn_pts)], dim=-1)
-    _, flag = M.msm_niels(niels.contiguous(), digits.contiguous())
+    # K3's binning makes the dynamic points' Niels rows
+    _, flag = M.msm_niels(static_niels.contiguous(), digits.contiguous(),
+                          dyn_pts.contiguous())
     return flag & dyn_valid.all()

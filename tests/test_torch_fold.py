@@ -396,11 +396,18 @@ def test_sinv_rejects_bad_shapes():
 @pytest.mark.parametrize("N", [8, 64, 1024])
 def test_dyn_round_maps_match_jax(N):
     """The device-transcript route's per-round gather maps equal the JAX
-    package's (its masks are int32 0 / 1, the port's bool)."""
+    package's (its masks are int32 0 / 1, the port's bool).  Where the JAX
+    package masks the cross terms' rows by `mask_half`, the prefix j < h,
+    the port keeps h as `half` (K19's prefix form reads it)."""
     emit, folds = PS._dyn_round_maps(N)
     jemit, jfolds = JPS._dyn_round_maps(N)
     assert len(emit) == len(jemit) and len(folds) == len(jfolds)
     for mine, theirs in zip(emit + folds, jemit + jfolds):
+        if "half" in mine:
+            mask = theirs["mask_half"].astype(bool)
+            assert np.array_equal(mask, np.arange(N) < mine["half"])
+            theirs = {k: v for k, v in theirs.items() if k != "mask_half"}
+            mine = {k: v for k, v in mine.items() if k != "half"}
         assert mine.keys() == theirs.keys()
         for k in mine:
             assert np.array_equal(mine[k].astype(np.int64),

@@ -178,6 +178,12 @@ def test_verify_batch_on_card(cuda, monkeypatch):
         proofs.append(p)
         vcs.append([v])
     bv = BatchVerifier(bp, pc, n=8, m=1, device=cuda)
+    real_to_niels = C.to_niels
+
+    def to_niels(pts):              # the fused tail's binning makes them
+        assert pts.device.type == "cpu", "to_niels on the card"
+        return real_to_niels(pts)
+    monkeypatch.setattr(C, "to_niels", to_niels)
     bv.verify_batch(proofs, vcs, [Transcript(b"gpu") for _ in proofs],
                     rng=rng)
     with pytest.raises(ProofError):
@@ -431,18 +437,22 @@ def test_accumulate_z_and_msm_lanes_match_plain(cuda):
     assert not bool(flag[0])
 
 
-@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES])
+@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES] + [196653])
 def test_bin_kernel_matches_plain(cuda, case):
-    """msm_bin, one launch, against bin_points_plain on the CPU: its five
-    outputs rows (the points point-major), mask (each bucket's bit mask of
-    lane steps), sign, cnt (each list's length) and perm (each bucket's
-    lanes ranked by length)."""
-    pts, dig = AZ.edge_inputs(case, 7, cuda)
+    """msm_bin, two launches (the lists and rows, then the ranks), against
+    bin_points_plain on the CPU: its five outputs rows (the points
+    point-major), mask (each bucket's bit mask of lane steps), sign, cnt
+    (each list's length) and perm (each bucket's lanes ranked by length),
+    on the edge cases and at the R1CS k = 2^15 mega-MSM's 196,653 points."""
+    if case == 196653:
+        pts, dig = AZ.make_points(case, 7, cuda), AZ.make_digits(case, 8, cuda)
+    else:
+        pts, dig = AZ.edge_inputs(case, 7, cuda)
     before = _cuda.LAUNCHES["msm_bin"]
     got = M.bin_points(pts, dig)
     want = M.bin_points_plain(pts.cpu(), dig.cpu())
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["msm_bin"] == before + 1
+    assert _cuda.LAUNCHES["msm_bin"] == before + 2
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
@@ -458,21 +468,51 @@ def test_accumulate_z_kernel_matches_plain_on_edge_cases(cuda, case):
     want = M.accumulate_z_plain(pts.cpu(), dig.cpu())
     torch.cuda.synchronize()
     assert (_cuda.LAUNCHES["msm_bin"], _cuda.LAUNCHES["msm_accumulate_z"]) \
-        == (before[0] + 1, before[1] + 1)
+        == (before[0] + 2, before[1] + 1)
     assert torch.equal(slab.cpu(), want)
 
 
-@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES])
-def test_bin_niels_kernel_matches_plain(cuda, case):
-    """msm_bin_niels (K3's binning), one launch, against bin_points_plain
-    on the CPU on the edge cases: the Niels rows padded to 32 words, mask,
-    sign, cnt and perm."""
-    pts, dig = AZ.edge_inputs(case, 7, cuda, niels=True)
+def _two_sources(case, cuda):
+    """(Niels points, Z = 1 points, digits): a case's points split into a
+    Niels prefix (the first third) and Z = 1 extended points after it, or
+    130 static-like Niels points before 196,523 Z = 1 points (196,653)."""
+    if case == 196653:
+        pre = AZ.make_niels(130, 9, cuda)
+        pts = M.normalize_z(AZ.make_points(case - 130, 10, cuda))
+        return pre, pts, AZ.make_digits(case, 11, cuda)
+    ext, dig = AZ.edge_inputs(case, 7, cuda)
+    ext = M.normalize_z(ext)
+    k = ext.shape[-1] // 3
+    return C.to_niels(ext[:, :, :k]).contiguous(), \
+        ext[:, :, k:].contiguous(), dig
+
+
+@pytest.mark.parametrize("form", ["niels", "two sources"])
+@pytest.mark.parametrize("case", [c for c, _ in AZ.CASES] + [196653])
+def test_bin_niels_kernel_matches_plain(cuda, case, form):
+    """msm_bin_niels (K3's binning), two launches, against its plain
+    version on the CPU: the Niels rows padded to 32 words, mask, sign, cnt
+    and perm; for Niels points alone (bin_points) and for a Niels prefix
+    followed by Z = 1 extended points whose Niels rows the kernel makes
+    (bin_niels), on the edge cases and at 196,653 points."""
+    if form == "niels":
+        if case == 196653:
+            pts, dig = AZ.make_niels(case, 9, cuda), AZ.make_digits(case, 11,
+                                                                     cuda)
+        else:
+            pts, dig = AZ.edge_inputs(case, 7, cuda, niels=True)
+        run = lambda: M.bin_points(pts, dig)                  # noqa: E731
+        plain = lambda: M.bin_points_plain(pts.cpu(), dig.cpu())  # noqa: E731
+    else:
+        pre, pts, dig = _two_sources(case, cuda)
+        run = lambda: M.bin_niels(pre, pts, dig)              # noqa: E731
+        plain = lambda: M.bin_niels(pre.cpu(), pts.cpu(),     # noqa: E731
+                                    dig.cpu())
     before = _cuda.LAUNCHES["msm_bin_niels"]
-    got = M.bin_points(pts, dig)
-    want = M.bin_points_plain(pts.cpu(), dig.cpu())
+    got = run()
+    want = plain()
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["msm_bin_niels"] == before + 1
+    assert _cuda.LAUNCHES["msm_bin_niels"] == before + 2
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
@@ -487,21 +527,25 @@ def test_accumulate_kernel_matches_plain_on_edge_cases(cuda, case):
     slab = M.accumulate(pts, dig)
     want = M.accumulate_plain(pts.cpu(), dig.cpu())
     torch.cuda.synchronize()
-    assert [_cuda.LAUNCHES[k] for k in keys] == [b + 1 for b in before]
+    assert [_cuda.LAUNCHES[k] for k in keys] == [before[0] + 2, before[1] + 1]
     assert torch.equal(slab.cpu(), want)
 
 
 def test_accumulate_kernel_at_a_verify_sub_batch(cuda):
     """K3 and its binning at a 2048-proof sub-batch's 34,946 points (512
-    lanes), against their plain versions on the card."""
-    pts = AZ.make_niels(34946, 93, cuda)
+    lanes): 130 static Niels points and 34,816 Z = 1 decoded-like points
+    that the binning puts in Niels form, against their plain versions on
+    the card."""
+    pre = AZ.make_niels(130, 93, cuda)
+    pts = M.normalize_z(AZ.make_points(34816, 95, cuda))
     dig = AZ.make_digits(34946, 94, cuda)
-    binned = M.bin_points(pts, dig)
+    binned = M.bin_niels(pre, pts, dig)
     assert binned[-1].shape[-1] == 512
+    whole = torch.cat([pre, C.to_niels(pts)], dim=-1)
     assert all(torch.equal(a, b) for a, b in
-               zip(binned, M.bin_points_plain(pts, dig)))
-    slab = M.accumulate(pts, dig)
-    want = M.accumulate_plain(pts, dig)
+               zip(binned, M.bin_points_plain(whole, dig)))
+    slab = M.accumulate(pre, dig, pts)
+    want = M.accumulate_plain(whole, dig)
     torch.cuda.synchronize()
     assert torch.equal(slab, want)
 
@@ -905,11 +949,18 @@ def test_from_uniform_bytes_on_card_equals_cpu(cuda):
                         "msm_reduce", "msm_horner")),
     ("msm_lanes_niels_flag", ("digits", "msm_bin_niels", "msm_accumulate",
                               "msm_reduce", "msm_horner"))])
-def test_msm_routes_at_2_12_on_card(cuda, route, kernels):
+def test_msm_routes_at_2_12_on_card(cuda, route, kernels, monkeypatch):
     """Each MSM route over 2^12 hashed points (normalize_z'd for the Niels
-    route) on the card: one launch of each of its kernels, the limbs and
-    flag of its plain version (the same route on CPU tensors), and the
-    other route's point."""
+    route) on the card: one launch of each of its kernels (two of the
+    binning's), no plain curve.to_niels on the card (the Niels bin makes
+    the rows), the limbs and flag of its plain version (the same route on
+    CPU tensors), and the other route's point."""
+    real_to_niels = C.to_niels
+
+    def to_niels(pts):
+        assert pts.device.type == "cpu", "to_niels on the card"
+        return real_to_niels(pts)
+    monkeypatch.setattr(C, "to_niels", to_niels)
     n = 1 << 12
     pts = C.from_uniform_bytes(_uniform_rows(n, 94))
     sb = np.random.default_rng(95).integers(0, 256, (n, 32), dtype=np.uint8)
@@ -923,7 +974,8 @@ def test_msm_routes_at_2_12_on_card(cuda, route, kernels):
     torch.cuda.synchronize()
     launched = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
                 if v != before.get(k, 0)}
-    assert launched == {k: 1 for k in kernels}
+    assert launched == {k: 2 if k.startswith("msm_bin") else 1
+                        for k in kernels}
     want, wflag = getattr(M, route)(ins[route].cpu(), sc.cpu())
     assert torch.equal(out.cpu(), want) and torch.equal(flag.cpu(), wflag)
     alt, _ = getattr(M, other)(ins[other], sc)
@@ -1009,20 +1061,40 @@ def test_sc_add_kernel_matches_plain(cuda, case):
         assert torch.equal(got, want), name
 
 
-@pytest.mark.parametrize("n, P", [(1, 37), (7, 37), (64, 8192), (63, 8192),
-                                  (16, 256), (1024, 512), (1023, 256),
-                                  (5, 0)])
-def test_sc_tree_sum_kernel_matches_plain(cuda, n, P):
+@pytest.mark.parametrize("n, P, launches", [
+    (1, 37, 1), (7, 37, 1), (64, 8192, 1), (63, 8192, 1), (16, 256, 1),
+    (64, 4096, 1), (1024, 512, 2), (1024, 256, 2), (1023, 256, 2),
+    (5, 0, 0)])
+def test_sc_tree_sum_kernel_matches_plain(cuda, n, P, launches):
     """K19 against tree_sum_plain at the provers' sums (64 x 8192 the m = 1
-    round's cross terms, 1024 x 512 the m = 16 one's, 16 x 256 the
-    t-blinding's), odd n, a column slice and no columns: one launch for
-    columns, none without."""
+    round's cross terms, 1024 x 512 the m = 16 one's, 64 x 4096 and 1024 x
+    256 stage 1's, 16 x 256 the t-blinding's), odd n, a column slice and
+    no columns: one launch where its 32-column blocks fill half the card
+    or the rows are few, two (row slices, then their sums) at m = 16's
+    stage 1 sums and cross terms, none without columns."""
     v = _fast_sc((n, 9, 2 * P), 104 + n).to(cuda)
     for what, x in (("contiguous", v[:, :, :P].contiguous()),
                     ("column slice", v[:, :, P:])):
         got, k, other = _sc_launched(lambda: S.tree_sum(x), "sc_tree_sum")
-        assert (k, other) == (int(P > 0), {}), what
+        assert (k, other) == (launches, {}), what
         assert torch.equal(got, S.tree_sum_plain(x)), what
+
+
+@pytest.mark.parametrize("N, P", [(64, 4096), (1024, 256), (13, 37)])
+def test_sc_tree_sum_prefix_kernel_matches_plain(cuda, N, P):
+    """K19's prefix form at every IPP round's h (N / 2 .. 1, and 0) over
+    two row blocks of one product tensor, as round_emit_dyn passes them,
+    against the masked composition tree_sum_prefix_plain: the same
+    launches every round (two at the provers' shapes)."""
+    prod = _fast_sc((2 * N, 9, P), 108 + N).to(cuda)
+    x, y = prod[:N], prod[N:]
+    want_k = 1 if S.tree_slices(N, 2 * P) == 1 else 2
+    for h in [N // 2 >> k for k in range(N.bit_length() - 1)] + [0]:
+        hd = torch.tensor(h, device=cuda)
+        got, k, other = _sc_launched(lambda: S.tree_sum_prefix(x, y, hd),
+                                     "sc_tree_sum")
+        assert (k, other) == (want_k, {}), h
+        assert torch.equal(got, S.tree_sum_prefix_plain(x, y, hd)), h
 
 
 @pytest.mark.parametrize("n", [0, 1, 1000, 4096 * 132])

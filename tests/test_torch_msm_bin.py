@@ -19,13 +19,23 @@ digit negative):
   limb for limb;
 * that slab's MSM (K4a and K4b's plain versions) equals the JAX package's
   host MSM of the points with the digits' scalars sum_w d[w, k] 16^w, by
-  compressed bytes (ristretto equality)."""
+  compressed bytes (ristretto equality);
+* K3's two-source binning (`msm.bin_niels`: Niels points, then Z = 1
+  extended points whose Niels rows it makes, either part empty) equals
+  the JAX package's `to_niels_lanes` of the extended points followed by
+  the binning of the whole, and so do K3 and its MSM over the two
+  sources."""
 
 import functools
 
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
+from bulletproofs_tpu.ops import limbs as JL
+from bulletproofs_tpu.ops import msm_pallas as MP
+from bulletproofs_tpu.ops import vec_curve as JC
 
 from bulletproofs_tpu.core.ristretto import RistrettoPoint as HostPoint
 from bulletproofs_tpu.core.ristretto import multiscalar_mul as host_msm
@@ -170,3 +180,57 @@ def test_binned_msm_matches_jax_host_msm(case, form):
     want = host_msm(scalars, host)
     assert got.compress() == want.compress()
     assert bool(flag[0]) == want.is_identity() == (case == "all zero")
+
+
+# (Niels points, Z = 1 points after them): a verify sub-batch's layout
+# (static generators, then decoded points), the MSM entry's (no Niels
+# prefix), Niels points alone, and fewer points than lanes
+SPLITS = [(130, 170), (0, 300), (300, 0), (0, 5), (5, 0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _two_sources(n0, n1):
+    niels = (AZ.make_niels(n0, 11, "cpu") if n0
+             else torch.empty((3, 10, 0), dtype=torch.int32))
+    pts = (M.normalize_z(AZ.make_points(n1, 12, "cpu")) if n1
+           else torch.empty((4, 10, 0), dtype=torch.int32))
+    return niels, pts, AZ.make_digits(n0 + n1, 13, "cpu")
+
+
+def _jax_niels(pts):
+    """The JAX package's to_niels_lanes of the same points, as field
+    elements mod p: [Y+X, Y-X, 2dT] lists (its limbs are 20 of 13 bits)."""
+    if not pts.shape[-1]:
+        return [[], [], []]
+    lanes = JC.points_to_lanes(_host_points(pts))
+    out = np.asarray(MP.to_niels_lanes(jnp.asarray(lanes)))
+    return [[v % FIELD_P for v in JL.limbs_to_ints(out[c].T)]
+            for c in range(3)]
+
+
+@pytest.mark.parametrize("n0,n1", SPLITS)
+def test_bin_niels_matches_jax_to_niels_then_binning(n0, n1):
+    """Rows, lists and ranks of bin_niels equal bin_points_plain's of the
+    whole in Niels form (limb for limb: the port's to_niels), and the
+    converted points' rows are the JAX package's to_niels_lanes values."""
+    niels, pts, dig = _two_sources(n0, n1)
+    whole = torch.cat([niels, C.to_niels(pts)], dim=-1)
+    got = M.bin_niels(niels, pts, dig)
+    want = M.bin_points_plain(whole, dig)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    rows = got[0][n0:, :30].T.reshape(3, 10, n1)
+    assert [[v % FIELD_P for v in fe_limbs_to_ints(rows[c].numpy())]
+            for c in range(3)] == _jax_niels(pts)
+    slab = M.accumulate(niels, dig, pts)
+    assert torch.equal(slab, M.accumulate_plain(whole, dig))
+    out, flag = M.msm_niels(niels, dig, pts)
+    want_out, want_flag = M.horner_plain(M.reduce_plain(slab))
+    assert torch.equal(out, want_out) and torch.equal(flag, want_flag)
+
+
+def test_bin_niels_rejects_mismatched_digits():
+    niels, pts, dig = _two_sources(5, 0)
+    with pytest.raises(ValueError):
+        M.bin_niels(niels, pts, dig[:, :4])
+    with pytest.raises(ValueError):
+        M.accumulate(niels, torch.cat([dig, dig], -1), pts)

@@ -8,7 +8,9 @@ The header is compiled with the host g++ behind a C harness that defines
 the CUDA qualifiers away.  The harness runs each body as the kernel does:
 K17 (both modes) and K18 (both ops) an element at a time, K19 a column at
 a time in the kernel's 8 row slices and then their partial sums, over
-rows of any stride, and K20 a draw at a time, from a key (the ChaCha20
+rows of any stride (and as its launches run it: the rows cut into
+`sc_slice` parts, a block's sum each, then the parts' sums; its prefix
+form over two operands), and K20 a draw at a time, from a key (the ChaCha20
 block, then the wide reduction) or from 64-byte rows `bs` bytes apart.
 Inputs: 0, 1, l - 1, l - 2, 2^252 +- 1, values with all-ones 256-bit
 halves, and seeded draws.  Exact limbs.
@@ -58,19 +60,47 @@ void h_add(const int64_t* a, const int64_t* b, int64_t* o, int n, int op) {
     st(o, i, op == 0 ? sc_add_elem<0>(ld(a, i), ld(b, i))
                      : sc_add_elem<1>(ld(a, i), ld(b, i)));
 }
-// v: (n, 9, P) with strides (s0, sl, sc) in elements; o: (9, P).  Each
-// column as K19's block sums it: TS_SLICES slices of rows, then the
-// partial sums in slice order.
+// one column's rows [r0, r1) (row i at p + i s0) as K19's block sums
+// them: TS_SLICES threads' sums, then the partial sums in thread order
+static sc block_sum(const int64_t* p, int64_t s0, int64_t sl, int64_t r0,
+                    int64_t r1) {
+  sc part[TS_SLICES];
+  for (int s = 0; s < TS_SLICES; ++s)
+    part[s] = sc_sum_rows(p + r0 * s0, s0, sl, r1 - r0, s, TS_SLICES);
+  sc acc = part[0];
+  for (int s = 1; s < TS_SLICES; ++s) acc = sc_add(acc, part[s]);
+  return acc;
+}
+// v: (n, 9, P) with strides (s0, sl, sc) in elements; o: (9, P): one
+// launch of one slice
 void h_tree_sum(const int64_t* v, int64_t s0, int64_t sl, int64_t scol,
                 int64_t* o, int64_t n, int64_t P) {
-  for (int64_t c = 0; c < P; ++c) {
-    sc part[TS_SLICES];
-    for (int s = 0; s < TS_SLICES; ++s)
-      part[s] = sc_sum_rows(v + c * scol, s0, sl, n, s, TS_SLICES);
-    sc acc = part[0];
-    for (int s = 1; s < TS_SLICES; ++s) acc = sc_add(acc, part[s]);
-    sc_store(o + c, P, acc);
+  for (int64_t c = 0; c < P; ++c)
+    sc_store(o + c, P, block_sum(v + c * scol, s0, sl, 0, n));
+}
+// K19's launches (csrc/scalar.cu bp_sc_tree_sum, then ops/scalar.py's
+// second call where slices > 1): columns [0, Pa) of a, [Pa, Pt) of b,
+// rows [0, min(n, h)) (h < 0: n) in `slices` parts -> o (9, Pt)
+void h_tree_sum_sliced(const int64_t* a, int64_t as0, int64_t asl,
+                       int64_t asc, const int64_t* b, int64_t bs0,
+                       int64_t bsl, int64_t bsc, int64_t Pa, int64_t Pt,
+                       int64_t n, int64_t h, int64_t slices, int64_t* part,
+                       int64_t* o) {
+  const int64_t rows = h < 0 ? n : h < n ? h : n;
+  for (int64_t s = 0; s < slices; ++s) {
+    int64_t r0, r1;
+    sc_slice(rows, slices, s, r0, r1);
+    for (int64_t c = 0; c < Pt; ++c) {
+      const bool in_a = c < Pa;
+      const int64_t* p = in_a ? a + c * asc : b + (c - Pa) * bsc;
+      sc_store(part + s * 9 * Pt + c, Pt,
+               block_sum(p, in_a ? as0 : bs0, in_a ? asl : bsl, r0, r1));
+    }
   }
+  for (int64_t c = 0; c < Pt; ++c)
+    sc_store(o + c, Pt, slices == 1 ? sc_load(part + c, Pt)
+                                    : block_sum(part + c, 9 * Pt, Pt, 0,
+                                                slices));
 }
 // key (8 words), counters ctr[i] -> blocks (n, 16 words)
 void h_block(const uint32_t* key, const uint32_t* ctr, uint32_t* out,
@@ -200,6 +230,36 @@ def test_sc_tree_sum_matches_plain(lib, n, P, layout):
     assert sc_limbs_to_ints(out) == [
         sum(sc_limbs_to_ints(v[i].numpy())[c] for i in range(n)) % ELL
         for c in range(P)]
+
+
+@pytest.mark.parametrize("n, P, slices, h", [
+    (64, 5, None, None), (1024, 3, None, None), (63, 4, 3, None),
+    (1024, 2, 33, 512), (1024, 2, 33, 1), (64, 3, 3, 32), (37, 2, 64, 20),
+    (16, 3, 2, 0)])
+def test_sc_tree_sum_slices_and_prefix_match_plain(lib, n, P, slices, h):
+    """K19's two launches (row slices, then their sums; `slices` None:
+    tree_slices' count at a P of 256, as at the provers' shapes) and its
+    prefix form (h rows of two column slices of one tensor, side by side)
+    against tree_sum_plain and tree_sum_prefix_plain: more slices than
+    rows, h = 0 and h = 1 included."""
+    k = S.tree_slices(n, 256) if slices is None else slices
+    vals = _values(11 + n + P, 2 * n * P)
+    rows = torch.as_tensor(sc_ints_to_limbs(vals)).reshape(9, n, 2 * P)
+    v = rows.transpose(0, 1).contiguous()                   # (n, 9, 2P)
+    x, y = v[:, :, :P], v[:, :, P:]
+    arr = v.numpy()
+    s0, sl, sc = (s // 8 for s in arr.strides)
+    Pt = P if h is None else 2 * P
+    part = np.zeros((k, 9, Pt), np.int64)
+    out = np.zeros((9, Pt), np.int64)
+    lib.h_tree_sum_sliced(
+        ctypes.c_void_p(arr.ctypes.data), U64(s0), U64(sl), U64(sc),
+        ctypes.c_void_p(arr.ctypes.data + 8 * P), U64(s0), U64(sl), U64(sc),
+        U64(P), U64(Pt), U64(n), U64(-1 if h is None else h), U64(k),
+        _ptr(part), _ptr(out))
+    want = (S.tree_sum_plain(x) if h is None
+            else S.tree_sum_prefix_plain(x, y, torch.tensor(h)))
+    assert np.array_equal(out, want.numpy())
 
 
 def _key(seed: int) -> bytes:
