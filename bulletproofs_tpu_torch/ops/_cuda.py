@@ -9,7 +9,8 @@ sources, so an edited kernel is rebuilt and a stale one never loaded.
 Every exported C function takes its tensors as device pointers (None is
 a null pointer), its sizes as 64-bit ints and the CUDA stream last,
 launches on that stream and returns `cudaGetLastError()`.  `launch` raises
-on a non-zero return and adds one to the kernel's entry in `LAUNCHES`.
+on a non-zero return and adds one to the kernel's entry in `LAUNCHES` and,
+with the recorder on, to the open span's `launches` (tracing.py).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from .. import tracing
 from .._build import BUILD_DIR, PKG_DIR, build_lock
 
 CSRC = os.path.join(PKG_DIR, "csrc")
@@ -159,3 +161,5 @@ def launch(kernel: str, lib: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed: cudaError {err}")
     LAUNCHES[kernel] += 1
+    if tracing.ON:
+        tracing.count("launches")

@@ -39,6 +39,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.scalar import L as ELL
 from . import chacha
 from . import curve as C
@@ -467,9 +468,10 @@ def stage0_eager(n: int, m: int, niels_bb, niels_a, niels_s, key: bytes,
     32) compressed rows for the host's Fiat-Shamir step, red (9,
     (4 + 2N) P) the blinds that the rest consumes)."""
     N, P = n * m, bits.shape[-1]
-    red = chacha.random_scalars(key, P * (4 + 2 * N), bits.device)
-    return stage0_fused(n, m, niels_bb, niels_a, niels_s, red, v_bytes,
-                        vb_bytes, bits), red
+    with tracing.span("prove.stage0"):
+        red = chacha.random_scalars(key, P * (4 + 2 * N), bits.device)
+        return stage0_fused(n, m, niels_bb, niels_a, niels_s, red, v_bytes,
+                            vb_bytes, bits), red
 
 
 def prove_mid_fused(n: int, m: int, niels, states_z, red, bits, yz_bytes,
@@ -544,15 +546,20 @@ def prove_rest(n: int, m: int, niels, states_z, red, bits, yz_bytes,
     three segments: prove_mid_fused, round_step_fused for rounds 1 .. R - 1
     (one body, its maps chosen by a device round index), prove_fin_fused
     -> (tb (2P, 32), lr_all (R, 2P, 32), fin (5, P, 32), states (200, P));
-    the final counters are _ROUND_COUNTERS."""
-    (tb, lr0, w, a, b, gw, hw, u, uinv, st,
-     tx_by, txb_by, eb_by) = prove_mid_fused(n, m, niels, states_z, red, bits,
-                                             yz_bytes, vb_bytes)
+    the final counters are _ROUND_COUNTERS.  Each segment is a span
+    (prove.mid, one prove.round a round, prove.fin)."""
+    with tracing.span("prove.mid"):
+        (tb, lr0, w, a, b, gw, hw, u, uinv, st,
+         tx_by, txb_by, eb_by) = prove_mid_fused(n, m, niels, states_z, red,
+                                                 bits, yz_bytes, vb_bytes)
     lrs = [lr0]
     xs = dyn_round_xs(n * m, bits.device)
     for k in range(xs["k"].shape[0]):
-        lr, a, b, gw, hw, u, uinv, st = round_step_fused(
-            niels, xs, xs["k"][k: k + 1], w, a, b, gw, hw, u, uinv, st)
+        with tracing.span("prove.round"):
+            lr, a, b, gw, hw, u, uinv, st = round_step_fused(
+                niels, xs, xs["k"][k: k + 1], w, a, b, gw, hw, u, uinv, st)
         lrs.append(lr)
-    lr_all, fin = prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by, eb_by)
+    with tracing.span("prove.fin"):
+        lr_all, fin = prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by,
+                                      eb_by)
     return tb, lr_all, fin, st

@@ -47,6 +47,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core._native import LIB as _NATIVE
 from ..core.scalar import Scalar
 from ..device import resolve_device
@@ -66,10 +67,15 @@ def _check_rc(rc: int, what: str) -> None:
 
 
 def _fetch(x):
-    """A device tensor, or a tuple of them, -> numpy (waits for the card)."""
-    if isinstance(x, tuple):
-        return tuple(t.cpu().numpy() for t in x)
-    return x.cpu().numpy()
+    """A device tensor, or a tuple of them, -> numpy (waits for the card:
+    one blocking copy a tensor, each counted in `syncs`)."""
+    xs = x if isinstance(x, tuple) else (x,)
+    with tracing.span("prove.fetch"):
+        out = tuple(t.cpu().numpy() for t in xs)
+        if tracing.ON:
+            tracing.count("syncs", len(out))
+            tracing.count("d2h_bytes", sum(a.nbytes for a in out))
+    return out if isinstance(x, tuple) else out[0]
 
 
 class BatchProver:
@@ -129,6 +135,22 @@ class BatchProver:
         / prove_multiple's does.  `rng` (anything with .randbytes) seeds the
         blinding draws: 32 bytes per half-batch."""
         rng = rng or SystemRandom()
+        with tracing.span("prove"):
+            with tracing.span("prove.check"):
+                values, blindings = self._checked(values, blindings,
+                                                  transcripts)
+            if self.prefer_host:
+                return self._prove_host(values, blindings, transcripts, rng)
+            if not self.fused:
+                return self._prove_halves(self._prove_half_gen,
+                                          self.HALVES_FROM, values, blindings,
+                                          transcripts, rng)
+            return self._prove_batch_device_fused(values, blindings,
+                                                  transcripts, rng)
+
+    def _checked(self, values, blindings, transcripts):
+        """prove_batch's arguments as (values, blindings): m per
+        statement, values Python ints in [0, 2^n)."""
         if not (len(values) == len(blindings) == len(transcripts)):
             raise ValueError("values, blindings and transcripts differ in "
                              "length")
@@ -146,13 +168,7 @@ class BatchProver:
                 if v < 0 or v >> self.n:
                     raise ValueError(
                         f"value out of range for {self.n}-bit proof")
-        if self.prefer_host:
-            return self._prove_host(values, blindings, transcripts, rng)
-        if not self.fused:
-            return self._prove_halves(self._prove_half_gen, self.HALVES_FROM,
-                                      values, blindings, transcripts, rng)
-        return self._prove_batch_device_fused(values, blindings, transcripts,
-                                              rng)
+        return values, blindings
 
     def _prove_host(self, values, blindings, transcripts, rng):
         """JAX's off-TPU routing: the C++ stage engine for m = 1, the
@@ -303,6 +319,8 @@ class BatchProver:
         """A host array -> a tensor on the device; to a card from pinned
         memory without waiting for it."""
         t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+        if tracing.ON:
+            tracing.count("h2d_bytes", arr.nbytes)
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -315,16 +333,17 @@ class BatchProver:
         """-> (v_bytes, vb_bytes (m P, 32) party-major rows j P + p, bits
         (N, P) int32, row j n + i the bit i of party j's value)."""
         n, m, count = self.n, self.m, len(values)
-        v_bytes = self._rows32(b"".join(
-            values[p][j].to_bytes(32, "little")
-            for j in range(m) for p in range(count)), m * count)
-        vb_bytes = self._rows32(b"".join(
-            blindings[p][j].to_bytes() for j in range(m) for p in range(count)),
-            m * count)
-        vals_np = np.array(values, np.uint64).T                 # (m, count)
-        bits = self._upload(((vals_np[:, None, :] >> np.arange(
-            n, dtype=np.uint64)[None, :, None]) & 1).reshape(self.N, count)
-            .astype(np.int32))
+        with tracing.span("prove.statements"):
+            v_bytes = self._rows32(b"".join(
+                values[p][j].to_bytes(32, "little")
+                for j in range(m) for p in range(count)), m * count)
+            vb_bytes = self._rows32(b"".join(
+                blindings[p][j].to_bytes()
+                for j in range(m) for p in range(count)), m * count)
+            vals_np = np.array(values, np.uint64).T             # (m, count)
+            bits = self._upload(((vals_np[:, None, :] >> np.arange(
+                n, dtype=np.uint64)[None, :, None]) & 1).reshape(self.N, count)
+                .astype(np.int32))
         return v_bytes, vb_bytes, bits
 
     def _prove_half_fused_gen(self, values, blindings, transcripts, rng):
@@ -341,25 +360,27 @@ class BatchProver:
 
         # host Fiat-Shamir: dom-sep, V / A / S -> y, z (and 1/y); after z's
         # PRF every transcript sits at PS._ROUND_COUNTERS
-        strobe_size = len(transcripts[0].strobe.buf.raw)
-        strobes = ctypes.create_string_buffer(
-            b"".join(t.strobe.buf.raw for t in transcripts),
-            strobe_size * count)
-        yz = ctypes.create_string_buffer(3 * count * 32)
-        _check_rc(_NATIVE.rp_ts_yz(count, strobes, strobe_size, n, m,
-                                   vas.tobytes(), yz), "rp_ts_yz")
-        states_z = np.frombuffer(strobes.raw, np.uint8).reshape(
-            count, strobe_size)[:, :200].T
+        with tracing.span("prove.fs"):
+            strobe_size = len(transcripts[0].strobe.buf.raw)
+            strobes = ctypes.create_string_buffer(
+                b"".join(t.strobe.buf.raw for t in transcripts),
+                strobe_size * count)
+            yz = ctypes.create_string_buffer(3 * count * 32)
+            _check_rc(_NATIVE.rp_ts_yz(count, strobes, strobe_size, n, m,
+                                       vas.tobytes(), yz), "rp_ts_yz")
+            states_z = self._upload(np.frombuffer(strobes.raw, np.uint8)
+                                    .reshape(count, strobe_size)[:, :200].T)
+            yz_bytes = self._rows32(yz.raw, 3 * count)
         tb, lr_all, fin, st = yield PS.prove_rest(
-            n, m, self.tables.niels, self._upload(states_z), red, bits,
-            self._rows32(yz.raw, 3 * count), vb_bytes)
+            n, m, self.tables.niels, states_z, red, bits, yz_bytes, vb_bytes)
 
-        posf, pbf, flf = PS._ROUND_COUNTERS
-        for i, t in enumerate(transcripts):
-            buf = bytearray(t.strobe.buf.raw)
-            buf[:200] = st[:, i].tobytes()
-            buf[200], buf[201], buf[202] = posf, pbf, flf
-            t.strobe.buf.raw = bytes(buf)
+        with tracing.span("prove.writeback"):
+            posf, pbf, flf = PS._ROUND_COUNTERS
+            for i, t in enumerate(transcripts):
+                buf = bytearray(t.strobe.buf.raw)
+                buf[:200] = st[:, i].tobytes()
+                buf[200], buf[201], buf[202] = posf, pbf, flf
+                t.strobe.buf.raw = bytes(buf)
         return self._assemble(vas, tb, lr_all, fin)
 
     def _prove_half_gen(self, values, blindings, transcripts, rng):
@@ -381,26 +402,29 @@ class BatchProver:
                                     self.a_tables.niels, self.s_tables.niels,
                                     red, v_bytes, vb_bytes, bits)
         yz = ctypes.create_string_buffer(3 * count * 32)
-        _check_rc(_NATIVE.rp_ts_yz(count, strobes, strobe_size, n, m,
-                                   vas.tobytes(), yz), "rp_ts_yz")
+        with tracing.span("prove.fs"):
+            _check_rc(_NATIVE.rp_ts_yz(count, strobes, strobe_size, n, m,
+                                       vas.tobytes(), yz), "rp_ts_yz")
 
         (tb_dev, l0, l1, r0, r1, t0, t1, t2, zz_zpow, yinv) = PS.stage1_fused(
             n, m, self.tables_bb.niels, bits, red,
             self._rows32(yz.raw, 3 * count))
         tb = yield tb_dev
         x_buf = ctypes.create_string_buffer(count * 32)
-        _check_rc(_NATIVE.rp_ts_x(count, strobes, strobe_size, tb.tobytes(),
-                                  x_buf), "rp_ts_x")
+        with tracing.span("prove.fs"):
+            _check_rc(_NATIVE.rp_ts_x(count, strobes, strobe_size,
+                                      tb.tobytes(), x_buf), "rp_ts_x")
 
         (txs_dev, a, b, gw, hw, t_x, t_xb, e_b) = PS.stage2_fused(
             n, m, self._rows32(x_buf.raw, count), l0, l1, r0, r1, t0, t1, t2,
             zz_zpow, red, vb_bytes, yinv)
         txs = (yield txs_dev).reshape(3, count, 32)
         w_buf = ctypes.create_string_buffer(count * 32)
-        _check_rc(_NATIVE.rp_ts_w(
-            count, strobes, strobe_size, N,
-            np.ascontiguousarray(txs.transpose(1, 0, 2)).tobytes(), w_buf),
-            "rp_ts_w")
+        with tracing.span("prove.fs"):
+            _check_rc(_NATIVE.rp_ts_w(
+                count, strobes, strobe_size, N,
+                np.ascontiguousarray(txs.transpose(1, 0, 2)).tobytes(),
+                w_buf), "rp_ts_w")
         w_bytes = self._rows32(w_buf.raw, count)
 
         lrs = []
@@ -419,9 +443,10 @@ class BatchProver:
             lrs.append(lr)
             u_buf = ctypes.create_string_buffer(count * 32)
             ui_buf = ctypes.create_string_buffer(count * 32)
-            _check_rc(_NATIVE.rp_ts_round(count, strobes, strobe_size,
-                                          lr.tobytes(), u_buf, ui_buf),
-                      "rp_ts_round")
+            with tracing.span("prove.fs"):
+                _check_rc(_NATIVE.rp_ts_round(count, strobes, strobe_size,
+                                              lr.tobytes(), u_buf, ui_buf),
+                          "rp_ts_round")
             u_bytes = self._rows32(u_buf.raw, count)
             ui_bytes = self._rows32(ui_buf.raw, count)
             nk //= 2
@@ -444,18 +469,20 @@ class BatchProver:
             return Scalar.from_canonical_bytes(row.tobytes())
 
         proofs, vcs = [], []
-        for p in range(count):
-            ipp = InnerProductProof(
-                L_vec=[bytes(lr[p]) for lr in lr_all],
-                R_vec=[bytes(lr[count + p]) for lr in lr_all],
-                a=sc(fin[3, p]), b=sc(fin[4, p]))
-            proofs.append(RangeProof(
-                A=bytes(vas[m * count + p]), S=bytes(vas[(m + 1) * count + p]),
-                T_1=bytes(tb[p]), T_2=bytes(tb[count + p]),
-                t_x=sc(fin[0, p]), t_x_blinding=sc(fin[1, p]),
-                e_blinding=sc(fin[2, p]), ipp_proof=ipp))
-            if m == 1:
-                vcs.append(bytes(vas[p]))
-            else:
-                vcs.append([bytes(vas[j * count + p]) for j in range(m)])
+        with tracing.span("prove.assemble"):
+            for p in range(count):
+                ipp = InnerProductProof(
+                    L_vec=[bytes(lr[p]) for lr in lr_all],
+                    R_vec=[bytes(lr[count + p]) for lr in lr_all],
+                    a=sc(fin[3, p]), b=sc(fin[4, p]))
+                proofs.append(RangeProof(
+                    A=bytes(vas[m * count + p]),
+                    S=bytes(vas[(m + 1) * count + p]),
+                    T_1=bytes(tb[p]), T_2=bytes(tb[count + p]),
+                    t_x=sc(fin[0, p]), t_x_blinding=sc(fin[1, p]),
+                    e_blinding=sc(fin[2, p]), ipp_proof=ipp))
+                if m == 1:
+                    vcs.append(bytes(vas[p]))
+                else:
+                    vcs.append([bytes(vas[j * count + p]) for j in range(m)])
         return proofs, vcs
