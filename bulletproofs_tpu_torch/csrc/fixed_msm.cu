@@ -6,17 +6,15 @@
 // :206 _fixed_accum_kernel2, the same call under _ILP2 (two bucket sets fed
 // by alternate rows, two independent mixed-addition chains per thread,
 // merged at the end); K7 fixed_reduce replaces :346 _fixed_reduce_kernel
-// (the second call, :406), and takes K6's and K12's slabs alike.
+// (the second call, :406), and takes K6 one-hot's and K12's slabs alike.
 //
 // K6: lane q streams rows s of its chunk in order and adds digit[s][q] times
-// table point s into bucket |digit| (8 buckets, digits in [-7, 8]).  The
-// table stream (3, 10, S) is shared: every thread of a warp reads the same
-// row, one broadcast load.  Bound: operations, one 7-multiplication mixed
-// addition (~700 IMAD.WIDE) per (row, lane) against 1 byte of digit.
+// table point s (digits in [-7, 8]; in the one-hot form into bucket |digit|
+// of 8).  The table rows are shared: every thread of a warp reads the same
+// row.  Bound: operations, one 7-multiplication mixed addition (~700
+// IMAD.WIDE) per non-zero (row, lane) against 1 byte of digit.
 //
-// K6 has two forms, one kernel body over two bucket sets (OneHotSet,
-// DirectSet), the same additions in the same order, so their slabs are
-// equal limb for limb:
+// K6 has two forms, each its own kernel:
 // * one-hot (fixed_accumulate, consttime): the V/A/S and T rows carry the
 //   prover's witness, so the bucket access must not depend on the digit
 //   (docs/architecture.md, "Determinism, security notes": the prover MSMs
@@ -26,20 +24,25 @@
 //   (old & ~m).  Negating the Niels point (Y+X <-> Y-X, 2dT -> -2dT) is a
 //   select too.  This is the one-hot mux of the TPU kernel; its buckets
 //   are laid out so that a thread's 8 copies of a word take two 16-byte
-//   accesses (OneHotSet).
-// * direct (fixed_accumulate_vt, public rows only): the IPP rounds' L / R
-//   coefficients are public, as the reference's vartime MSM treats them
-//   (the JAX host route's rist_msm_rows), so the thread reads bucket
-//   |digit| alone, 40 loads, adds, and stores 40 words; a zero digit skips
-//   the row.  Its buckets are [bucket][word][thread], so a warp's accesses
-//   hit 32 different banks whatever the digits are.
-// Both keep 1,280 B of buckets per lane in shared memory, 40 KB per block
-// of 32 lanes: five blocks per SM on an H100 (228 KB of shared memory per
-// SM; bp_fixed_blocks_per_sm asks the runtime).  The TPU ran one serial
-// stream per lane; here each lane's S rows are split into `splits`
-// contiguous chunks (grid.y), each with its own buckets, so Q * splits
-// threads fill the 132 SMs at any lane count (ops/fixed_msm.pick_splits).
-// The slab (splits, 8, 4, 10, Q) leaves the kernel once.
+//   accesses (OneHotSet).  It keeps 1,280 B of buckets per lane in shared
+//   memory, 40 KB per block of 32 lanes: five blocks per SM on an H100
+//   (228 KB of shared memory per SM; bp_fixed_blocks_per_sm asks the
+//   runtime).  The slab (splits, 8, 4, 10, Q) leaves the kernel once.
+// * direct (fixed_accumulate_vt, fixed_direct_kernel; public rows only):
+//   the IPP rounds' L / R coefficients are public, as the reference's
+//   vartime MSM treats them (the JAX host route's rist_msm_rows), so a
+//   non-zero digit d of row s adds +-|d| P_s read from a table of
+//   multiples into one accumulator in registers (csrc/fixed_direct.cuh):
+//   no buckets, no shared memory, one mixed addition a non-zero digit as
+//   in the one-hot form.  Its rows are read through a row map (the IPP
+//   round's rows of the full table), blocks of 128 lanes of one chunk, so
+//   a warp's 32 loads of a row touch at most 8 lines; registers alone set
+//   its residency (DIRECT_MIN_BLOCKS blocks an SM, two warps on each
+//   scheduler).  Its slab is (splits, 1, 4, 10, Q): one point a chunk.
+// The TPU ran one serial stream per lane; here each lane's S rows are
+// split into `splits` contiguous chunks (grid.y), each with its own
+// buckets or accumulator, so Q * splits threads fill the 132 SMs at any
+// lane count (ops/fixed_msm.pick_splits, with a thread target per form).
 //
 // K7: 8 G threads per lane, thread 8 g + b of the lane's span: bucket b
 // (0..7) of chunk group g (0..G-1), G = 1, 2 or 4 by the split (about one
@@ -52,6 +55,8 @@
 // ceil(splits / G) - 1 + log2 G + 6 additions (was (splits - 1) * 8 + 14
 // in one thread); at a small split (the m=1 prover's 5) G = 1 keeps the
 // warp's 32 threads on 4 lanes' work.  Bound: operations, small beside K6.
+// K7's chunk merge (fixed_merge_kernel) is the same body over the direct
+// form's one point a chunk: G threads a lane, no scan and no tree.
 //
 // K12: K6's one-hot work per (row, lane), the chunk's rows 2i into bucket
 // set 0 and rows 2i + 1 into set 1, plus 8 complete additions per lane
@@ -73,10 +78,13 @@
 // slab and the points match it limb for limb.
 #include "common.cuh"
 #include "fe25519.cuh"
+#include "fixed_direct.cuh"
 
 #define NBUCKET 8
 #define FX_THREADS 32
 #define RED_THREADS 128                  // K7: 4 warps
+#define DIRECT_THREADS 128               // K6 direct: 4 warps of one chunk
+#define DIRECT_MIN_BLOCKS 2              // 8 warps an SM: 2 a scheduler
 
 __device__ __forceinline__ ge ge_from_words(const int32_t w[40]) {
   ge p;
@@ -114,43 +122,6 @@ __device__ __forceinline__ ge_niels signed_point(const int32_t* niels,
   return pt;
 }
 
-// -- the direct form's bucket set: [bucket][word][thread] --------------------
-//
-// Bucket word w of bucket b of a thread's set sits at set[(b * 40 + w) *
-// FX_THREADS] (the set pointer is offset by the thread's index).  The
-// pointer is volatile: so ptxas keeps the form in 254 registers with no
-// spills (non-volatile, it spilled 632 B per thread; both ran at the same
-// speed on an H100).
-__device__ __forceinline__ void init_buckets(volatile int32_t* set) {
-#pragma unroll
-  for (int b = 0; b < NBUCKET; ++b)
-#pragma unroll
-    for (int w = 0; w < 40; ++w)                   // identity (0 : 1 : 1 : 0)
-      set[(b * 40 + w) * FX_THREADS] = (w == 10 || w == 20) ? 1 : 0;
-}
-
-// K6's direct form (public rows): bucket |digit| read and written alone
-struct DirectSet {
-  static constexpr bool kSkipZero = true;
-  volatile int32_t* my;
-
-  __device__ DirectSet(int32_t* buckets, int tid) : my(buckets + tid) {
-    init_buckets(my);
-  }
-  __device__ __forceinline__ void add(int mag, const ge_niels& pt) {
-    volatile int32_t* bk = my + (mag - 1) * 40 * FX_THREADS;
-    int32_t w[40];
-#pragma unroll
-    for (int k = 0; k < 40; ++k) w[k] = bk[k * FX_THREADS];
-    ge_to_words(ge_madd(ge_from_words(w), pt), w);
-#pragma unroll
-    for (int k = 0; k < 40; ++k) bk[k * FX_THREADS] = w[k];
-  }
-  __device__ __forceinline__ int32_t word(int b, int w) const {
-    return my[(b * 40 + w) * FX_THREADS];
-  }
-};
-
 // -- K6's one-hot form (witness rows): [word][half][thread][4 buckets] -------
 //
 // A thread's 8 copies of bucket word w sit side by side, buckets 4h..4h+3
@@ -175,7 +146,6 @@ __device__ __forceinline__ void sts4(uint32_t addr, const int32_t* v) {
 }
 
 struct OneHotSet {
-  static constexpr bool kSkipZero = false;
   uint32_t base;                                 // shared address, this thread
 
   // the 8 copies of word w: v[b], bucket b
@@ -246,10 +216,8 @@ struct OneHotSet {
   }
 };
 
-// One body for both K6 forms: SET = OneHotSet (fixed_accumulate) or
-// DirectSet (fixed_accumulate_vt).  The same additions in the same order;
-// the direct form skips a zero digit's row, whose sum the one-hot form
-// computes and drops.
+// K6's one-hot form over its bucket set (SET = OneHotSet): a zero digit's
+// sum is computed and dropped.
 template <class SET>
 __global__ void __launch_bounds__(FX_THREADS)
 fixed_accumulate_kernel(const int32_t* __restrict__ niels,
@@ -265,7 +233,6 @@ fixed_accumulate_kernel(const int32_t* __restrict__ niels,
 
   for (int64_t s = c * rows; s < (c + 1) * rows; ++s) {
     const int d = digits[s * Q + q];
-    if (SET::kSkipZero && d == 0) continue;
     set.add(d < 0 ? -d : d, signed_point(niels, S, s, d < 0));
   }
 
@@ -276,6 +243,23 @@ fixed_accumulate_kernel(const int32_t* __restrict__ niels,
 #pragma unroll
     for (int w = 0; w < 40; ++w) dst[(int64_t)w * Q] = set.word(b, w);
   }
+}
+
+// K6's direct form: thread (q, c) sums its lane's digit rows [c rows,
+// (c + 1) rows) of the S (the last chunks may be short or empty) and
+// stores one point, slab[c][0][coord][limb][q]
+__global__ void __launch_bounds__(DIRECT_THREADS, DIRECT_MIN_BLOCKS)
+fixed_direct_kernel(const int32_t* __restrict__ mult,
+                    const int64_t* __restrict__ sel,
+                    const int8_t* __restrict__ digits,
+                    int32_t* __restrict__ slab, int64_t S, int64_t Q,
+                    int64_t rows) {
+  const int64_t q = (int64_t)blockIdx.x * DIRECT_THREADS + threadIdx.x;
+  const int64_t c = blockIdx.y;
+  if (q >= Q) return;
+  const int64_t s0 = c * rows, s1 = s0 + rows < S ? s0 + rows : S;
+  ge_store(slab + c * 40 * Q + q, Q,
+           direct_chunk(mult, sel, digits, Q, q, s0, s1));
 }
 
 // K12: lanes a block of 32 threads, each lane's two sets on two threads
@@ -332,20 +316,24 @@ __device__ __forceinline__ ge ge_shfl_down(const ge& p, int delta) {
   return ge_from_words(w);
 }
 
-// groups G = 1, 2 or 4 (ops/fixed_msm.red_groups): lane q's 8 G threads
-// are t = 8 G j + 8 g + b of a warp holding 4 / G lanes
-__global__ void __launch_bounds__(RED_THREADS)
-fixed_reduce_kernel(const int32_t* __restrict__ slab, int32_t* __restrict__ out,
-                    int64_t Q, int splits, int groups) {
-  const int t = threadIdx.x % 32, b = t % NBUCKET, g = t / NBUCKET % groups;
-  const int span = NBUCKET * groups;                   // threads per lane
+// groups G = 1, 2 or 4 (ops/fixed_msm.red_groups): lane q's NB G threads
+// are t = NB G j + NB g + b of a warp holding 32 / (NB G) lanes; NB = 8
+// buckets (K7) or one point a chunk (K7's chunk merge, where the scan and
+// the tree over the buckets vanish)
+template <int NB>
+__device__ __forceinline__ void reduce_body(const int32_t* __restrict__ slab,
+                                            int32_t* __restrict__ out,
+                                            int64_t Q, int splits,
+                                            int groups) {
+  const int t = threadIdx.x % 32, b = t % NB, g = t / NB % groups;
+  const int span = NB * groups;                        // threads per lane
   int64_t q = ((int64_t)blockIdx.x * (RED_THREADS / 32) + threadIdx.x / 32)
                   * (32 / span) + t / span;
   // a lane past Q repeats lane Q - 1's work and stores nothing: every
   // thread of the warp takes part in the shuffles
   const bool store = q < Q;
   if (!store) q = Q - 1;
-  const int64_t chunk = (int64_t)NBUCKET * 40 * Q;     // slab[k] stride
+  const int64_t chunk = (int64_t)NB * 40 * Q;          // slab[k] stride
   const int32_t* src = slab + (int64_t)b * 40 * Q + q;
   ge m = ge_identity();
   if (g < splits) {
@@ -355,20 +343,32 @@ fixed_reduce_kernel(const int32_t* __restrict__ slab, int32_t* __restrict__ out,
   }
   const int live = splits < groups ? splits : groups;
   for (int h = groups / 2; h >= 1; h /= 2) {           // groups: g += g + h
-    const ge o = ge_shfl_down(m, NBUCKET * h);
+    const ge o = ge_shfl_down(m, NB * h);
     if (g < h && g + h < live) m = ge_add(m, o);
   }
 #pragma unroll
-  for (int d = 1; d < NBUCKET; d *= 2) {               // S_b += S_{b + d}
+  for (int d = 1; d < NB; d *= 2) {                    // S_b += S_{b + d}
     const ge o = ge_shfl_down(m, d);
-    if (g == 0 && b + d < NBUCKET) m = ge_add(m, o);
+    if (g == 0 && b + d < NB) m = ge_add(m, o);
   }
 #pragma unroll
-  for (int h = NBUCKET / 2; h >= 1; h /= 2) {          // sum_b S_b
+  for (int h = NB / 2; h >= 1; h /= 2) {               // sum_b S_b
     const ge o = ge_shfl_down(m, h);
     if (g == 0 && b < h) m = ge_add(m, o);
   }
   if (store && g == 0 && b == 0) ge_store(out + q, Q, m);
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+fixed_reduce_kernel(const int32_t* __restrict__ slab, int32_t* __restrict__ out,
+                    int64_t Q, int splits, int groups) {
+  reduce_body<NBUCKET>(slab, out, Q, splits, groups);
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+fixed_merge_kernel(const int32_t* __restrict__ slab, int32_t* __restrict__ out,
+                   int64_t Q, int splits, int groups) {
+  reduce_body<1>(slab, out, Q, splits, groups);
 }
 
 // niels (3, 10, S) int32, digits (S, Q) int8 -> slab (splits, 8, 4, 10, Q)
@@ -381,13 +381,17 @@ BP_EXPORT int bp_fixed_accumulate(const int32_t* niels, const int8_t* digits,
   return (int)cudaGetLastError();
 }
 
-// the direct form, public rows only: the same arguments and slab
-BP_EXPORT int bp_fixed_accumulate_vt(const int32_t* niels, const int8_t* digits,
-                                     int32_t* slab, int64_t S, int64_t Q,
-                                     int64_t splits, cudaStream_t stream) {
-  dim3 grid((unsigned)((Q + FX_THREADS - 1) / FX_THREADS), (unsigned)splits);
-  fixed_accumulate_kernel<DirectSet><<<grid, FX_THREADS, 0, stream>>>(
-      niels, digits, slab, S, Q, S / splits);
+// the direct form, public rows only: mult (T, 8, 32) int32 multiples
+// table, sel (S,) int64 rows of it (null: rows 0..S-1), digits (S, Q) int8
+// -> slab (splits, 1, 4, 10, Q), chunks of `rows` digit rows
+BP_EXPORT int bp_fixed_accumulate_vt(const int32_t* mult, const int64_t* sel,
+                                     const int8_t* digits, int32_t* slab,
+                                     int64_t S, int64_t Q, int64_t splits,
+                                     int64_t rows, cudaStream_t stream) {
+  dim3 grid((unsigned)((Q + DIRECT_THREADS - 1) / DIRECT_THREADS),
+            (unsigned)splits);
+  fixed_direct_kernel<<<grid, DIRECT_THREADS, 0, stream>>>(
+      mult, sel, digits, slab, S, Q, rows);
   return (int)cudaGetLastError();
 }
 
@@ -413,15 +417,26 @@ BP_EXPORT int bp_fixed_reduce(const int32_t* slab, int32_t* out, int64_t Q,
   return (int)cudaGetLastError();
 }
 
+// slab (splits, 1, 4, 10, Q) -> out (4, 10, Q); groups 1, 2 or 4
+BP_EXPORT int bp_fixed_merge(const int32_t* slab, int32_t* out, int64_t Q,
+                             int64_t splits, int64_t groups,
+                             cudaStream_t stream) {
+  const int64_t lanes = RED_THREADS / groups;                // per block
+  const unsigned blocks = (unsigned)((Q + lanes - 1) / lanes);
+  fixed_merge_kernel<<<blocks, RED_THREADS, 0, stream>>>(
+      slab, out, Q, (int)splits, (int)groups);
+  return (int)cudaGetLastError();
+}
+
 // blocks that one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out[0] K6 one-hot,
-// out[1] K6 direct, out[2] K12, out[3] K7
+// out[1] K6 direct (blocks of DIRECT_THREADS), out[2] K12, out[3] K7
 BP_EXPORT int bp_fixed_blocks_per_sm(int* out) {
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, fixed_accumulate_kernel<OneHotSet>, FX_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out + 1, fixed_accumulate_kernel<DirectSet>, FX_THREADS, 0);
+        out + 1, fixed_direct_kernel, DIRECT_THREADS, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out + 2, fixed_accumulate2_kernel, FX_THREADS, 0);

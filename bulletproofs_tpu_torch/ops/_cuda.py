@@ -37,13 +37,13 @@ SOURCES = {"decompress": "decompress.cu", "emit": "emit.cu", "msm": "msm.cu",
            "scalar": "scalar.cu"}
 HEADERS = ("fe25519.cuh", "sc25519.cuh", "common.cuh", "emit.cuh",
            "reduce.cuh", "keccak.cuh", "fmul13.cuh", "sc_vec.cuh",
-           "msm_bin.cuh")
+           "msm_bin.cuh", "fixed_direct.cuh")
 
 # kernel name -> number of launches since the last reset_counts()
 LAUNCHES: Dict[str, int] = {"decompress": 0, "emit": 0, "msm_accumulate": 0,
                             "msm_reduce": 0, "msm_horner": 0, "compress": 0,
                             "fixed_accumulate": 0, "fixed_accumulate_vt": 0,
-                            "fixed_reduce": 0,
+                            "fixed_reduce": 0, "fixed_merge": 0,
                             "fold": 0, "smul": 0, "digits": 0,
                             "msm_bin": 0, "msm_accumulate_z": 0,
                             "msm_bin_niels": 0,

@@ -1,6 +1,7 @@
-"""Batched fixed-base MSM, the prover's point engine: kernels K6 (bucket
-accumulation, a one-hot and a direct form), K12 (its two-set form) and K7
-(bucket reduction), csrc/fixed_msm.cu.
+"""Batched fixed-base MSM, the prover's point engine: kernels K6 (a one-hot
+form, bucket accumulation; a direct form, signed multiples from a table),
+K12 (the one-hot form's two-set twin) and K7 (bucket reduction, and the
+direct form's chunk merge), csrc/fixed_msm.cu.
 
 The JAX package's ops/fixed_msm.py.  out[q] = sum_j coef[j, q] Base_j for
 Q output lanes over NB shared bases:
@@ -12,19 +13,24 @@ Q output lanes over NB shared bases:
   tail remains;
 * digits: a signed base-16 digit in [-7, 8] per (stream row, lane), (S, Q)
   int8 (`ops/scalar.signed_digits` of the canonical coefficients);
-* K6 `accumulate`: every lane streams its S (table point, digit) rows in
-  order and adds +-point into bucket |digit|, 8 buckets per lane.  The
-  rows of one lane are split into `pick_splits(S, Q)` contiguous chunks,
-  each with its own buckets, so Q * splits threads fill the card at any
-  lane count (the TPU kernel ran one serial stream per lane).  Two forms,
-  equal limb for limb: one-hot (`consttime=True`, the default) and direct
-  (`consttime=False`, public rows only);
+* K6 `accumulate` (one-hot): every lane streams its S (table point,
+  digit) rows in order and adds +-point into bucket |digit|, 8 buckets per
+  lane.  The rows of one lane are split into `pick_splits(S, Q)`
+  contiguous chunks, each with its own buckets, so Q * splits threads fill
+  the card at any lane count (the TPU kernel ran one serial stream per
+  lane);
+* K6 `accumulate_direct` (public rows only): the stream's multiples table
+  (`make_multiples`: k P_s for k = 1..8, canonical Niels, built once with
+  the tables) gives +-|digit| P_s in one read, added into one accumulator
+  per (lane, chunk); rows are read through a row map (`sel`), so an IPP
+  round's rows of the full table need no copy; one point per chunk;
 * K12 `accumulate2` (under `_ILP2`): K6 with two bucket sets per chunk,
   fed by alternate rows (two independent mixed-addition chains, one thread
   each), merged bucket by bucket at the end into K6's slab layout;
 * K7 `reduce`: per lane, merge the chunks' buckets with complete additions
   (`red_groups` chunk groups, then a tree) and form sum_b b B_b by a
-  suffix scan and a tree sum over the 8 buckets, 8 threads per group.
+  suffix scan and a tree sum over the 8 buckets, 8 threads per group; on
+  the direct form's slab, the merge alone.
 
 The V/A/S and T rows carry the witness (values, bits, blindings, the
 t-polynomial), so the one-hot K6 reads and writes ALL buckets at every row
@@ -33,9 +39,9 @@ the memory pattern does not depend on a digit.  A zero digit selects no
 bucket; its sum is computed and dropped (the TPU kernel's ninth bucket was
 the sink).  The IPP rounds' L / R rows are public (the JAX package's host
 route sends them to the vartime `rist_msm_rows`), so they alone pass
-`consttime=False` and take the direct form: bucket |digit| read and
-written alone, zero digits skipped.  The same additions in the same order,
-so both forms' slabs equal `accumulate_plain`'s.
+`consttime=False` and take the direct form, whose table read depends on
+the digit and which skips zero digits.  Its points are the same group
+elements as the one-hot form's in another projective representation.
 The plain versions here repeat each kernel's arithmetic step for step, so
 a kernel's output equals its plain version's limb for limb.
 
@@ -48,11 +54,12 @@ one C++ row MSM over the packed bases (`ensure_host_packed`).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _cuda
 from . import curve as C
 from . import field as F
@@ -64,12 +71,21 @@ L = FE_LIMBS
 WINDOW_BITS = 4
 NUM_WINDOWS = 64
 NUM_BUCKETS = 8                 # digit magnitudes 1..8
-# K6 (both forms) keeps its buckets in shared memory, 40 KB per block of 32
-# lanes: 5 blocks per SM on an H100 (228 KB of shared memory per SM; the
+# K6's one-hot form keeps its buckets in shared memory, 40 KB per block of
+# 32 lanes: 5 blocks per SM on an H100 (228 KB of shared memory per SM; the
 # runtime's cudaOccupancyMaxActiveBlocksPerMultiprocessor, `blocks_per_sm`,
 # gives 5 there; chip_smoke.py logs it), so 132 * 5 * 32 threads fill the
 # card in one wave
 TARGET_THREADS = 21120
+# K6's direct form keeps one point per thread in registers and no shared
+# memory: blocks of DIRECT_THREADS lanes of one chunk, DIRECT_MIN_BLOCKS
+# resident per SM by its __launch_bounds__ (csrc/fixed_msm.cu's defines of
+# the same names): 8 warps, two on each scheduler, so 132 * 2 * 128
+# threads are one balanced wave
+DIRECT_THREADS = 128
+DIRECT_MIN_BLOCKS = 2
+TARGET_THREADS_DIRECT = 132 * DIRECT_MIN_BLOCKS * DIRECT_THREADS
+MULT_WORDS = 32                 # a multiple's Niels point: 30 words, 2 pad
 # K12 runs a lane's two bucket sets on two threads, 16 lanes a block of
 # 32 at K6's 40 KB (5 blocks per SM resident), and aims at 4 blocks per SM,
 # one warp on each of the SM's four schedulers: 2 * splits * Q = 132 * 4 *
@@ -135,40 +151,120 @@ class _HostBasis:
         return self._host_packed
 
 
+def make_multiples(niels: torch.Tensor) -> torch.Tensor:
+    """(3, 10, S) int32 canonical Niels stream -> (S, 8, 32) int32: row s
+    holds k P_s for k = 1..8 as canonical Niels points (Y+X, Y-X, 2dT),
+    each padded to 32 words, the table of K6's direct form.  Plain torch
+    on the stream's device: P_s as (2 (Y+X - (Y-X)), 2 (Y+X + Y-X), 4,
+    (Y+X - (Y-X)) (Y+X + Y-X)) = 4 (x, y, 1, xy), then 7 mixed additions
+    of P_s, the 7 Z's inverted by one inversion a row (Montgomery's trick
+    over the multiples), canonical Niels form."""
+    S, dev = niels.shape[-1], niels.device
+    n = niels.to(torch.int64)
+    ypx, ymx, t2d = n[0], n[1], n[2]
+    xx, yy = F.sub(ypx, ymx), F.add(ypx, ymx)          # 2x, 2y
+    four = torch.zeros_like(xx)
+    four[0] = 4
+    p = (F.mul_small(xx, 2), F.mul_small(yy, 2), four, F.mul(xx, yy))
+    pts = []
+    for _ in range(NUM_BUCKETS - 1):                  # 2 P .. 8 P
+        p = C.madd(p, (ypx, ymx, t2d))
+        pts.append(p)
+    zs = [q[2] for q in pts]
+    prefix = [zs[0]]
+    for z in zs[1:]:
+        prefix.append(F.mul(prefix[-1], z))
+    inv = F.invert(prefix[-1])
+    zinv = [None] * len(zs)
+    for k in range(len(zs) - 1, 0, -1):
+        zinv[k] = F.mul(inv, prefix[k - 1])
+        inv = F.mul(inv, zs[k])
+    zinv[0] = inv
+    out = torch.zeros((S, NUM_BUCKETS, MULT_WORDS), dtype=torch.int32,
+                      device=dev)
+    out[:, 0, :30] = niels.reshape(30, S).T
+    d2 = F.const("d2", dev)
+    for k, (q, zi) in enumerate(zip(pts, zinv), start=1):
+        x, y = F.mul(q[0], zi), F.mul(q[1], zi)
+        rows = torch.cat([F.canonicalize(F.add(y, x)),
+                          F.canonicalize(F.sub(y, x)),
+                          F.canonicalize(F.mul(F.mul(x, y), d2))])
+        out[:, k, :30] = rows.T.to(torch.int32)
+    return out
+
+
+class TableRows(NamedTuple):
+    """Rows `sel` ((S,) int64 on the tables' device; None: every row) of a
+    FixedBaseTables' Niels stream `niels` (3, 10, T) and its multiples
+    `mult` (T, 8, 32): what msm_digits_niels reads for public rows, the
+    direct form through the row map, with no copy of the rows."""
+    niels: torch.Tensor
+    mult: torch.Tensor
+    sel: Optional[torch.Tensor]
+
+    def gathered(self) -> torch.Tensor:
+        """The rows' Niels stream (3, 10, S), for the one-hot form."""
+        return self.niels if self.sel is None \
+            else self.niels.index_select(2, self.sel)
+
+
 class FixedBaseTables(_HostBasis):
-    """Window tables of a fixed base list, resident on `device`; with
-    device None, host tables only (`niels` None: the rows go to the C++
-    row MSM)."""
+    """Window tables of a fixed base list, resident on `device`: the Niels
+    stream `niels` and its multiples `mult` (K6's direct form); with
+    device None, host tables only (`niels` and `mult` None: the rows go to
+    the C++ row MSM)."""
 
     def __init__(self, points_host: Sequence, device):
         self.host_points = list(points_host)
         self.num_bases = len(self.host_points)
-        self.niels = None if device is None else make_tables(torch.as_tensor(
-            C.points_to_lanes(self.host_points)).to(device))
+        self.niels = self.mult = None
+        if device is not None:
+            self.niels = make_tables(torch.as_tensor(
+                C.points_to_lanes(self.host_points)).to(device))
+            self.mult = make_multiples(self.niels)
+
+    def table_rows(self, sel=None) -> TableRows:
+        """Rows `sel` of the tables (None: every row), for public rows."""
+        return TableRows(self.niels, self.mult, sel)
 
 
 class StreamSubsetTables:
     """Arbitrary stream rows (sel[i] = j * 64 + w) of a FixedBaseTables,
     e.g. the range prover's A commitment, whose {0, +-1} coefficients on
-    G_i / H_i touch only window 0 of those tables."""
+    G_i / H_i touch only window 0 of those tables: their Niels rows copied
+    (`niels`), and the row map on the device (`row_map`), through which
+    the direct form reads the full tables' multiples."""
 
     def __init__(self, full: FixedBaseTables, sel):
         self._sel = np.asarray(sel, np.int64)
-        self.niels = None if full.niels is None else full.niels[
-            :, :, torch.as_tensor(self._sel, device=full.niels.device)
-        ].contiguous()
+        self.full = full
+        self.niels = self.row_map = None
+        if full.niels is not None:
+            self.row_map = torch.as_tensor(self._sel,
+                                           device=full.niels.device)
+            self.niels = full.niels[:, :, self.row_map].contiguous()
+
+    def table_rows(self) -> TableRows:
+        """This subset's rows of the full tables, for public rows."""
+        return self.full.table_rows(self.row_map)
+
+
+def base_rows(base_idx) -> np.ndarray:
+    """Base indices -> their stream rows j * 64 + w, all 64 windows of
+    each base in order (the row map of a base subset)."""
+    base_idx = np.asarray(base_idx, np.int64)
+    return (base_idx[:, None] * NUM_WINDOWS
+            + np.arange(NUM_WINDOWS)[None, :]).reshape(-1)
 
 
 class SubsetTables(StreamSubsetTables, _HostBasis):
-    """All 64 windows of a base subset of a FixedBaseTables (the IPP
-    round's active generators)."""
+    """All 64 windows of a base subset of a FixedBaseTables (stage 0's
+    B / B~ and S bases)."""
 
     def __init__(self, full: FixedBaseTables, base_idx):
-        base_idx = np.asarray(base_idx, np.int64)
         self.host_points = [full.host_points[j] for j in base_idx]
         self.num_bases = len(base_idx)
-        super().__init__(full, (base_idx[:, None] * NUM_WINDOWS
-                                + np.arange(NUM_WINDOWS)[None, :]).reshape(-1))
+        super().__init__(full, base_rows(base_idx))
 
 
 # -- K6: bucket accumulation --------------------------------------------------------
@@ -232,16 +328,13 @@ def accumulate_plain(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """niels (3, 10, S) int32, digits (S, Q) int8 in [-7, 8] -> slab
     (splits, 8, 4, 10, Q) int32, splits = pick_splits(S, Q): bucket b of
     chunk c holds the sum of digit * point over the chunk's rows with
-    |digit| = b + 1.  The plain version of both K6 forms."""
+    |digit| = b + 1.  The plain version of K6's one-hot form."""
     return _accumulate_plain(*_split(niels, digits))
 
 
-def accumulate(niels: torch.Tensor, digits: torch.Tensor,
-               consttime: bool = True) -> torch.Tensor:
-    """Kernel K6 on CUDA tensors: the one-hot form, or with
-    `consttime=False` (public rows only: the IPP rounds' L / R) the direct
-    form; the plain version on CPU tensors, whatever `consttime`.  K12
-    (`accumulate2`, one-hot) takes every row when _ILP2 is set."""
+def accumulate(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Kernel K6's one-hot form on CUDA tensors, the plain version on CPU
+    tensors.  K12 (`accumulate2`) takes every row when _ILP2 is set."""
     if _ILP2:
         return accumulate2(niels, digits)
     if niels.device.type == "cpu":
@@ -253,21 +346,99 @@ def accumulate(niels: torch.Tensor, digits: torch.Tensor,
     slab = torch.empty((splits, NUM_BUCKETS, 4, L, Q), dtype=torch.int32,
                        device=niels.device)
     if Q:
-        if consttime:
-            _cuda.launch("fixed_accumulate", "fixed_msm",
-                         "bp_fixed_accumulate", niels, digits, slab, S, Q,
-                         splits)
-        else:
-            _cuda.launch("fixed_accumulate_vt", "fixed_msm",
-                         "bp_fixed_accumulate_vt", niels, digits, slab, S, Q,
-                         splits)
+        _cuda.launch("fixed_accumulate", "fixed_msm", "bp_fixed_accumulate",
+                     niels, digits, slab, S, Q, splits)
+    return slab
+
+
+# -- K6's direct form: signed multiples into one accumulator ---------------------------
+
+def _direct_split(mult, digits, sel):
+    """-> (splits, rows per chunk) of K6's direct form: pick_splits at its
+    own thread target; the last chunks may be short or empty."""
+    if mult.dim() != 3 or mult.shape[1:] != (NUM_BUCKETS, MULT_WORDS) \
+            or digits.dim() != 2 \
+            or (sel is None and digits.shape[0] != mult.shape[0]) \
+            or (sel is not None and sel.shape != digits.shape[:1]):
+        raise ValueError("accumulate_direct takes mult (T, 8, 32), digits "
+                         "(S, Q) and a row map sel (S,) (None: S = T)")
+    S, Q = digits.shape
+    splits = pick_splits(S, Q, TARGET_THREADS_DIRECT)
+    return splits, -(-S // splits)
+
+
+def _accumulate_direct_plain(mult, digits, sel, splits: int) -> torch.Tensor:
+    """accumulate_direct_plain at a given split (chunks of ceil(S /
+    splits) rows)."""
+    S, Q = digits.shape
+    R = -(-S // splits)
+    pad = splits * R - S
+    dev = mult.device
+    d = torch.cat([digits.to(torch.int64),
+                   torch.zeros((pad, Q), dtype=torch.int64, device=dev)]
+                  ).reshape(splits, R, Q)
+    rows = torch.arange(S, device=dev) if sel is None else sel.to(torch.int64)
+    rows = torch.cat([rows, torch.zeros(pad, dtype=torch.int64, device=dev)]
+                     ).reshape(splits, R)
+    flat = mult.reshape(-1, MULT_WORDS).to(torch.int64)
+    acc = tuple(c[None].expand(splits, L, Q)
+                for c in C.to_coords(C.identity(1, dev)))
+    for r in range(R):
+        dr = d[:, r]                                    # (K, Q)
+        k = dr.abs().clamp(min=1)
+        w = flat[rows[:, r, None] * NUM_BUCKETS + k - 1].transpose(1, 2)
+        ypx, ymx, t2d = w[:, :L], w[:, L: 2 * L], w[:, 2 * L: 3 * L]
+        neg = (dr < 0)[:, None, :]
+        new = C.madd(acc, (torch.where(neg, ymx, ypx),
+                           torch.where(neg, ypx, ymx),
+                           torch.where(neg, F.neg(t2d), t2d)))
+        live = (dr != 0)[:, None, :]
+        acc = tuple(torch.where(live, n, a) for n, a in zip(new, acc))
+    return torch.stack(acc, dim=1)[:, None].to(torch.int32).contiguous()
+
+
+def accumulate_direct_plain(mult: torch.Tensor, digits: torch.Tensor,
+                            sel=None) -> torch.Tensor:
+    """mult (T, 8, 32) int32 (make_multiples), digits (S, Q) int8 in [-7,
+    8] over table rows sel ((S,) int64; None: rows 0..S-1) -> slab
+    (splits, 1, 4, 10, Q) int32: chunk c of ceil(S / splits) digit rows,
+    splits = pick_splits(S, Q, TARGET_THREADS_DIRECT), holds, from the
+    identity in row order, each non-zero digit's multiple |d| of its row
+    added by a mixed addition, negated for d < 0.  The plain version of
+    K6's direct form."""
+    splits, _ = _direct_split(mult, digits, sel)
+    return _accumulate_direct_plain(mult, digits, sel, splits)
+
+
+def accumulate_direct(mult: torch.Tensor, digits: torch.Tensor,
+                      sel=None) -> torch.Tensor:
+    """Kernel K6's direct form (public rows only: the IPP rounds' L / R)
+    on CUDA tensors, the plain version on CPU tensors; with the recorder
+    on, counts the rows x lanes as `fixed_direct_rows`."""
+    splits, rows = _direct_split(mult, digits, sel)
+    if tracing.ON:
+        tracing.count("fixed_direct_rows", digits.numel())
+    if mult.device.type == "cpu":
+        return _accumulate_direct_plain(mult, digits, sel, splits)
+    _cuda.check(mult, torch.int32)
+    _cuda.check(digits, torch.int8)
+    if sel is not None:
+        _cuda.check(sel, torch.int64)
+    S, Q = digits.shape
+    slab = torch.empty((splits, 1, 4, L, Q), dtype=torch.int32,
+                       device=mult.device)
+    if Q:
+        _cuda.launch("fixed_accumulate_vt", "fixed_msm",
+                     "bp_fixed_accumulate_vt", mult, sel, digits, slab, S, Q,
+                     splits, rows)
     return slab
 
 
 def blocks_per_sm() -> Dict[str, int]:
     """Blocks that one SM of the current CUDA device holds at once, per
-    kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor): K6's blocks of
-    32 lanes (both forms), K12's, and K7's of 128 threads."""
+    kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor): K6 one-hot's
+    blocks of 32 lanes, K6 direct's of DIRECT_THREADS, K12's, and K7's of
+    128 threads."""
     out = (ctypes.c_int * 4)()
     f = _cuda._lib("fixed_msm").bp_fixed_blocks_per_sm
     f.argtypes, f.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
@@ -320,8 +491,9 @@ def accumulate2(niels: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 # -- K7: bucket reduction -------------------------------------------------------------
 
 def _check_slab(slab):
-    if slab.dim() != 5 or slab.shape[1:4] != (NUM_BUCKETS, 4, L):
-        raise ValueError("reduce takes a (splits, 8, 4, 10, Q) slab")
+    if slab.dim() != 5 or slab.shape[1] not in (1, NUM_BUCKETS) \
+            or slab.shape[2:4] != (4, L):
+        raise ValueError("reduce takes a (splits, 8 or 1, 4, 10, Q) slab")
 
 
 def _add_prefix(p, q, cnt: int):
@@ -347,7 +519,8 @@ def reduce_plain(slab: torch.Tensor) -> torch.Tensor:
     ... in order; the groups fold as g += g + h for h = G/2, ..., 1
     (partners past the last chunk skipped); then S_b += S_{b + d} for d =
     1, 2, 4 (a suffix scan, S_b = sum_{c >= b} B_c) and sum_b S_b =
-    sum_b (b + 1) B_b by the tree b += b + h for h = 4, 2, 1."""
+    sum_b (b + 1) B_b by the tree b += b + h for h = 4, 2, 1.  A (splits,
+    1, 4, 10, Q) slab (K6's direct form) is the merge alone."""
     _check_slab(slab)
     v = slab.to(torch.int64)
     K = v.shape[0]
@@ -363,12 +536,13 @@ def reduce_plain(slab: torch.Tensor) -> torch.Tensor:
             acc = _add_prefix(acc, tuple(a[h:] for a in acc),
                               min(h, live - h))
         h //= 2
-    s = tuple(a[0] for a in acc)                      # (8, 10, Q) each
+    s = tuple(a[0] for a in acc)                      # (NB, 10, Q) each
+    nb = v.shape[1]
     d = 1
-    while d < NUM_BUCKETS:
-        s = _add_prefix(s, tuple(x[d:] for x in s), NUM_BUCKETS - d)
+    while d < nb:
+        s = _add_prefix(s, tuple(x[d:] for x in s), nb - d)
         d *= 2
-    h = NUM_BUCKETS // 2
+    h = nb // 2
     while h:
         s = _add_prefix(s, tuple(x[h:] for x in s), h)
         h //= 2
@@ -376,7 +550,8 @@ def reduce_plain(slab: torch.Tensor) -> torch.Tensor:
 
 
 def reduce(slab: torch.Tensor) -> torch.Tensor:
-    """Kernel K7 on a CUDA tensor, the plain version on a CPU tensor."""
+    """Kernel K7 on a CUDA tensor (its chunk merge on a one-point slab),
+    the plain version on a CPU tensor."""
     _check_slab(slab)
     if slab.device.type == "cpu":
         return reduce_plain(slab)
@@ -384,20 +559,32 @@ def reduce(slab: torch.Tensor) -> torch.Tensor:
     K, Q = slab.shape[0], slab.shape[-1]
     out = torch.empty((4, L, Q), dtype=torch.int32, device=slab.device)
     if Q:
-        _cuda.launch("fixed_reduce", "fixed_msm", "bp_fixed_reduce", slab,
-                     out, Q, K, red_groups(K))
+        name = "fixed_reduce" if slab.shape[1] == NUM_BUCKETS \
+            else "fixed_merge"
+        _cuda.launch(name, "fixed_msm", "bp_" + name, slab, out, Q, K,
+                     red_groups(K))
     return out
 
 
 # -- the MSM -------------------------------------------------------------------------
 
-def msm_digits_niels(niels: torch.Tensor, digits: torch.Tensor,
+def msm_digits_niels(niels, digits: torch.Tensor,
                      consttime: bool = True) -> torch.Tensor:
-    """Niels stream (3, 10, S) int32 (a FixedBaseTables' or a subset's
-    `.niels`) and signed digits (S, Q) int8 -> (4, 10, Q) int32 points, on
-    the inputs' device.  `consttime=False` only for public rows (K6's
-    direct form; the JAX package's keyword of the same name)."""
-    return reduce(accumulate(niels, digits, consttime))
+    """A Niels stream (3, 10, S) int32 (a FixedBaseTables' or a subset's
+    `.niels`) or TableRows (S rows of a table, `table_rows`), and signed
+    digits (S, Q) int8 -> (4, 10, Q) int32 points, on the inputs' device:
+    K6's one-hot form and K7.  `consttime=False` only for public rows (the
+    JAX package's keyword of the same name), given as TableRows: K6's
+    direct form over the table's multiples and K7's chunk merge.  K12
+    takes every row under _ILP2."""
+    if isinstance(niels, TableRows):
+        if not (consttime or _ILP2):
+            return reduce(accumulate_direct(niels.mult, digits, niels.sel))
+        niels = niels.gathered()
+    elif not (consttime or _ILP2):
+        raise ValueError("the direct form reads a table's multiples: pass "
+                         "TableRows (FixedBaseTables.table_rows)")
+    return reduce(accumulate(niels, digits))
 
 
 # -- coefficient rows: the host prover's MSMs ----------------------------------------
@@ -424,7 +611,10 @@ def _device_rows(tables, coef_bytes, consttime: bool = False) -> torch.Tensor:
     plain versions on CPU tables."""
     _check_rows(tables, coef_bytes)
     coef = torch.as_tensor(coef_bytes).to(tables.niels.device)
-    return msm_digits_niels(tables.niels, digit_stream(coef), consttime)
+    if consttime:
+        return msm_digits_niels(tables.niels, digit_stream(coef))
+    return msm_digits_niels(tables.table_rows(), digit_stream(coef),
+                            consttime=False)
 
 
 def _host_rows(tables, coef_bytes: np.ndarray, consttime: bool):

@@ -295,26 +295,28 @@ def stage2_fused(n: int, m: int, x_bytes, l0, l1, r0, r1, t0, t1, t2,
     return txs, a, b, gw, hw, t_x, t_xb, e_b
 
 
-def round_emit(N, nk, niels_l, niels_r, a, b, gw, hw, w_bytes):
-    """One IPP round's L / R: both digit streams, both MSMs, compression ->
-    (2P, 32) rows [L | R] (_round_emit; the first round, nk = N, is this
-    alone: round_first_fused)."""
+def round_emit(N, nk, tables, sel_l, sel_r, a, b, gw, hw, w_bytes):
+    """One IPP round's L / R: both digit streams, both MSMs (K6's direct
+    form over the full tables' rows sel_l / sel_r, the round's base subsets'
+    row maps), compression -> (2P, 32) rows [L | R] (_round_emit; the first
+    round, nk = N, is this alone: round_first_fused)."""
     w = S.from_bytes32(w_bytes)
     dig_l, dig_r = round_digits_compact(N, nk, a, b, gw, hw, w)
-    pts = torch.cat([FM.msm_digits_niels(niels_l, dig_l, consttime=False),
-                     FM.msm_digits_niels(niels_r, dig_r, consttime=False)],
+    pts = torch.cat([FM.msm_digits_niels(tables.table_rows(sel), dig,
+                                         consttime=False)
+                     for sel, dig in ((sel_l, dig_l), (sel_r, dig_r))],
                     dim=-1)
     return C.compress(pts)
 
 
-def roundk_fused(N: int, nk: int, niels_l, niels_r, a, b, gw, hw, u_bytes,
-                 ui_bytes, w_bytes):
+def roundk_fused(N: int, nk: int, tables, sel_l, sel_r, a, b, gw, hw,
+                 u_bytes, ui_bytes, w_bytes):
     """A later IPP round: fold the previous one (2 nk -> nk) with its
     challenge, then emit this round's L / R."""
     u = S.from_bytes32(u_bytes)
     uinv = S.from_bytes32(ui_bytes)
     a, b, gw, hw = round_fold(N, 2 * nk, a, b, gw, hw, u, uinv)
-    lr = round_emit(N, nk, niels_l, niels_r, a, b, gw, hw, w_bytes)
+    lr = round_emit(N, nk, tables, sel_l, sel_r, a, b, gw, hw, w_bytes)
     return lr, a, b, gw, hw
 
 
@@ -438,15 +440,14 @@ def round_emit_dyn(a, b, gw, hw, w, em):
     return _coef_digits(coef_l), _coef_digits(coef_r)
 
 
-def _emit_lr(niels, em, a, b, gw, hw, w) -> torch.Tensor:
-    """One round's L / R over the full table's rows em["sel_l"] /
-    em["sel_r"] -> (2P, 32) compressed rows [L | R]."""
+def _emit_lr(tables, em, a, b, gw, hw, w) -> torch.Tensor:
+    """One round's L / R over the full tables' rows em["sel_l"] /
+    em["sel_r"] (K6's direct form reads its multiples through the row map)
+    -> (2P, 32) compressed rows [L | R]."""
     dig_l, dig_r = round_emit_dyn(a, b, gw, hw, w, em)
     pts = torch.cat([
-        FM.msm_digits_niels(niels.index_select(2, em["sel_l"]), dig_l,
-                            consttime=False),
-        FM.msm_digits_niels(niels.index_select(2, em["sel_r"]), dig_r,
-                            consttime=False)], dim=-1)
+        FM.msm_digits_niels(tables.table_rows(em[key]), dig, consttime=False)
+        for dig, key in ((dig_l, "sel_l"), (dig_r, "sel_r"))], dim=-1)
     return C.compress(pts)
 
 
@@ -474,13 +475,14 @@ def stage0_eager(n: int, m: int, niels_bb, niels_a, niels_s, key: bytes,
                             vb_bytes, bits), red
 
 
-def prove_mid_fused(n: int, m: int, niels, states_z, red, bits, yz_bytes,
+def prove_mid_fused(n: int, m: int, tables, states_z, red, bits, yz_bytes,
                     vb_bytes):
     """Everything between the challenges z and the first u: stage 1 (T_1,
     T_2), x, stage 2, w, the IPP domain separator and round 0, with the
     transcripts on the device.
 
-    niels: the full table's stream (3, 10, (2N + 2) 64); states_z: (200, P)
+    tables: the full FixedBaseTables (its Niels stream (3, 10, (2N + 2) 64)
+    and multiples); states_z: (200, P)
     post-z STROBE states (every transcript at _ROUND_COUNTERS); red:
     stage 0's blinds; bits (N, P); yz_bytes (3P, 32) rows [y | z | y^-1]
     of rp_ts_yz; vb_bytes (m P, 32) the value blindings.
@@ -495,7 +497,8 @@ def prove_mid_fused(n: int, m: int, niels, states_z, red, bits, yz_bytes,
 
     l0, l1, r0, r1, t0, t1, t2, zz_zpow, tdig = stage1(
         n, m, bits, y, z, sl, sr, t1b, t2b)
-    tb = C.compress(FM.msm_digits_niels(niels[:, :, :128].contiguous(), tdig))
+    tb = C.compress(FM.msm_digits_niels(tables.niels[:, :, :128].contiguous(),
+                                        tdig))
     ts.append_rows(b"T_1", tb[:P].T)
     ts.append_rows(b"T_2", tb[P:].T)
     x = ts.challenge_scalar(b"x")
@@ -509,12 +512,12 @@ def prove_mid_fused(n: int, m: int, niels, states_z, red, bits, yz_bytes,
     w = ts.challenge_scalar(b"w")
     ts.innerproduct_domain_sep(N)
 
-    lr0 = _emit_lr(niels, _round0_maps(N, bits.device), a, b, gw, hw, w)
+    lr0 = _emit_lr(tables, _round0_maps(N, bits.device), a, b, gw, hw, w)
     u, uinv = _absorb_round(ts, lr0)
     return (tb, lr0, w, a, b, gw, hw, u, uinv, ts.state()) + tuple(txs)
 
 
-def round_step_fused(niels, xs, k, w, a, b, gw, hw, u, uinv, st):
+def round_step_fused(tables, xs, k, w, a, b, gw, hw, u, uinv, st):
     """One shape-uniform IPP round (1 .. R - 1) whose maps come from the
     stacked xs (dyn_round_xs) by `k`, a (1,) device int64 index (rounds
     1, 2, .. are k = 0, 1, ..): the same tensors and launches for every
@@ -523,7 +526,7 @@ def round_step_fused(niels, xs, k, w, a, b, gw, hw, u, uinv, st):
     em = {key: v.index_select(0, k)[0] for key, v in xs.items() if key != "k"}
     a, b, gw, hw = fold_dyn(a, b, gw, hw, u, uinv, em["mask_fold"],
                             em["idx_fold"], em["glo"])
-    lr = _emit_lr(niels, em, a, b, gw, hw, w)
+    lr = _emit_lr(tables, em, a, b, gw, hw, w)
     ts = DeviceStrobe(st, *_ROUND_COUNTERS)
     u, uinv = _absorb_round(ts, lr)
     return lr, a, b, gw, hw, u, uinv, ts.state()
@@ -540,7 +543,7 @@ def prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by, eb_by):
     return torch.stack(lrs), fin
 
 
-def prove_rest(n: int, m: int, niels, states_z, red, bits, yz_bytes,
+def prove_rest(n: int, m: int, tables, states_z, red, bits, yz_bytes,
                vb_bytes):
     """Everything after the y / z challenges (prove_mid_fused's inputs), as
     three segments: prove_mid_fused, round_step_fused for rounds 1 .. R - 1
@@ -550,14 +553,14 @@ def prove_rest(n: int, m: int, niels, states_z, red, bits, yz_bytes,
     (prove.mid, one prove.round a round, prove.fin)."""
     with tracing.span("prove.mid"):
         (tb, lr0, w, a, b, gw, hw, u, uinv, st,
-         tx_by, txb_by, eb_by) = prove_mid_fused(n, m, niels, states_z, red,
+         tx_by, txb_by, eb_by) = prove_mid_fused(n, m, tables, states_z, red,
                                                  bits, yz_bytes, vb_bytes)
     lrs = [lr0]
     xs = dyn_round_xs(n * m, bits.device)
     for k in range(xs["k"].shape[0]):
         with tracing.span("prove.round"):
             lr, a, b, gw, hw, u, uinv, st = round_step_fused(
-                niels, xs, xs["k"][k: k + 1], w, a, b, gw, hw, u, uinv, st)
+                tables, xs, xs["k"][k: k + 1], w, a, b, gw, hw, u, uinv, st)
         lrs.append(lr)
     with tracing.span("prove.fin"):
         lr_all, fin = prove_fin_fused(lrs, a, b, u, uinv, tx_by, txb_by,

@@ -113,15 +113,15 @@ class BatchProver:
             self.tables, PS.a_stream_sel(self.N))
         self.s_tables = fixed_msm.SubsetTables(
             self.tables, PS.s_base_sel(self.N))
-        # per-round active bases of the per-stage route: half the G's and
-        # the other half of the H's
-        self.round_tables = {}
+        # per-round row maps of the per-stage route's active bases: half
+        # the G's and the other half of the H's
+        self.round_rows = {}
         nk = self.N
         while nk > 1:
-            l_set, r_set = PS.round_base_sets(self.N, nk)
-            self.round_tables[nk] = (
-                fixed_msm.SubsetTables(self.tables, l_set),
-                fixed_msm.SubsetTables(self.tables, r_set))
+            self.round_rows[nk] = tuple(
+                torch.as_tensor(fixed_msm.base_rows(bases),
+                                device=self.tables.niels.device)
+                for bases in PS.round_base_sets(self.N, nk))
             nk //= 2
 
     def prove_batch(self, values: Sequence, blindings: Sequence,
@@ -372,7 +372,7 @@ class BatchProver:
                                     .reshape(count, strobe_size)[:, :200].T)
             yz_bytes = self._rows32(yz.raw, 3 * count)
         tb, lr_all, fin, st = yield PS.prove_rest(
-            n, m, self.tables.niels, states_z, red, bits, yz_bytes, vb_bytes)
+            n, m, self.tables, states_z, red, bits, yz_bytes, vb_bytes)
 
         with tracing.span("prove.writeback"):
             posf, pbf, flf = PS._ROUND_COUNTERS
@@ -431,14 +431,14 @@ class BatchProver:
         u_bytes = ui_bytes = None
         nk = N
         while nk > 1:
-            niels_l, niels_r = (t.niels for t in self.round_tables[nk])
+            sel_l, sel_r = self.round_rows[nk]
             if nk == N:
-                lr_dev = PS.round_emit(N, N, niels_l, niels_r, a, b, gw, hw,
-                                       w_bytes)
+                lr_dev = PS.round_emit(N, N, self.tables, sel_l, sel_r, a, b,
+                                       gw, hw, w_bytes)
             else:
                 lr_dev, a, b, gw, hw = PS.roundk_fused(
-                    N, nk, niels_l, niels_r, a, b, gw, hw, u_bytes, ui_bytes,
-                    w_bytes)
+                    N, nk, self.tables, sel_l, sel_r, a, b, gw, hw, u_bytes,
+                    ui_bytes, w_bytes)
             lr = yield lr_dev
             lrs.append(lr)
             u_buf = ctypes.create_string_buffer(count * 32)

@@ -167,11 +167,10 @@ IMAD_PER_CLOCK_SM = 64
 PEAK_INT8_MACS = 1979e12 / 2
 # shared-memory bytes per clock per SM (32 banks of 4 bytes)
 SMEM_BYTES_PER_CLOCK_SM = 128
-# shared-memory bytes per (row, lane) of K6: the one-hot form reads all 8
-# buckets (40 words each) to select, then reads and writes all 8 to update;
-# the direct form reads and writes one bucket, and only for a non-zero digit
+# shared-memory bytes per (row, lane) of K6's one-hot form: it reads all 8
+# buckets (40 words each) to select, then reads and writes all 8 to update
+# (the direct form keeps no shared memory)
 ONE_HOT_SMEM_BYTES = 3 * 8 * 40 * 4
-DIRECT_SMEM_BYTES = 2 * 40 * 4
 
 
 def log(*a):
@@ -1262,7 +1261,7 @@ def routes_phase(args, smi, failures, main):
             f"the card: {'byte-identical to' if same else 'DIFFERENT from'} "
             f"the C++ rows; launches {lk}")
         if not same or not lk.get("digits") or not lk.get("compress") \
-                or not lk.get("fixed_reduce") \
+                or not lk.get("fixed_reduce" if ct else "fixed_merge") \
                 or not lk.get("fixed_accumulate" if ct
                               else "fixed_accumulate_vt"):
             failures.append(f"card rows of {what}")
@@ -1289,8 +1288,8 @@ def routes_phase(args, smi, failures, main):
 # K17-K20, the prover's mod-l vector kernels
 SCALAR_KERNELS = ("sc_mul", "sc_add", "sc_tree_sum", "chacha_scalars")
 PROVE_KERNELS = ("compress", "fixed_accumulate", "fixed_accumulate_vt",
-                 "fixed_reduce", "fold", "smul", "digits", "keccak_f1600",
-                 "sinv") + SCALAR_KERNELS
+                 "fixed_reduce", "fixed_merge", "fold", "smul", "digits",
+                 "keccak_f1600", "sinv") + SCALAR_KERNELS
 VERIFY_KERNELS = ("decompress", "emit", "msm_bin_niels", "msm_accumulate",
                   "msm_reduce", "msm_horner")
 
@@ -1589,12 +1588,18 @@ def main() -> int:
                 log(f"  [{lib}] {line.strip()}")
     failures = []
     per_sm = FM.blocks_per_sm()
+    direct_warps = per_sm["fixed_accumulate_vt"] * FM.DIRECT_THREADS // 32
     log(f"fixed_msm blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
-        f"{per_sm}; K6's split assumes {FM.TARGET_THREADS // (sms * 32)} "
-        f"blocks of 32 lanes per SM")
-    if per_sm["fixed_accumulate"] * sms * 32 != FM.TARGET_THREADS \
-            or per_sm["fixed_accumulate_vt"] != per_sm["fixed_accumulate"]:
+        f"{per_sm}; K6 one-hot's split assumes {FM.TARGET_THREADS // (sms * 32)} "
+        f"blocks of 32 lanes per SM, the direct form's "
+        f"{FM.TARGET_THREADS_DIRECT // (sms * 32)} warps ({direct_warps} "
+        f"resident)")
+    if per_sm["fixed_accumulate"] * sms * 32 != FM.TARGET_THREADS:
         log("  NOTE: K6's occupancy differs from fixed_msm.TARGET_THREADS")
+    if direct_warps * sms * 32 < FM.TARGET_THREADS_DIRECT:
+        failures.append(f"K6's direct form holds {direct_warps} warps per "
+                        f"SM, under its split target's "
+                        f"{FM.TARGET_THREADS_DIRECT // (sms * 32)}")
     if per_sm["fixed_accumulate2"] != per_sm["fixed_accumulate"]:
         failures.append("K12 holds fewer blocks per SM than K6")
     log(f"msm resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
@@ -1609,11 +1614,14 @@ def main() -> int:
 
     def check_k6_forms(launches, N, halves, what):
         """K6 launches per form, per half: 4 one-hot (V, A, S, T) and
-        2 log2 N direct (each IPP round's L and R), one K7 per K6."""
+        2 log2 N direct (each IPP round's L and R), one K7 per K6 (its
+        8-bucket form after the one-hot form, its chunk merge after the
+        direct form)."""
         rounds = N.bit_length() - 1
         want = {"fixed_accumulate": 4 * halves,
                 "fixed_accumulate_vt": 2 * rounds * halves,
-                "fixed_reduce": (4 + 2 * rounds) * halves}
+                "fixed_reduce": 4 * halves,
+                "fixed_merge": 2 * rounds * halves}
         got = {k: launches[k] for k in want}
         log(f"  {what}: K6 / K7 launches {got} (expected {want})")
         if got != want:
@@ -1964,7 +1972,7 @@ def main() -> int:
     log(f"prove_batch launches (device-transcript route): {prove_launches}")
     for k in ("keccak_f1600", "sinv", "fold", "smul", "digits",
               "fixed_accumulate", "fixed_accumulate_vt", "fixed_reduce",
-              "compress") + SCALAR_KERNELS:
+              "fixed_merge", "compress") + SCALAR_KERNELS:
         if prove_launches[k] == 0:
             failures.append(f"{k} not launched by the m=1 prover")
     halves = 2 if args.total >= prover.FUSED_HALVES_FROM \
@@ -2172,58 +2180,70 @@ def main() -> int:
 
     shape_ms = {}           # shape -> the direct K6's ms, for k12_against_k6
 
-    def fixed_shape_checks(what, niels, dig, public):
-        """At one main-path shape: each K6 form that serves it (the one-hot
-        form everywhere, the direct form on public rows) and K7 on its slab
-        against their plain versions (exact) and timed; the two forms
-        against each other -> {kernel: (max_abs_err, ms, plain ms, bytes,
-        multiply-adds)}."""
+    def fixed_shape_checks(what, niels, dig, kw):
+        """At one main-path shape (`niels`: the MSM's Niels rows; `kw`: the
+        call's keywords): each K6 form that serves it (the one-hot form
+        everywhere; on public rows the direct form, over the multiples
+        table and the round's row map) against its plain version (exact)
+        and timed, the two forms' points against each other, and K7 on the
+        slab that serves the rows -> {kernel: (max_abs_err, ms, plain ms,
+        bytes, multiply-adds)}."""
+        public = not kw.get("consttime", True)
         rows, q = dig.shape
         nonzero = int((dig != 0).sum())
-        plain, plain_ms = time_once(lambda: FM.accumulate_plain(niels, dig))
-        K = plain.shape[0]
-        log(f"  {what}: {rows} rows x {q} lanes, split {K} ({K * q} "
-            f"threads), {nonzero / (rows * q):.2%} non-zero digits; "
-            f"plain K6 {plain_ms:.2f} ms")
-        nbytes = niels.numel() * 4 + dig.numel() + plain.numel() * 4
         mads = nonzero * madd
-        b_ms, b_by = bound(nbytes, mads, imads)
+        forms = [("fixed_accumulate", lambda: FM.accumulate(niels, dig),
+                  lambda: FM.accumulate_plain(niels, dig))]
+        if public:
+            mult, sel = kw["mult"], kw["sel"]
+            forms.append((
+                "fixed_accumulate_vt",
+                lambda: FM.accumulate_direct(mult, dig, sel),
+                lambda: FM.accumulate_direct_plain(mult, dig, sel)))
         out, slabs = {}, {}
-        for name, ct in (("fixed_accumulate", True),
-                         ("fixed_accumulate_vt", False))[:1 + public]:
-            slabs[name] = FM.accumulate(niels, dig, consttime=ct)
+        for name, kernel, plain_fn in forms:
+            plain, plain_ms = time_once(plain_fn)
+            K = plain.shape[0]
+            slabs[name] = kernel()
             err = max_abs_err(slabs[name], plain)
-            ms = time_cuda(lambda: FM.accumulate(niels, dig, consttime=ct), 3)
-            floor = (rows * q * ONE_HOT_SMEM_BYTES if ct
-                     else nonzero * DIRECT_SMEM_BYTES) / smem_rate * 1e3
-            log(f"    {name}: max_abs_err {err}; {ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), shared-memory floor {floor:.4f} ms "
-                f"on {smi}")
+            ms = time_cuda(kernel, 3)
+            nbytes = niels.numel() * 4 + dig.numel() + plain.numel() * 4
+            b_ms, b_by = bound(nbytes, mads, imads)
+            floor = "" if name != "fixed_accumulate" else (
+                f", shared-memory floor "
+                f"{rows * q * ONE_HOT_SMEM_BYTES / smem_rate * 1e3:.4f} ms")
+            log(f"  {what}: {rows} rows x {q} lanes, "
+                f"{nonzero / (rows * q):.2%} non-zero digits; {name} split "
+                f"{K} ({K * q} threads): max_abs_err {err}; {ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}){floor}, plain "
+                f"{plain_ms:.2f} ms on {smi}")
             if err != 0:
                 failures.append(f"{name} on {what}")
             out[name] = (err, ms, plain_ms, nbytes, mads)
         if public:
             shape_ms[what] = out["fixed_accumulate_vt"][1]
-            same = torch.equal(slabs["fixed_accumulate"],
-                               slabs["fixed_accumulate_vt"])
-            log(f"    the two K6 forms' slabs {'equal' if same else 'DIFFER'}")
+            same = torch.equal(
+                C.compress(FM.reduce(slabs["fixed_accumulate"])),
+                C.compress(FM.reduce(slabs["fixed_accumulate_vt"])))
+            log(f"    the two K6 forms' points {'equal' if same else 'DIFFER'}")
             if not same:
                 failures.append(f"K6's two forms differ on {what}")
         slab = slabs["fixed_accumulate_vt" if public else "fixed_accumulate"]
+        K, nb = slab.shape[:2]
         pts = FM.reduce(slab)
         rplain, rplain_ms = time_once(lambda: FM.reduce_plain(slab))
         err = max_abs_err(pts, rplain)
         ms = time_cuda(lambda: FM.reduce(slab), 20)
         nbytes = slab.numel() * 4 + pts.numel() * 4
-        mads = q * ((K - 1) * FM.NUM_BUCKETS + 2 * (FM.NUM_BUCKETS - 1)) \
-            * add
+        mads = q * ((K - 1) * nb + 2 * (nb - 1)) * add
         b_ms, b_by = bound(nbytes, mads, imads)
-        log(f"    fixed_reduce ({FM.red_groups(K)} chunk groups): max_abs_err "
+        name = "fixed_merge" if nb == 1 else "fixed_reduce"
+        log(f"    {name} ({FM.red_groups(K)} chunk groups): max_abs_err "
             f"{err}; {ms:.4f} ms, plain {rplain_ms:.2f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
         if err != 0:
-            failures.append(f"fixed_reduce on {what}")
-        out["fixed_reduce"] = (err, ms, rplain_ms, nbytes, mads)
+            failures.append(f"{name} on {what}")
+        out[name] = (err, ms, rplain_ms, nbytes, mads)
         return out
 
     # -- 4. verifier kernels against their plain versions (exact: integer
@@ -2384,18 +2404,20 @@ def main() -> int:
                cpts.shape[-1] * encode_mads(), prove_launches)
         log(f"  fixed-base MSM at the m=1 shapes ({madd} multiplications per "
             f"mixed addition, {add} per addition):")
-        at_l = fixed_shape_checks(l_name, rniels, rdig, True)
+        at_l = fixed_shape_checks(l_name, rniels, rdig, rkw)
         sniels1, sdig1, skw1 = shapes1.got[s_name]
         if not skw1.get("consttime", True):
             failures.append("the m=1 S stream was sent to the direct K6")
-        at_s = fixed_shape_checks(s_name, sniels1, sdig1, False)
+        at_s = fixed_shape_checks(s_name, sniels1, sdig1, skw1)
         src, tpu = ("bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                     "bulletproofs_tpu/ops/fixed_msm.py:")
         record("fixed_accumulate", src, tpu + "274",
                *at_s["fixed_accumulate"], prove_launches)
         record("fixed_accumulate_vt", src, tpu + "274",
                *at_l["fixed_accumulate_vt"], prove_launches)
-        record("fixed_reduce", src, tpu + "346", *at_l["fixed_reduce"],
+        record("fixed_reduce", src, tpu + "346", *at_s["fixed_reduce"],
+               prove_launches)
+        record("fixed_merge", src, tpu + "346", *at_l["fixed_merge"],
                prove_launches)
         k12_against_k6(rniels, rdig, l_name)
 
@@ -2798,8 +2820,8 @@ def main() -> int:
         sniels, sdig, skw = shapes16.got[s16]
         if lkw.get("consttime", True) or not skw.get("consttime", True):
             failures.append(f"m={m16}: K6 forms not routed by row kind")
-        fixed_shape_checks(l16, lniels, ldig, True)
-        fixed_shape_checks(s16, sniels, sdig, False)
+        fixed_shape_checks(l16, lniels, ldig, lkw)
+        fixed_shape_checks(s16, sniels, sdig, skw)
         err, ms, plain_ms, nbytes, mads = k12_against_k6(sniels, sdig, s16)
         record("fixed_accumulate2", "bulletproofs_tpu_torch/csrc/fixed_msm.cu",
                "bulletproofs_tpu/ops/fixed_msm.py:206", err, ms, plain_ms,

@@ -24,7 +24,9 @@ from bulletproofs_tpu.ops import vec_curve as JC
 from bulletproofs_tpu_torch.core.ristretto import (RISTRETTO_BASEPOINT,
                                                    multiscalar_mul)
 from bulletproofs_tpu_torch.core.scalar import L as ELL, Scalar
+from bulletproofs_tpu_torch import tracing
 from bulletproofs_tpu_torch.ops import curve as C
+from bulletproofs_tpu_torch.ops import field as F
 from bulletproofs_tpu_torch.ops import fixed_msm as FM
 from bulletproofs_tpu_torch.ops import prover_stages as PS
 from bulletproofs_tpu_torch.ops.limbs import sc_ints_to_limbs
@@ -112,13 +114,13 @@ def test_plain_msm_matches_jax_pallas_interpret(small_stream):
     assert _compressed(out) == _jax_compressed(j)
 
 
-def _host_lanes(sel, digits):
+def _host_lanes(sel, digits, bases=None):
     """Host multiscalar_mul of each lane: row s = j * 64 + w holds 16^w
     Base_j, so lane q is sum_s digit[s, q] 16^w_s Base_j_s."""
-    bases = _bases()
+    bases = bases or _bases()
     out = []
     for q in range(digits.shape[1]):
-        acc = [0] * NB
+        acc = [0] * len(bases)
         for s, row in enumerate(map(int, sel)):
             acc[row // 64] += int(digits[s, q]) * 16 ** (row % 64)
         out.append(multiscalar_mul([Scalar(a % ELL) for a in acc],
@@ -139,17 +141,25 @@ def test_splits_give_the_same_point(small_stream, tables, splits):
     lanes, so that pick_splits alone would choose a split of 1).  40: a
     stream of 40 x 32 rows over 2 lanes, where pick_splits itself takes
     40 chunks (above the old cap of 16) and reduce_plain folds them in four
-    groups, through the direct form's wrapper, against the host MSM."""
+    groups, through the one-hot and the direct form's wrappers (the direct
+    form over a row map of the full tables), each against the host MSM:
+    the two slabs differ, their reduced points' bytes do not."""
     if splits == 40:
         sel = np.random.default_rng(58).integers(0, NB * 64, 40 * 32)
         digits = np.random.default_rng(59).integers(
             -7, 9, (40 * 32, 2)).astype(np.int8)
         digits[:64] = 0
         assert FM.pick_splits(40 * 32, 2) == 40
-        slab = FM.accumulate(FM.StreamSubsetTables(tables[0], sel).niels,
-                             torch.as_tensor(digits), consttime=False)
+        assert FM.pick_splits(40 * 32, 2, FM.TARGET_THREADS_DIRECT) == 40
+        sub = FM.StreamSubsetTables(tables[0], sel)
+        slab = FM.accumulate(sub.niels, torch.as_tensor(digits))
+        vt = FM.accumulate_direct(tables[0].mult, torch.as_tensor(digits),
+                                  sub.row_map)
         assert slab.shape == (40, 8, 4, 10, 2)
-        assert _compressed(FM.reduce(slab)) == _host_lanes(sel, digits)
+        assert vt.shape == (40, 1, 4, 10, 2)
+        want = _host_lanes(sel, digits)
+        assert _compressed(FM.reduce(slab)) == want
+        assert _compressed(FM.reduce(vt)) == want
         return
     sel, digits, _, out = small_stream
     niels = FM.StreamSubsetTables(tables[0], sel).niels
@@ -223,7 +233,7 @@ def test_msm_digits_of_coefficients_matches_host(tables):
 
 
 def test_wrappers_reject_bad_shapes(tables):
-    niels = tables[0].niels
+    niels, mult = tables[0].niels, tables[0].mult
     with pytest.raises(ValueError):
         FM.accumulate(niels, torch.zeros((10, 4), dtype=torch.int8))
     with pytest.raises(ValueError):
@@ -233,6 +243,20 @@ def test_wrappers_reject_bad_shapes(tables):
         FM.reduce(torch.zeros((2, 9, 4, 10, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
         FM.msm_digits_niels(niels, torch.zeros((64, 4), dtype=torch.int8))
+    with pytest.raises(ValueError):            # the direct form: no table
+        FM.msm_digits_niels(niels, torch.zeros((NB * 64, 4),
+                                               dtype=torch.int8),
+                            consttime=False)
+    with pytest.raises(ValueError):            # rows without a row map
+        FM.accumulate_direct(mult, torch.zeros((64, 4), dtype=torch.int8))
+    with pytest.raises(ValueError):            # a row map of another length
+        FM.accumulate_direct(mult, torch.zeros((64, 4), dtype=torch.int8),
+                             torch.zeros(63, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        FM.accumulate_direct(mult[:, :4].contiguous(),
+                             torch.zeros((NB * 64, 4), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        FM.reduce(torch.zeros((2, 2, 4, 10, 4), dtype=torch.int32))
 
 
 # -- K12: the two-set accumulation (_fixed_accum_kernel2 under _ILP2) -------------
@@ -351,9 +375,9 @@ def test_ilp2_switches_accumulate_to_k12(tables, monkeypatch):
 @pytest.mark.parametrize("m", [1, 2])
 def test_prover_sends_only_ipp_rows_to_the_direct_form(monkeypatch, m):
     """One proof at n = 8 on the device-transcript route (m = 1, 2) and, at
-    m = 1, on the per-stage route: every IPP round's L / R MSM passes
-    consttime=False (K6's direct form), every V / A / S / T MSM
-    consttime=True; the proofs verify on the host, and at m = 1 both
+    m = 1, on the per-stage route: every IPP round's L / R MSM takes K6's
+    direct form (`accumulate_direct`), every V / A / S / T MSM the one-hot
+    form (`accumulate`); the proofs verify on the host, and at m = 1 both
     routes give the same bytes."""
     import sys
     from bulletproofs_tpu_torch import (BatchProver, BulletproofGens,
@@ -363,13 +387,22 @@ def test_prover_sends_only_ipp_rows_to_the_direct_form(monkeypatch, m):
     values, blinds = [[3, 250][:m]], [[Scalar(5), Scalar(6)][:m]]
     if m == 1:
         values, blinds = [values[0][0]], [blinds[0][0]]
-    calls, real = [], FM.accumulate
+    calls = []
+    stages = ("_emit_lr", "round_emit", "stage0_fused", "stage1_fused",
+              "prove_mid_fused")
 
-    def recording(niels, digits, consttime=True):
-        calls.append((sys._getframe(2).f_code.co_name, consttime))
-        return real(niels, digits, consttime)
+    def recording(real, consttime):
+        def inner(*args):
+            f = sys._getframe(1)
+            while f.f_code.co_name not in stages:
+                f = f.f_back
+            calls.append((f.f_code.co_name, consttime))
+            return real(*args)
+        return inner
 
-    monkeypatch.setattr(FM, "accumulate", recording)
+    monkeypatch.setattr(FM, "accumulate", recording(FM.accumulate, True))
+    monkeypatch.setattr(FM, "accumulate_direct",
+                        recording(FM.accumulate_direct, False))
     out = []
     for fused in (True, False)[:3 - m]:
         calls.clear()
@@ -388,3 +421,103 @@ def test_prover_sends_only_ipp_rows_to_the_direct_form(monkeypatch, m):
         ps[0].verify_single(bp, pc, Transcript(b"routing"), vs[0], 8)
     else:
         ps[0].verify_multiple(bp, pc, Transcript(b"routing"), vs[0], 8)
+
+
+# -- K6's direct form: signed multiples from a table into one accumulator --------
+
+
+@pytest.mark.parametrize("j, w", [(0, 0), (1, 1), (3, 17), (4, 63)])
+def test_multiples_table_matches_host_multiples(tables, j, w):
+    """make_multiples' row j * 64 + w holds k 16^w Base_j for k = 1..8 as
+    canonical Niels limbs (Y+X, Y-X, 2dT) and two zero words: against the
+    host's scalar multiples at Z = 1."""
+    got = tables[0].mult[j * 64 + w]
+    assert got.shape == (8, 32) and not got[:, 30:].any()
+    base = _bases()[j]
+    for k in range(1, 9):
+        pt = base.scalar_mul(Scalar(k * 16 ** w % ELL))
+        niels = C.to_niels(torch.as_tensor(C.points_to_lanes(
+            C.normalized([pt]))))
+        want = torch.cat([F.canonicalize(c.to(torch.int64)) for c in niels])
+        assert torch.equal(got[k - 1, :30].to(torch.int64), want[:, 0])
+
+
+@pytest.fixture(scope="module")
+def round_tables():
+    """Tables over 2N + 2 = 6 bases (N = 2) and round 0's row maps as
+    prover_stages._emit_lr reads them (sel_l, sel_r)."""
+    r = random.Random(62)
+    bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+             for _ in range(6)]
+    emit, _ = PS._dyn_round_maps(2)
+    return bases, FM.FixedBaseTables(bases, "cpu"), emit[0]
+
+
+def _direct_case(case, tables, round_tables):
+    """-> (bases, tables, row map (numpy; None: every row), digits (S, Q)
+    int8 numpy, splits) of one case of the direct form."""
+    g = np.random.default_rng(63 + len(case))
+    full = tables[0]
+    if case.startswith("round"):
+        bases, full, em = round_tables
+        sel = em["sel_l" if case == "round_l" else "sel_r"]
+        digits = g.integers(-7, 9, (len(sel), 16)).astype(np.int8)
+        return bases, full, sel, digits, None
+    S, Q, splits, sel = {"split1": (NB * 64, 8, 1, None),
+                         "split2": (150, 16, 2, True),
+                         "split40": (40 * 32, 2, None, True),
+                         "zeros": (300, 33, 7, True),
+                         "empty_chunks": (100, 45, 40, True)}[case]
+    if sel:
+        sel = g.integers(0, NB * 64, S)
+    digits = g.integers(-7, 9, (S, Q)).astype(np.int8)
+    if case == "zeros":
+        digits[:, 5] = 0                     # a whole lane
+        digits[100:180] = 0                  # a run of rows
+    return _bases(), full, sel, digits, splits
+
+
+@pytest.mark.parametrize("case", ["split1", "split2", "split40", "zeros",
+                                  "empty_chunks", "round_l", "round_r"])
+def test_direct_form_matches_host(tables, round_tables, case):
+    """K6's direct form (plain) and K7's chunk merge against the host MSM
+    of every lane: splits 1, 2 and 40 (pick_splits' own, at 2 lanes), a
+    zero lane and a zero run of rows (split 7: a short last chunk), 45
+    lanes in 40 chunks of 3 rows of which the last 6 are empty, and round
+    0's L / R row maps of the full tables at N = 2."""
+    bases, full, sel, digits, splits = _direct_case(case, tables,
+                                                    round_tables)
+    rows = None if sel is None else torch.as_tensor(np.asarray(sel))
+    dig = torch.as_tensor(digits)
+    if splits is None:
+        slab = FM.accumulate_direct(full.mult, dig, rows)
+        splits = FM.pick_splits(len(digits), digits.shape[1],
+                                FM.TARGET_THREADS_DIRECT)
+    else:
+        slab = FM._accumulate_direct_plain(full.mult, dig, rows, splits)
+    assert slab.shape == (splits, 1, 4, 10, digits.shape[1])
+    rsel = np.arange(len(digits)) if sel is None else sel
+    assert _compressed(FM.reduce(slab)) == _host_lanes(rsel, digits, bases)
+
+
+def test_direct_entry_counts_rows_and_matches_one_hot(tables):
+    """msm_digits_niels(consttime=False) over a row map (TableRows) gives
+    the one-hot form's points on the same rows, and with the recorder on
+    counts its rows x lanes as `fixed_direct_rows` in the open span."""
+    port = tables[0]
+    sel = torch.as_tensor(np.random.default_rng(64).integers(0, NB * 64, 90))
+    dig = torch.as_tensor(np.random.default_rng(65).integers(
+        -7, 9, (90, 12)).astype(np.int8))
+    tracing.reset()
+    tracing.enable()
+    try:
+        with tracing.span("prove"):
+            got = FM.msm_digits_niels(port.table_rows(sel), dig,
+                                      consttime=False)
+    finally:
+        tracing.disable()
+    counts = dict(tracing.records()[0].counts)
+    tracing.reset()
+    assert counts == {"fixed_direct_rows": 90 * 12}
+    want = FM.msm_digits_niels(port.table_rows(sel), dig)
+    assert _compressed(got) == _compressed(want)

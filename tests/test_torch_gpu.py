@@ -226,30 +226,34 @@ def test_fixed_msm_kernels_match_plain(cuda):
 
 
 def test_fixed_msm_direct_form_matches_one_hot(cuda):
-    """K6's direct form (public rows) equals its one-hot form and
-    accumulate_plain limb for limb, at a split above 16 (1280 rows over 45
-    lanes, not a multiple of 32, zero digits included); K7 equals
-    reduce_plain on 40, 20 and 5 of those chunks (4, 2 and 1 groups)."""
+    """K6's direct form (public rows) equals its plain version limb for
+    limb at a split above 16 (1280 rows of a row map over 45 lanes, not a
+    multiple of 32, zero digits included), and K7's outputs of both forms
+    give the same compressed points; K7's chunk merge equals reduce_plain
+    on 40, 20 and 5 of those chunks (4, 2 and 1 groups)."""
     from bulletproofs_tpu_torch.ops import fixed_msm as FM
     r = random.Random(86)
     bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
              for _ in range(20)]
-    niels = FM.FixedBaseTables(bases, cuda).niels
+    tables = FM.FixedBaseTables(bases, cuda)
+    sel = torch.as_tensor(np.random.default_rng(85).permutation(20 * 64)
+                          ).to(cuda)
     d = np.random.default_rng(87).integers(-7, 9, (20 * 64, 45))
     d[:, 3] = 0
     d[100:400] = 0
     digits = torch.as_tensor(d.astype(np.int8)).to(cuda)
-    assert FM.pick_splits(20 * 64, 45) == 40
+    assert FM.pick_splits(20 * 64, 45, FM.TARGET_THREADS_DIRECT) == 40
     before = dict(_cuda.LAUNCHES)
-    vt = FM.accumulate(niels, digits, consttime=False)
-    ct = FM.accumulate(niels, digits)
-    plain = FM.accumulate_plain(niels, digits)
+    vt = FM.accumulate_direct(tables.mult, digits, sel)
+    ct = FM.accumulate(tables.niels.index_select(2, sel), digits)
+    plain = FM.accumulate_direct_plain(tables.mult, digits, sel)
     torch.cuda.synchronize()
-    assert vt.shape[0] == 40
-    assert torch.equal(vt, ct) and torch.equal(vt, plain)
+    assert vt.shape == (40, 1, 4, 10, 45)
+    assert torch.equal(vt, plain)
     assert _cuda.LAUNCHES["fixed_accumulate_vt"] == \
         before["fixed_accumulate_vt"] + 1
     assert _cuda.LAUNCHES["fixed_accumulate"] == before["fixed_accumulate"] + 1
+    assert torch.equal(C.compress(FM.reduce(vt)), C.compress(FM.reduce(ct)))
     for k in (40, 20, 5):                 # K7 with 4, 2 and 1 chunk groups
         part = vt[:k].contiguous()
         out = FM.reduce(part)
@@ -257,10 +261,80 @@ def test_fixed_msm_direct_form_matches_one_hot(cuda):
         assert torch.equal(out, FM.reduce_plain(part))
 
 
+@pytest.mark.parametrize("rows, lanes", [(65600, 512), (32832, 1024)])
+def test_fixed_msm_direct_form_at_the_cells_shapes(cuda, rows, lanes):
+    """K6's direct form at the IPP L / R shapes of the benchmark's cells
+    (m = 16: (N + 1) 64 = 65,600 rows x 512 proofs; m = 8: 32,832 x
+    1,024), through a row map of that length into a table of 64 bases:
+    the slab equals the plain version's limb for limb, and K7's chunk
+    merge equals reduce_plain; one wave at the split target."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    r = random.Random(rows)
+    bases = [RISTRETTO_BASEPOINT.scalar_mul(Scalar(r.randrange(1, ELL)))
+             for _ in range(64)]
+    tables = FM.FixedBaseTables(bases, cuda)
+    g = np.random.default_rng(lanes)
+    sel = torch.as_tensor(g.integers(0, 64 * 64, rows)).to(cuda)
+    digits = torch.as_tensor(g.integers(-7, 9, (rows, lanes)).astype(
+        np.int8)).to(cuda)
+    slab = FM.accumulate_direct(tables.mult, digits, sel)
+    splits = slab.shape[0]
+    assert splits * lanes == FM.TARGET_THREADS_DIRECT
+    assert torch.equal(slab, FM.accumulate_direct_plain(tables.mult, digits,
+                                                        sel))
+    out = FM.reduce(slab)
+    torch.cuda.synchronize()
+    assert torch.equal(out, FM.reduce_plain(slab))
+
+
+def test_fixed_direct_residency_meets_its_split_target(cuda):
+    """The direct form keeps no shared memory: registers alone give it
+    DIRECT_MIN_BLOCKS (2) resident blocks of DIRECT_THREADS (128) per SM,
+    8 warps, the count its split target assumes."""
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    per_sm = FM.blocks_per_sm()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert per_sm["fixed_accumulate_vt"] >= FM.DIRECT_MIN_BLOCKS
+    assert FM.DIRECT_MIN_BLOCKS * FM.DIRECT_THREADS // 32 >= 8
+    assert FM.TARGET_THREADS_DIRECT == \
+        sms * FM.DIRECT_MIN_BLOCKS * FM.DIRECT_THREADS
+
+
+def test_prove_bytes_equal_the_one_hot_forms(cuda):
+    """One m = 2 prove on the card, its IPP rows through K6's direct form,
+    against the same prove with those rows sent to the one-hot form over
+    the gathered Niels rows (the parent design's points, limb for limb):
+    the same proofs, commitments and transcripts, byte for byte."""
+    from bulletproofs_tpu_torch import BatchProver
+    from bulletproofs_tpu_torch.ops import fixed_msm as FM
+    bp, pc = BulletproofGens(8, 2), PedersenGens()
+    prover = BatchProver(bp, pc, 8, 2, device=cuda)
+    values = [[5, 250], [1, 2], [255, 0]]
+    blinds = [[Scalar(3 + i), Scalar(9 + i)] for i in range(3)]
+
+    def prove():
+        ts = [Transcript(b"gpu one-hot %d" % i) for i in range(3)]
+        ps, vs = prover.prove_batch(values, blinds, ts, rng=Rng(89))
+        torch.cuda.synchronize()
+        return ([p.to_bytes() for p in ps], vs,
+                [t.strobe.buf.raw for t in ts])
+
+    direct = prove()
+    real = FM.msm_digits_niels
+    FM.msm_digits_niels = lambda niels, digits, consttime=True: real(
+        niels, digits, True)
+    try:
+        one_hot = prove()
+    finally:
+        FM.msm_digits_niels = real
+    assert direct == one_hot
+
+
 def test_prove_routes_public_rows_to_the_direct_form(cuda):
     """One half of a device-transcript prove at n = 8, m = 1 launches K6's
     one-hot form 4 times (V, A, S, T), its direct form 2 log2(8) = 6 times
-    (each IPP round's L and R) and K7 once per K6 launch."""
+    (each IPP round's L and R) and K7 once per K6 launch: its 8-bucket
+    form after the one-hot form, its chunk merge after the direct form."""
     from bulletproofs_tpu_torch import BatchProver
     bp, pc = BulletproofGens(8, 1), PedersenGens()
     prover = BatchProver(bp, pc, 8, device=cuda)
@@ -271,9 +345,10 @@ def test_prove_routes_public_rows_to_the_direct_form(cuda):
         [Transcript(l) for l in labels], rng=Rng(88))
     torch.cuda.synchronize()
     got = {k: _cuda.LAUNCHES[k] for k in
-           ("fixed_accumulate", "fixed_accumulate_vt", "fixed_reduce")}
+           ("fixed_accumulate", "fixed_accumulate_vt", "fixed_reduce",
+            "fixed_merge")}
     assert got == {"fixed_accumulate": 4, "fixed_accumulate_vt": 6,
-                   "fixed_reduce": 10}
+                   "fixed_reduce": 4, "fixed_merge": 6}
     proofs[4].verify_single(bp, pc, Transcript(labels[4]), vcs[4], 8)
 
 
