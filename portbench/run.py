@@ -10,7 +10,8 @@ with 2 and prints no result.  Everything a cell needs is found by name:
 its configuration `configs/<config>.json`, its traffic
 `traffic/<traffic>.json` and the system under test that the traffic
 names, `systems/<system>.py`, and one reader a metric,
-`metrics/<metric>.py`.
+`metrics/<metric>.py`.  A cell held back from BENCHMARK.json, its entries
+in `pending/<cell>.json`, runs the same way (`load_bench`).
 
 A run: set-up (the system's inputs from the seed, the program's tables,
 two warm-up calls of the cell's own shape), then a closed loop of calls
@@ -70,6 +71,26 @@ def load_json(*parts) -> dict:
         return json.load(fh)
 
 
+def load_bench(root: Optional[str] = None) -> dict:
+    """BENCHMARK.json, with the entries of the cells held back from it
+    (`pending/<cell>.json`: a configuration, the cell and its metrics,
+    without bounds) that it does not name yet.  A held-back cell runs as
+    any other, so that a later PR can measure it before it moves the
+    entries into BENCHMARK.json; its metrics list their cells, so no cell
+    of BENCHMARK.json reports them."""
+    root = root or ROOT
+    with open(os.path.join(root, "BENCHMARK.json")) as fh:
+        bench = json.load(fh)
+    pending = os.path.join(root, "portbench", "pending")
+    for name in sorted(os.listdir(pending) if os.path.isdir(pending) else ()):
+        with open(os.path.join(pending, name)) as fh:
+            extra = json.load(fh)
+        for key in ("configs", "workloads", "end_to_end", "per_layer"):
+            have = {e["name"] for e in bench[key]}
+            bench[key] += [e for e in extra[key] if e["name"] not in have]
+    return bench
+
+
 def cell_metrics(bench: dict, cell: str, kind: str) -> List[dict]:
     """The metrics of `kind` ("end_to_end" or "per_layer") that the cell
     reports: those that list it, and those that list no cells (a per-layer
@@ -105,22 +126,28 @@ class Run:
         self.shape = {}
 
 
+def cell_parts(bench: dict, workload: str):
+    """A cell of `bench` by name -> (its entry, its configuration, its
+    traffic, the System class its traffic names)."""
+    cell = next((c for c in bench["workloads"] if c["name"] == workload), None)
+    if cell is None:
+        raise SystemExit(f"no workload {workload!r} in the benchmark")
+    cfg_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    cfg = load_json(cfg_entry["file"])
+    traffic = load_json("portbench", "traffic", cell["traffic"] + ".json")
+    system = importlib.import_module(f"portbench.systems.{traffic['system']}")
+    return cell, cfg, traffic, system.System
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", workers: Optional[int] = None,
              bench: Optional[dict] = None, log=print) -> dict:
     """One run of a cell -> the result object (without the check of the
     loaded modules, which main() makes)."""
-    bench = bench or load_json("BENCHMARK.json")
-    cell = next((c for c in bench["workloads"] if c["name"] == workload), None)
-    if cell is None:
-        raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
-    cfg_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    cfg = load_json(cfg_entry["file"])
-    traffic = load_json("portbench", "traffic", cell["traffic"] + ".json")
+    bench = bench or load_bench()
+    cell, cfg, traffic, System = cell_parts(bench, workload)
     t_in = process_age_s()
-    system = importlib.import_module(
-        f"portbench.systems.{traffic['system']}").System(cfg, traffic, seed,
-                                                         device)
+    system = System(cfg, traffic, seed, device)
     t_sys = process_age_s()
     import torch
     from . import trace as T
@@ -225,11 +252,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
-    bench = load_json("BENCHMARK.json")
+    bench = load_bench()
     cell = next((c for c in bench["workloads"]
                  if c["name"] == args.workload), None)
     if cell is None:
-        print(f"no workload {args.workload!r} in BENCHMARK.json",
+        print(f"no workload {args.workload!r} in the benchmark",
               file=sys.stderr)
         return 2
     # one process with one host thread: the prover's host glue is serial,

@@ -98,14 +98,19 @@ def test_a_full_check_of_24_cells_fits(bench):
 
 
 @pytest.mark.gpu
-def test_one_short_run_on_the_card():
+@pytest.mark.parametrize("cell", ["rp64x16.prove", "rp64x1.verify"])
+def test_one_short_run_on_the_card(cell):
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     p = subprocess.run([sys.executable, "-m", "portbench.run", "--workload",
-                        "rp64x16.prove", "--seed", "3", "--seconds", "3",
+                        cell, "--seed", "3", "--seconds", "3",
                         "--trace", "1"], cwd=REPO, capture_output=True,
                        text=True, timeout=1200)
     assert p.returncode == 0, p.stderr[-4000:]
     res = json.loads(p.stdout.strip().splitlines()[-1])
     assert res["correct"] and res["device"]["busy_s"] > 0
+    from portbench import run as RUN
+    want = {m["name"] for m in RUN.cell_metrics(RUN.load_bench(REPO), cell,
+                                                "per_layer")}
+    assert set(res["metrics"]) == want
